@@ -1,0 +1,18 @@
+"""PyTorch/CUDA port of the HIR compiler flow for NVIDIA Hopper.
+
+Mirrors the layout of the JAX/Pallas reference package (``repro``) module by
+module, so a reader finds the counterpart of each file under the same name:
+
+  core/           the framework-free compiler core (IR, builder, verifier,
+                  passes, cycle-accurate simulator, gallery) — an own copy
+  core/lower/     ``lower_to_torch`` (functional lowering) and
+                  ``lower_to_cuda`` (HIR -> generated CUDA C++ kernel)
+  kernels/        hand-written CUDA kernels and their wrappers (``ops``)
+  csrc/           the CUDA C++ sources, built with ``nvcc`` at first use
+  compat          carries a design and its stimulus over from the reference
+
+Entry points take an explicit ``device=`` and default to the CUDA device;
+they raise when there is none.  The CPU is used only on request.
+"""
+
+from ._device import resolve_device  # noqa: F401

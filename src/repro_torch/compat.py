@@ -1,0 +1,40 @@
+"""State carried across from the reference package: a design and its stimulus.
+
+This flow has no weights.  What both sides must agree on is the *design*
+(an HIR module) and the *stimulus* (integer or float arrays, one per memref
+argument).  The textual IR is the interchange format for the first —
+``print_module`` on one side, ``parse`` on the other — and numpy
+arrays are the format for the second.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import numpy as np
+import torch
+
+from ._device import resolve_device
+from .core import ir
+from .core.lower.common import cuda_dtype
+from .core.parser import parse
+
+
+def module_from_reference_text(text: str) -> ir.Module:
+    """Rebuild a module from the reference package's ``print_module`` text
+    with this package's own parser, so both sides compute on one design —
+    including one built by the reference's builder and rewritten by the
+    reference's passes."""
+    return parse(text)
+
+
+def to_tensor(array, elem_type: ir.Type,
+              device: Optional[Union[str, torch.device]] = None) -> torch.Tensor:
+    """Stimulus array -> tensor of the memref element's dtype on ``device``
+    (``None`` = the CUDA device).  ``make_inputs`` yields ``int64`` numpy
+    arrays; they are cast to the memref's dtype as the reference casts them."""
+    dev = resolve_device(device)
+    dtype = cuda_dtype(elem_type)
+    if isinstance(array, torch.Tensor):
+        return array.to(device=dev, dtype=dtype)
+    return torch.as_tensor(np.ascontiguousarray(array)).to(device=dev, dtype=dtype)

@@ -1,20 +1,32 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path once on an NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's main paths once on an NVIDIA GPU.
 
     python3 chip_smoke.py
 
 Needs one CUDA device and ``nvcc``; exits non-zero without them.  It builds
 every kernel from the sources in this checkout, holds each against its plain
-PyTorch version on the card, then drives the flow a user of the compiler
-runs — build an HIR design, verify it, optimize it, lower it to a generated
-CUDA kernel, run it on one stimulus vector and on 4096 of them, and check
-the results against the NumPy oracle, the cycle-accurate simulator and the
-functional lowering — and the GEMM binding through the hand-written matmul.
+PyTorch version on the card, then drives:
 
-Output: one JSON object per line (``env``, ``build``, ``kernels``,
-``main_path``), the card's name and power limit as ``nvidia-smi`` gives
-them, and a last line ``{"ok": true, "device": {...}}``.  Any mismatch or
-failure exits non-zero before that line.
+* the flow a user of the compiler runs — build an HIR design, verify it,
+  optimize it, lower it to a generated CUDA kernel, run it on one stimulus
+  vector and on 4096 of them, and check the results against the NumPy
+  oracle, the cycle-accurate simulator and the functional lowering — and the
+  GEMM binding through the hand-written matmul;
+* serving tinyllama-1.1b at full width (random weights from a seed): the
+  continuous-batching ``Engine`` answers 8 requests over 4 slots, every
+  decode step through the decode-attention kernel;
+* its 1024-token prefill step, through the flash-attention kernel;
+* the reference's decode-consistency invariant at full width: teacher-forced
+  decode steps against the forward pass over the same 128 tokens.
+
+Each path runs with every kernel's launch count set to 0 just before it and
+read just after; a row of the ``kernels`` line that names a main-path shape
+carries that count, and the rows of further checks nested under it carry
+``"launches": null``.  Output: one JSON object per line (``env``, ``build``,
+``main_path``, ``serve``, ``prefill``, ``consistency``, ``profile``,
+``kernels``), the card's name and power limit as ``nvidia-smi`` gives them,
+and a last line ``{"ok": true, "device": {...}}``.  Any mismatch or failure
+exits non-zero before that line.
 """
 
 from __future__ import annotations
@@ -27,6 +39,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 if not torch.cuda.is_available():
     sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -39,8 +52,14 @@ from repro_torch.core.lower import lower_to_cuda, lower_to_torch, simulate  # no
 from repro_torch.core.lower import to_cuda  # noqa: E402
 from repro_torch.core.passes import DEFAULT_PIPELINE_SPEC, PassManager  # noqa: E402
 from repro_torch.core.verifier import verify  # noqa: E402
+from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels import decode_attention as dec  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import matmul as mm  # noqa: E402
+from repro_torch.launch.serve import Engine, make_requests, serve_requests  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
+from repro_torch.train.steps import make_prefill_step  # noqa: E402
 
 SEED = 0
 LANES = 4096
@@ -76,6 +95,29 @@ MATMUL_SHAPES = [
     (4096, 4096, 4096, dict(bm=128, bn=128, bk=16)),
 ]
 MATMUL_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # relative to |plain|max
+
+# the served model and its traffic: 8 requests of 64-token prompts and 32 new
+# tokens over 4 slots of a 1024-position cache; prefill of 4 x 1024 tokens
+ARCH = "tinyllama-1.1b"
+SLOTS, MAX_LEN, REQUESTS, PROMPT, NEW = 4, 1024, 8, 64, 32
+PREFILL_B, PREFILL_S = 4, 1024
+CONSIST_B, CONSIST_S = 2, 128
+# The invariant is held twice on the same weights.  In float32 it is held to
+# the reference test's own tolerance (2e-3 + 2e-3 |forward|): there both
+# paths compute the same numbers up to the order of their sums.  In bfloat16
+# the forward and the teacher-forced decode round activations at other places
+# (one product over 128 rows against 128 products of one row) through 22
+# residual layers, so they drift apart by bf16 rounding noise, which grows
+# with width and depth.  The limit is stated in units of that noise, as
+# measured in the same run: the bf16 decode may differ from the bf16 forward
+# by at most 3x the largest distance of the bf16 forward from the float32
+# forward (each bf16 path carries noise of about that size; 3x leaves the
+# decode's own noise room to be twice the forward's).
+CONSIST_TOL32 = 2e-3
+CONSIST_NOISE = 3.0
+
+# the reference kernel tests' _tol: |kernel - plain| <= atol + rtol * |plain|
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
 
 def emit(key: str, value) -> None:
@@ -169,7 +211,8 @@ def phase_build(device) -> dict:
     once; then wait for them."""
     t0 = time.perf_counter()
     compiled = {}
-    pending = [_build.start_build(*_build.csrc_source("matmul.cu"))]
+    pending = [_build.start_build(*_build.csrc_source(src))
+               for src in ("matmul.cu", "flash_attention.cu", "decode_attention.cu")]
     for dname, gal, paper, large in DESIGNS:
         for tag, size in (("paper", paper), ("large", large)):
             module, name, fn = compile_design(gal, size, device)
@@ -350,16 +393,339 @@ def phase_main_path(device) -> dict:
     return launches
 
 
+# -- attention kernels ------------------------------------------------------------
+
+BF16, F32 = torch.bfloat16, torch.float32
+
+
+def dtype_name(dtype) -> str:
+    return str(dtype).split(".")[-1]
+
+
+def check_close(what: str, got, want, dtype) -> float:
+    """max |got - want|; fails unless every element is within the reference
+    tests' tolerance, atol + rtol * |want|."""
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    tol = ATTN_TOL[dtype]
+    if got.shape != want.shape or not bool((diff <= tol + tol * w.abs()).all()):
+        fail(f"{what}: max |difference| {float(diff.max())} outside {tol} + {tol} * |plain|")
+    return float(diff.max())
+
+
+def bound(flops: float, nbytes: float, dtype) -> tuple[float, str]:
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def seeded(shape, dtype, device, g) -> torch.Tensor:
+    return torch.randn(shape, generator=g).to(device=device, dtype=dtype)
+
+
+def k3_case(case: str, B, Sq, Sk, H, KvH, D, dtype, device, g, *, window=None,
+            kv_len=None) -> dict:
+    """The flash-attention kernel, causal, against its plain version and
+    against SDPA on the same (B,H,S,D) views of model-layout tensors."""
+    q = seeded((B, Sq, H, D), dtype, device, g).transpose(1, 2)
+    k, v = (seeded((B, Sk, KvH, D), dtype, device, g).transpose(1, 2) for _ in range(2))
+    kwargs = dict(causal=True, window=window, kv_len=kv_len)
+    got = fa.flash_attention(q, k, v, **kwargs)
+    torch.cuda.synchronize()
+    want = ref.flash_attention_ref(q, k, v, **kwargs)
+    name = f"flash_attention[{case} {B}x{Sq}x{Sk} H{H}/{KvH} D{D} {dtype_name(dtype)}]"
+    err = check_close(name, got, want, dtype)
+    q_pos = torch.arange(Sq, device=device)[:, None]
+    k_pos = torch.arange(Sk, device=device)[None, :]
+    valid = (k_pos <= q_pos) & (k_pos < (kv_len or Sk))
+    if window is not None:
+        valid &= k_pos > q_pos - window
+    if window is None and kv_len is None:
+        library = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+    else:
+        library = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=valid, enable_gqa=True)
+    check_close(f"{name}: the library call", library(), want, dtype)
+    es = q.element_size()
+    pairs = int(valid.sum())                      # (query, key) pairs this mask lets through
+    flops = 4.0 * B * H * pairs * D               # two products, a multiply and an add each
+    nbytes = (2 * B * H * Sq * D + 2 * B * KvH * (kv_len or Sk) * D) * es
+    bound_ms, bound_by = bound(flops, nbytes, dtype)
+    return {
+        "name": name, "route": "cuda", "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:96",
+        "shape": {"B": B, "Sq": Sq, "Sk": Sk, "H": H, "KvH": KvH, "D": D,
+                  "dtype": dtype_name(dtype), "causal": True, "window": window, "kv_len": kv_len},
+        "launches": None, "max_abs_err": err, "tolerance": f"{ATTN_TOL[dtype]} + {ATTN_TOL[dtype]}*|plain|",
+        "ms": time_ms(lambda: fa.flash_attention(q, k, v, **kwargs), 20),
+        "plain_ms": time_ms(lambda: ref.flash_attention_ref(q, k, v, **kwargs), 5),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": time_ms(library, 20),
+    }
+
+
+def phase_kernels_k3(device) -> list[dict]:
+    """K3 at the two shapes the main paths run it at (the prefill, the
+    consistency check), then checks that no main path counts (their rows
+    carry ``launches: null``): the prefill shape in float32, where the
+    tolerance is tight enough to see a dropped tile, a ragged, a windowed MQA
+    and a head dim 128 case."""
+    g = torch.Generator(device="cpu").manual_seed(SEED)
+    a = get_config(ARCH).attn
+    H, KvH, D = a.n_heads, a.n_kv_heads, a.d_head
+    rows = [k3_case("prefill", PREFILL_B, PREFILL_S, PREFILL_S, H, KvH, D, BF16, device, g),
+            k3_case("consistency", CONSIST_B, CONSIST_S, CONSIST_S, H, KvH, D, BF16, device, g)]
+    rows[0]["checks"] = [
+        k3_case("prefill float32", PREFILL_B, PREFILL_S, PREFILL_S, H, KvH, D, F32, device, g),
+        k3_case("ragged", 4, 1000, 1024, H, KvH, D, BF16, device, g, kv_len=1000),
+        k3_case("window", 4, 1024, 1024, H, 1, D, BF16, device, g, window=256),
+        k3_case("float32", 2, 512, 512, H, KvH, 128, F32, device, g),
+    ]
+    return rows
+
+
+def k4_case(case: str, B, L, H, KvH, D, dtype, lengths, device, g) -> dict:
+    """The decode-attention kernel against its plain version and against SDPA
+    with a boolean mask, on one query token per lane."""
+    q = seeded((B, H, D), dtype, device, g)
+    k, v = (seeded((B, L, KvH, D), dtype, device, g) for _ in range(2))
+    n = torch.tensor(lengths, dtype=torch.int32, device=device) if isinstance(lengths, list) \
+        else lengths
+    got = ops.decode(q, k, v, n)
+    torch.cuda.synchronize()
+    want = ref.decode_attention_ref(q, k, v, n)
+    per_lane = torch.broadcast_to(torch.as_tensor(n, device=device), (B,))
+    name = f"decode_attention[{case} {B}x{L} H{H}/{KvH} D{D} {dtype_name(dtype)}]"
+    err = check_close(name, got, want, dtype)
+    mask = (torch.arange(L, device=device)[None, :] < per_lane[:, None])[:, None, None, :]
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+    library = lambda: F.scaled_dot_product_attention(q[:, :, None], kt, vt, attn_mask=mask,
+                                                     enable_gqa=True)[:, :, 0]
+    check_close(f"{name}: the library call", library(), want, dtype)
+    rows_read = int(per_lane.clamp(max=L).sum())  # cache rows the lanes attend to
+    es = q.element_size()
+    bound_ms, bound_by = bound(4.0 * H * D * rows_read,
+                               (2 * B * H * D + 2 * rows_read * KvH * D) * es, dtype)
+    return {
+        "name": name, "route": "cuda", "source": "src/repro_torch/csrc/decode_attention.cu",
+        "replaces": "src/repro/kernels/decode_attention.py:73",
+        "shape": {"B": B, "L": L, "H": H, "KvH": KvH, "D": D, "dtype": dtype_name(dtype),
+                  "length": lengths},
+        "launches": None, "max_abs_err": err, "tolerance": f"{ATTN_TOL[dtype]} + {ATTN_TOL[dtype]}*|plain|",
+        "ms": time_ms(lambda: ops.decode(q, k, v, n), 50),
+        "plain_ms": time_ms(lambda: ref.decode_attention_ref(q, k, v, n), 20),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": time_ms(library, 50),
+    }
+
+
+def partial_merge_check(device, g) -> dict:
+    """``decode_partial`` equals its plain version (``normalize=False``) in
+    float32, and over 4 sequence shards, merged by ``merge_partials``, equals
+    the full decode to 1e-5."""
+    B, L, S = SLOTS, MAX_LEN, 4
+    a = get_config(ARCH).attn
+    q = seeded((B, a.n_heads, a.d_head), F32, device, g)
+    k, v = (seeded((B, L, a.n_kv_heads, a.d_head), F32, device, g) for _ in range(2))
+    n = torch.tensor([1, 100, 513, 1024], dtype=torch.int32, device=device)
+    plain_err = max(check_close(f"decode_partial {B}x{L} float32: {what}", got, want, F32)
+                    for what, got, want in zip(("acc", "m", "l"), ops.decode_partial(q, k, v, n),
+                                               ref.decode_attention_ref(q, k, v, n,
+                                                                        normalize=False)))
+    full = ops.decode(q, k, v, n)
+    w = L // S
+    parts = [ops.decode_partial(q, k[:, s * w:(s + 1) * w], v[:, s * w:(s + 1) * w],
+                                (n - s * w).clamp(0, w)) for s in range(S)]
+    merged = ops.merge_partials(*(torch.stack(x) for x in zip(*parts)))
+    err = float((merged - full).abs().max())
+    if not err <= 1e-5:
+        fail(f"decode_partial over {S} shards merged differs from the full decode by {err}")
+    return {"case": f"decode_partial vs plain, and x{S} shards + merge_partials, "
+                    f"{B}x{L} float32",
+            "max_abs_err_vs_plain": plain_err, "tolerance_vs_plain": "2e-05 + 2e-05*|plain|",
+            "max_abs_err": err, "tolerance": 1e-5}
+
+
+def phase_kernels_k4(device) -> list[dict]:
+    """K4 at the two shapes the main paths run it at (serving with a length
+    per lane, the consistency check), then checks that no main path counts
+    (``launches: null``): the serving shape in float32, where the tolerance is
+    tight enough to see a dropped chunk, one scalar length, and the partials
+    against their plain version and merged across sequence shards."""
+    g = torch.Generator(device="cpu").manual_seed(SEED + 1)
+    a = get_config(ARCH).attn
+    H, KvH, D = a.n_heads, a.n_kv_heads, a.d_head
+    lanes = [1, 100, 513, 1024]
+    rows = [k4_case("serve", SLOTS, MAX_LEN, H, KvH, D, BF16, lanes, device, g),
+            k4_case("consistency", CONSIST_B, CONSIST_S, H, KvH, D, BF16,
+                    [CONSIST_S] * CONSIST_B, device, g)]
+    rows[0]["checks"] = [k4_case("serve float32", SLOTS, MAX_LEN, H, KvH, D, F32, lanes, device, g),
+                         k4_case("scalar length", SLOTS, MAX_LEN, H, KvH, D, BF16, 700, device, g),
+                         partial_merge_check(device, g)]
+    return rows
+
+
+# -- serving ------------------------------------------------------------------------
+
+
+def zero_counts() -> None:
+    to_cuda.launches = mm.launches = fa.launches = dec.launches = 0
+
+
+def counts() -> dict:
+    return {"lower_to_cuda": to_cuda.launches, "matmul": mm.launches,
+            "flash_attention": fa.launches, "decode_attention": dec.launches}
+
+
+def phase_serve(device):
+    """The Engine at full width answers the requests; K4 runs in every decode
+    step, prefill's included, once per layer."""
+    cfg = get_config(ARCH)
+    t0 = time.perf_counter()
+    eng = Engine(cfg, SLOTS, MAX_LEN, device=device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    queue = make_requests(REQUESTS, PROMPT, NEW, cfg.vocab, seed=SEED)
+    zero_counts()
+    t0 = time.perf_counter()
+    done, steps = serve_requests(eng, queue)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    n = counts()
+    tokens = sum(len(r.out) for r in done)
+    if len(done) != REQUESTS or any(len(r.out) != NEW for r in done):
+        fail(f"serve: {len(done)} requests done, new tokens {[len(r.out) for r in done]}")
+    if not all(0 <= tok < cfg.vocab for r in done for tok in r.out):
+        fail("serve: a token outside the vocabulary")
+    if n["decode_attention"] != cfg.n_layers * eng.decode_calls:
+        fail(f"serve: {n['decode_attention']} decode-attention launches for "
+             f"{eng.decode_calls} decode calls of {cfg.n_layers} layers")
+    emit("serve", {"arch": ARCH, "params": transformer.param_count(eng.params),
+                   "slots": SLOTS, "max_len": MAX_LEN, "requests": len(done),
+                   "prompt_tokens": PROMPT, "tokens": tokens, "decode_steps": steps,
+                   "decode_calls": eng.decode_calls, "seconds": secs,
+                   "tokens_per_s": tokens / secs, "init_seconds": init_s, "launches": n,
+                   "first_outputs": [r.out[:8] for r in done[:2]]})
+    return eng, n
+
+
+def phase_prefill(eng, device):
+    """The prefill step at B 4, S 1024 on the served weights: K3 once per layer."""
+    cfg = eng.cfg
+    g = torch.Generator(device="cpu").manual_seed(SEED + 2)
+    tokens = torch.randint(1, cfg.vocab, (PREFILL_B, PREFILL_S), generator=g)
+    step = make_prefill_step(cfg, device=device)
+    zero_counts()
+    t0 = time.perf_counter()
+    logits = step(eng.params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    n = counts()
+    if logits.shape != (PREFILL_B, PREFILL_S, cfg.padded_vocab) or \
+            not bool(torch.isfinite(logits).all()):
+        fail(f"prefill: logits {tuple(logits.shape)} not finite or of the wrong shape")
+    if n["flash_attention"] != cfg.n_layers:
+        fail(f"prefill: {n['flash_attention']} flash-attention launches for {cfg.n_layers} layers")
+    emit("prefill", {"batch": PREFILL_B, "seq": PREFILL_S, "seconds": secs,
+                     "tokens_per_s": PREFILL_B * PREFILL_S / secs, "launches": n,
+                     "max_abs_logit": float(logits.float().abs().max())})
+    return n
+
+
+def as_float32(tree):
+    if isinstance(tree, dict):
+        return {k: as_float32(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [as_float32(v) for v in tree]
+    return tree.float()
+
+
+def teacher_forced(params, cfg, tokens, device):
+    """(forward logits, teacher-forced decode logits) over ``tokens``."""
+    fwd, _ = transformer.lm_forward(params, {"tokens": tokens}, cfg)
+    cache = transformer.init_lm_cache(cfg, tokens.shape[0], tokens.shape[1], device=device)
+    steps = []
+    for t in range(tokens.shape[1]):
+        logits, cache = transformer.lm_decode_step(params, cache, tokens[:, t:t + 1], t, cfg)
+        steps.append(logits[:, 0])
+    torch.cuda.synchronize()
+    return fwd.float(), torch.stack(steps, 1).float()
+
+
+def phase_consistency(eng, device):
+    """The reference's invariant at full width: teacher-forced decode steps
+    (K4) reproduce the forward pass's logits (K3) over the same tokens — in
+    bfloat16, as served, and on the same weights in float32."""
+    cfg = eng.cfg
+    g = torch.Generator(device="cpu").manual_seed(SEED + 3)
+    tokens = torch.randint(1, cfg.vocab, (CONSIST_B, CONSIST_S), generator=g).to(device)
+    zero_counts()
+    fwd16, dec16 = teacher_forced(eng.params, cfg, tokens, device)
+    n = counts()
+    if n["flash_attention"] != cfg.n_layers or \
+            n["decode_attention"] != cfg.n_layers * CONSIST_S:
+        fail(f"consistency: launches {n}")
+    cfg32 = cfg.scaled(dtype="float32")
+    fwd32, dec32 = teacher_forced(as_float32(eng.params), cfg32, tokens, device)
+    gap32 = (dec32 - fwd32).abs()
+    if not bool((gap32 <= CONSIST_TOL32 + CONSIST_TOL32 * fwd32.abs()).all()):
+        fail(f"consistency: float32 decode differs from forward by {float(gap32.max())}")
+    gap16 = float((dec16 - fwd16).abs().max())
+    noise = float((fwd16 - fwd32).abs().max())
+    if not gap16 <= CONSIST_NOISE * noise:
+        fail(f"consistency: bfloat16 decode differs from forward by {gap16} > "
+             f"{CONSIST_NOISE} x {noise}, the bf16 forward's distance from float32")
+    emit("consistency", {
+        "batch": CONSIST_B, "tokens": CONSIST_S, "max_abs_logit": float(fwd16.abs().max()),
+        "bf16_decode_vs_forward": gap16, "bf16_forward_vs_f32_forward": noise,
+        "bf16_decode_vs_f32_forward": float((dec16 - fwd32).abs().max()),
+        "bf16_limit": CONSIST_NOISE * noise, "f32_decode_vs_forward": float(gap32.max()),
+        "f32_limit": f"{CONSIST_TOL32} + {CONSIST_TOL32}*|forward|", "launches_bf16": n})
+    return n
+
+
+def phase_profile(eng) -> None:
+    """Where a serving decode step's time goes: device time by kernel and the
+    device's idle share over 8 steps at the served shape."""
+    from torch.profiler import ProfilerActivity, profile
+
+    toks = torch.ones((SLOTS, 1), dtype=torch.int32)
+    pos = torch.full((SLOTS,), PROMPT + NEW, dtype=torch.int32)
+
+    def step():
+        transformer.lm_decode_step(eng.params, eng.cache, toks, pos, eng.cfg)
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(8):
+            step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    device_events = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+    by_kernel = sorted(((e.key, e.self_device_time_total / 8) for e in device_events),
+                       key=lambda kv: -kv[1])
+    busy_us = sum(t for _, t in by_kernel)
+    emit("profile", {
+        "what": f"lm_decode_step, {SLOTS} lanes at position {PROMPT + NEW}, 8 steps",
+        "wall_ms_per_step": wall_us / 8e3,
+        "device_ms_per_step": busy_us / 1e3 if busy_us else "not measured",
+        "device_idle_share": 1 - busy_us * 8 / wall_us if busy_us else "not measured",
+        "decode_attention_ms_per_step": sum(t for k, t in by_kernel
+                                            if "partial_kernel" in k or "merge_kernel" in k) / 1e3,
+        "top_kernels_ms_per_step": [[k[:80], t / 1e3] for k, t in by_kernel[:8]]})
+
+
 def main() -> None:
     device = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False     # the library yardstick is float32 too
     smi = phase_env()
     compiled = phase_build(device)
     rows = phase_kernels_k1(compiled, device) + phase_kernels_k2(device)
+    k3_rows, k4_rows = phase_kernels_k3(device), phase_kernels_k4(device)
+    torch.cuda.empty_cache()
 
-    # every count to 0, then the main path, then read the counts
-    to_cuda.launches = 0
-    mm.launches = 0
+    # every count to 0, then the compiler's main path, then read the counts
+    zero_counts()
     per_case = phase_main_path(device)
     totals = {"lower_to_cuda": to_cuda.launches, "matmul": mm.launches}
     for kernel, n in totals.items():
@@ -369,6 +735,18 @@ def main() -> None:
             fail(f"{kernel}: launches per case do not add up to the wrapper's count {n}")
     for row in rows:
         row["launches"] = per_case.get(row["name"], 0)
+
+    # the serving paths, each with the counts at 0 just before it
+    eng, served = phase_serve(device)
+    prefilled = phase_prefill(eng, device)
+    consistent = phase_consistency(eng, device)
+    phase_profile(eng)
+    k3_rows[0]["launches"] = prefilled["flash_attention"]
+    k3_rows[1]["launches"] = consistent["flash_attention"]
+    k4_rows[0]["launches"] = served["decode_attention"]
+    k4_rows[1]["launches"] = consistent["decode_attention"]
+    rows += k3_rows + k4_rows
+    for row in rows:
         if row["launches"] <= 0:
             fail(f"the main path never launched {row['name']}")
     emit("kernels", rows)

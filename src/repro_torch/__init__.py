@@ -9,7 +9,12 @@ module, so a reader finds the counterpart of each file under the same name:
                   ``lower_to_cuda`` (HIR -> generated CUDA C++ kernel)
   kernels/        hand-written CUDA kernels and their wrappers (``ops``)
   csrc/           the CUDA C++ sources, built with ``nvcc`` at first use
-  compat          carries a design and its stimulus over from the reference
+  configs/        model configurations (the four dense archs)
+  models/         the dense language model (attention, MLP, transformer)
+  train/          the prefill and decode step factories
+  launch/         ``serve``: the continuous-batching ``Engine``
+  compat          carries a design, its stimulus and a model's parameters
+                  over from the reference
 
 Entry points take an explicit ``device=`` and default to the CUDA device;
 they raise when there is none.  The CPU is used only on request.

@@ -1,10 +1,13 @@
-"""State carried across from the reference package: a design and its stimulus.
+"""State carried across from the reference package.
 
-This flow has no weights.  What both sides must agree on is the *design*
-(an HIR module) and the *stimulus* (integer or float arrays, one per memref
-argument).  The textual IR is the interchange format for the first —
-``print_module`` on one side, ``parse`` on the other — and numpy
-arrays are the format for the second.
+The compiler flow has no weights.  What both sides must agree on is the
+*design* (an HIR module) and the *stimulus* (integer or float arrays, one per
+memref argument).  The textual IR is the interchange format for the first —
+``print_module`` on one side, ``parse`` on the other — and numpy arrays are
+the format for the second.
+
+The model has weights: ``params_from_reference`` maps the reference's
+``init_lm`` tree, fetched to the host as numpy arrays, onto the port's.
 """
 
 from __future__ import annotations
@@ -38,3 +41,20 @@ def to_tensor(array, elem_type: ir.Type,
     if isinstance(array, torch.Tensor):
         return array.to(device=dev, dtype=dtype)
     return torch.as_tensor(np.ascontiguousarray(array)).to(device=dev, dtype=dtype)
+
+
+def params_from_reference(tree, device: Optional[Union[str, torch.device]] = None):
+    """The reference's parameter tree (nested dicts and lists of numpy
+    arrays, as ``jax.device_get`` returns them) as the same tree of tensors
+    on ``device`` (``None`` = the CUDA device).  numpy has no bfloat16: a
+    bfloat16 leaf travels as float32 holding its values, which are exact
+    there, and becomes bfloat16 again on the port's side."""
+    dev = resolve_device(device)
+    if isinstance(tree, dict):
+        return {k: params_from_reference(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [params_from_reference(v, dev) for v in tree]
+    arr = np.asarray(tree)
+    if arr.dtype.name == "bfloat16":
+        return torch.tensor(arr.astype(np.float32)).to(device=dev, dtype=torch.bfloat16)
+    return torch.tensor(arr).to(dev)             # a copy: fetched arrays are read-only

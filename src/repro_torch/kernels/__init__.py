@@ -1,10 +1,12 @@
 """Hand-written CUDA kernels for Hopper (``csrc/``) and their wrappers.
 
-  matmul            tiled matmul (the paper's systolic GEMM binding)
+  matmul            tiled matmul (the paper's systolic GEMM binding)     K2
+  flash_attention   causal / windowed / GQA attention, online softmax    K3
+  decode_attention  one token against a KV cache, per-lane lengths      K4
 
-Use via ``repro_torch.kernels.ops`` (padding).  Each kernel has a plain
-PyTorch version in ``ref`` that CPU tensors take.
+Use via ``repro_torch.kernels.ops`` (padding, model layouts).  Each kernel
+has a plain PyTorch version in ``ref`` that CPU tensors take.
 """
 
 from . import ops  # noqa: F401
-from .ref import matmul_ref  # noqa: F401
+from .ref import decode_attention_ref, flash_attention_ref, matmul_ref  # noqa: F401

@@ -1,0 +1,110 @@
+"""Flash attention (causal / sliding-window / ``kv_len``, GQA) — kernel K3.
+
+The Pallas kernel runs a grid (B, H, Sq/bq, Sk/bk) with the KV dim
+sequential and the online-softmax state in VMEM scratch.  On the card
+(``csrc/flash_attention.cu``) one block of four warps takes 64 query rows of
+one head and loops over tiles of 64 keys, each staged once in shared memory
+for all its rows; the state stays in registers.  Under a causal mask the
+loop stops at the block's diagonal.  The kernel reads any strided layout
+whose head dim is contiguous, so ``ops.mha`` hands it the model's (B,S,H,D)
+tensors as (B,H,S,D) views without copying, and it masks the ragged edges
+itself: Sq and Sk need not tile, and the caller never pads.  Skipping the
+tiles outside a block's causal and window bounds is exact only for a row
+that sees at least one key; a row that sees none (possible only under a
+window, from row ``kv_len + window - 1`` on) would average V over whatever
+tiles a design visits, so ``flash_attention`` refuses such inputs with a
+``ValueError`` on every device.
+
+CUDA tensors launch the kernel or raise; CPU tensors take the plain version
+(``ref.flash_attention_ref``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from . import _build
+from .ref import flash_attention_ref
+
+HEAD_DIMS = (16, 32, 64, 128)
+
+#: kernel launches made by ``flash_attention`` (a run resets it to 0, drives
+#: its path, and reads it to show the path used the kernel)
+launches = 0
+
+_SYMBOL = {torch.float32: "launch_flash_attention_f32",
+           torch.bfloat16: "launch_flash_attention_bf16"}
+_launchers: dict = {}
+
+
+def _launcher(dtype: torch.dtype):
+    if dtype not in _launchers:
+        lib = _build.load_library(*_build.csrc_source("flash_attention.cu"))
+        _launchers[dtype] = _build.bind(
+            lib, _SYMBOL[dtype],
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p, ctypes.c_float]
+            + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    return _launchers[dtype]
+
+
+def check_rows(*tensors: torch.Tensor) -> None:
+    """The kernels read rows of 4 elements at a time: the last dim must be
+    contiguous, every other stride a multiple of 4 elements, and the data
+    16-byte aligned."""
+    for t in tensors:
+        if t.stride(-1) != 1 or any(s % 4 for s in t.stride()[:-1]) or t.data_ptr() % 16:
+            raise ValueError(f"rows of a {tuple(t.shape)} tensor with strides {t.stride()} "
+                             "are not contiguous and 16-byte aligned")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    scale: Optional[float] = None,
+                    kv_len: Optional[int] = None) -> torch.Tensor:
+    """q: (B, H, Sq, D); k,v: (B, KvH, Sk, D) with H % KvH == 0.  Keys at
+    positions >= ``kv_len`` (default Sk) are masked out of the softmax; every
+    query row must see at least one key.
+    Returns (B, H, Sq, D) in q's dtype — on the card a (B,H,Sq,D) view of a
+    contiguous (B,Sq,H,D) tensor, the model's layout."""
+    B, H, Sq, D = q.shape
+    _, KvH, Sk, _ = k.shape
+    if H % KvH != 0:
+        raise ValueError(f"flash_attention: H={H} must be a multiple of KvH={KvH}")
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
+        raise ValueError(f"flash_attention: k {tuple(k.shape)} and v {tuple(v.shape)} "
+                         f"do not match q {tuple(q.shape)}")
+    if kv_len is not None and not 0 < kv_len <= Sk:
+        raise ValueError(f"flash_attention: kv_len={kv_len} outside (0, {Sk}]")
+    if window is not None and window < 1:
+        raise ValueError(f"flash_attention: window={window} must be at least 1")
+    n_keys = kv_len or Sk
+    if window is not None and Sq >= n_keys + window:
+        # row q sees keys (q - window, min(q, kv_len - 1)]: none once q >= kv_len + window - 1
+        raise ValueError(f"flash_attention: with window={window} and kv_len={n_keys}, query "
+                         f"rows {n_keys + window - 1}..{Sq - 1} see no key")
+    sc =scale if scale is not None else D ** -0.5
+    if q.device.type != "cuda":
+        return flash_attention_ref(q, k, v, causal=causal, window=window, scale=sc,
+                                   kv_len=kv_len)
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _SYMBOL:
+        raise TypeError(f"flash_attention takes float32 or bfloat16, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {D} not in {HEAD_DIMS}")
+    if not (q.device == k.device == v.device):
+        raise ValueError(f"operands on different devices: {q.device}, {k.device}, {v.device}")
+    check_rows(q, k, v)
+    out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device).transpose(1, 2)
+    strides = (ctypes.c_longlong * 12)(*[s for t in (q, k, v, out) for s in t.stride()[:3]])
+    global launches
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = _launcher(q.dtype)(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                                B, H, KvH, Sq, Sk, D, strides, sc, int(causal),
+                                window or 0, kv_len or Sk, stream)
+    _build.check_launch(rc, _SYMBOL[q.dtype])
+    launches += 1
+    return out

@@ -1,12 +1,84 @@
 """Plain PyTorch versions of the hand-written kernels (the ``ref.py``
 contract): each is the semantic ground truth its kernel is held against,
-and what a kernel's wrapper runs for tensors that lie on the CPU."""
+and what a kernel's wrapper runs for tensors that lie on the CPU.
+
+The attention versions take the kernels' own arguments (GQA by reading KV
+head ``h // (H // KvH)``, never by replicating it; the masks; a per-lane
+``length``) and repeat the Pallas bodies' arithmetic: float32 scores
+``(q * scale) . k``, masked scores ``-1e30`` rather than ``-inf``, and the
+normaliser floored at ``1e-30``.  With ``KvH == H`` they take the reference
+oracles' arguments and compute their function."""
 
 from __future__ import annotations
 
+from typing import Optional, Union
+
 import torch
+
+NEG_INF = -1e30
 
 
 def matmul_ref(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """float32 product (full float32, never TF32) cast back to ``x.dtype``."""
     return (x.float() @ y.float()).to(x.dtype)
+
+
+def _groups(H: int, KvH: int, who: str) -> int:
+    if KvH <= 0 or H % KvH:
+        raise ValueError(f"{who}: H={H} must be a multiple of KvH={KvH}")
+    return H // KvH
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: Optional[int] = None,
+                        scale: Optional[float] = None,
+                        kv_len: Optional[int] = None) -> torch.Tensor:
+    """q (B,H,Sq,D); k,v (B,KvH,Sk,D) (kernel layout).  Keys at positions
+    ``>= kv_len`` are masked, as are keys after the query (``causal``) and
+    ``window`` or more positions before it.  Returns (B,H,Sq,D) in q's dtype."""
+    B, H, Sq, D = q.shape
+    KvH, Sk = k.shape[1], k.shape[2]
+    G = _groups(H, KvH, "flash_attention")
+    sc = scale if scale is not None else D ** -0.5
+    qf = (q.float() * sc).reshape(B, KvH, G, Sq, D)
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qf, k.float())
+    q_pos = torch.arange(Sq, device=q.device)[:, None]
+    k_pos = torch.arange(Sk, device=q.device)[None, :]
+    valid = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        valid &= k_pos <= q_pos
+    if window is not None:
+        valid &= k_pos > q_pos - window
+    if kv_len is not None:
+        valid &= k_pos < kv_len
+    s = torch.where(valid, s, NEG_INF)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True)
+    o = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float()) / torch.clamp(l, min=1e-30)
+    return o.reshape(B, H, Sq, D).to(q.dtype)
+
+
+def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         length: Union[int, torch.Tensor], *,
+                         scale: Optional[float] = None, normalize: bool = True):
+    """q (B,H,D) one token; k,v (B,L,KvH,D) cache; ``length`` a scalar or one
+    per lane (B,): positions ``< length`` attend.  Returns the output (B,H,D)
+    in q's dtype or, with ``normalize=False``, the unnormalised accumulator in
+    q's dtype and the float32 statistics ``(acc, m, l)``, m and l (B,H)."""
+    B, H, D = q.shape
+    L, KvH = k.shape[1], k.shape[2]
+    G = _groups(H, KvH, "decode_attention")
+    sc = scale if scale is not None else D ** -0.5
+    qf = (q.float() * sc).reshape(B, KvH, G, D)
+    s = torch.einsum("bhgd,blhd->bhgl", qf, k.float())
+    n = torch.as_tensor(length, device=q.device).reshape(-1, 1)        # (1 or B, 1)
+    valid = torch.arange(L, device=q.device)[None, :] < n               # (1 or B, L)
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    m = s.amax(-1)
+    p = torch.exp(s - m[..., None])
+    l = p.sum(-1)
+    acc = torch.einsum("bhgl,blhd->bhgd", p, v.float())
+    if normalize:
+        return (acc / torch.clamp(l[..., None], min=1e-30)).reshape(B, H, D).to(q.dtype)
+    return acc.reshape(B, H, D).to(q.dtype), m.reshape(B, H), l.reshape(B, H)

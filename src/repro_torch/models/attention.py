@@ -1,0 +1,207 @@
+"""Attention: GQA with RoPE, flash-style chunked computation in plain torch
+(the oracle of the flash kernel), and single-token decode over a KV cache.
+The plain versions keep only what the dense slice uses (causal or not; the
+reference's window, soft-cap and query offset come with their blocks).
+
+On the card the reference's kernel-eligible regions run the hand-written
+kernels: ``attn_forward``'s attention is ``ops.mha`` (K3) and
+``attn_decode_step``'s softmax is ``ops.decode`` (K4).  What this dense slice
+does not cover — sliding windows (and their ring-buffer caches), logit
+soft-capping, cross-attention, the sequence-sharded decode — raises
+``NotImplementedError``; nothing falls back to a plain path on the card.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..configs.base import ModelCfg
+from ..kernels import ops
+from .common import apply_rope, dense, dtype_of, ninit
+
+NEG_INF = -1e30
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md queue A, item {item})")
+
+
+def _dense_slice_only(cfg: ModelCfg, window) -> None:
+    if window:
+        raise _not_ported("sliding-window attention and its ring-buffer cache", "6")
+    if cfg.attn.logit_softcap is not None:
+        raise _not_ported("attention logit soft-capping", "6")
+
+
+# ---------------------------------------------------------------------------
+# parameters
+# ---------------------------------------------------------------------------
+
+
+def init_attn(gen: torch.Generator, cfg: ModelCfg, cross: bool = False):
+    if cross:
+        raise _not_ported("cross-attention", "6")
+    a = cfg.attn
+    d = cfg.d_model
+    p = {
+        "wq": ninit(gen, (d, a.n_heads, a.d_head)),
+        "wk": ninit(gen, (d, a.n_kv_heads, a.d_head)),
+        "wv": ninit(gen, (d, a.n_kv_heads, a.d_head)),
+        "wo": ninit(gen, (a.n_heads, a.d_head, d), scale=0.02 / max(1, cfg.n_layers) ** 0.5),
+    }
+    if a.qkv_bias:
+        for name, heads in (("bq", a.n_heads), ("bk", a.n_kv_heads), ("bv", a.n_kv_heads)):
+            p[name] = torch.zeros((heads, a.d_head), dtype=torch.bfloat16, device=gen.device)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# flash-style chunked attention (plain torch oracle)
+# ---------------------------------------------------------------------------
+
+
+def flash_attention(q, k, v, *, causal: bool = True, kv_chunk: int = 1024):
+    """q: (B, Sq, H, D); k/v: (B, Sk, KvH, D).  Online-softmax over KV chunks:
+    O(Sq * kv_chunk) live memory instead of O(Sq * Sk)."""
+    B, Sq, H, D = q.shape
+    Sk, KvH = k.shape[1], k.shape[2]
+    G = H // KvH
+    scale = D ** -0.5
+    qf = (q.float() * scale).reshape(B, Sq, KvH, G, D)
+    q_pos = torch.arange(Sq, device=q.device)
+
+    acc = torch.zeros((B, Sq, KvH, G, D), dtype=torch.float32, device=q.device)
+    m = torch.full((B, Sq, KvH, G), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, Sq, KvH, G), dtype=torch.float32, device=q.device)
+    for c0 in range(0, Sk, kv_chunk):
+        kb = k[:, c0:c0 + kv_chunk].float()                   # (B, C, KvH, D)
+        vb = v[:, c0:c0 + kv_chunk].float()
+        pad = kv_chunk - kb.shape[1]                          # the reference pads the last chunk
+        if pad:
+            kb = torch.nn.functional.pad(kb, (0, 0, 0, 0, 0, pad))
+            vb = torch.nn.functional.pad(vb, (0, 0, 0, 0, 0, pad))
+        s = torch.einsum("bqhgd,bkhd->bqhgk", qf, kb)          # (B,Sq,KvH,G,C)
+        kv_pos = c0 + torch.arange(kv_chunk, device=q.device)
+        valid = (kv_pos < Sk)[None, :]
+        if causal:
+            valid = valid & (kv_pos[None, :] <= q_pos[:, None])
+        s = torch.where(valid[None, :, None, None, :], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum("bqhgk,bkhd->bqhgd", p, vb)
+        m = m_new
+    out = acc / torch.clamp(l[..., None], min=1e-30)
+    return out.reshape(B, Sq, H, D).to(q.dtype)
+
+
+def dense_attention(q, k, v, *, causal=True):
+    """Reference O(Sq*Sk) attention (small shapes / tests)."""
+    B, Sq, H, D = q.shape
+    KvH = k.shape[2]
+    G = H // KvH
+    qf = (q.float() * D ** -0.5).reshape(B, Sq, KvH, G, D)
+    s = torch.einsum("bqhgd,bkhd->bqhgk", qf, k.float())
+    if causal:
+        q_pos = torch.arange(Sq, device=q.device)
+        kv_pos = torch.arange(k.shape[1], device=q.device)
+        valid = kv_pos[None, :] <= q_pos[:, None]
+        s = torch.where(valid[None, :, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bqhgk,bkhd->bqhgd", p, v.float())
+    return o.reshape(B, Sq, H, D).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# block forward
+# ---------------------------------------------------------------------------
+
+
+def _project_qkv(p, x, cfg: ModelCfg):
+    a = cfg.attn
+    q, k, v = dense(x, p["wq"]), dense(x, p["wk"]), dense(x, p["wv"])
+    if a.qkv_bias:
+        q = q + p["bq"].to(q.dtype)
+        k = k + p["bk"].to(k.dtype)
+        v = v + p["bv"].to(v.dtype)
+    return q, k, v
+
+
+def attn_forward(p, x, cfg: ModelCfg, *, positions=None, window=None, kv=None,
+                 causal: bool = True):
+    """Self-attention over x (B,S,D).  ``causal=False`` gives bidirectional
+    self-attention.  On the card the attention is K3 (``ops.mha``); on the
+    CPU the reference's choice between the dense and the chunked plain
+    versions."""
+    if kv is not None:
+        raise _not_ported("cross-attention", "6")
+    _dense_slice_only(cfg, window)
+    a = cfg.attn
+    B, S, _ = x.shape
+    q, k, v = _project_qkv(p, x, cfg)
+    pos = positions if positions is not None else \
+        torch.arange(S, device=x.device)[None, :].expand(B, S)
+    q = apply_rope(q, pos, a.rope_theta, a.rope_dim)
+    k = apply_rope(k, pos, a.rope_theta, a.rope_dim)
+    Sk = k.shape[1]
+    if x.device.type == "cuda":
+        o = ops.mha(q, k, v, causal=causal)
+    elif Sk * S <= 2048 * 2048 or Sk <= 1024:
+        o = dense_attention(q, k, v, causal=causal)
+    else:
+        o = flash_attention(q, k, v, causal=causal)
+    return dense(o, p["wo"], 2)
+
+
+# ---------------------------------------------------------------------------
+# decode (single new token against a cache)
+# ---------------------------------------------------------------------------
+
+
+def init_attn_cache(batch: int, seq_len: int, cfg: ModelCfg, window: Optional[int] = None,
+                    device=None):
+    _dense_slice_only(cfg, window)
+    a = cfg.attn
+    shape = (batch, seq_len, a.n_kv_heads, a.d_head)
+    dt = dtype_of(cfg.dtype)
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device)}
+
+
+def _sharded_flash_decode(q, k, v, idx, cfg: ModelCfg, mesh):
+    """The sequence-sharded flash-decode over a device mesh."""
+    raise _not_ported("the sequence-sharded decode (_sharded_flash_decode)", "9")
+
+
+def attn_decode_step(p, x1, cache, index, cfg: ModelCfg, *, window=None):
+    """x1: (B, 1, D); cache k/v: (B, L, KvH, Dh); index: scalar or per-lane
+    (B,) current positions (continuous batching).  Returns
+    (out (B,1,D), cache).
+
+    The new token's K/V go into the cache **in place** (``index_put_`` at
+    ``[lane, index]``, where the reference builds a new array with
+    ``.at[lane, slot].set``); the returned cache holds the same tensors.  The
+    softmax over the cache is K4 (``ops.decode``) with a length per lane,
+    ``index + 1``: the kernel attends to positions ``< length`` where the
+    reference's mask reads ``<= index``."""
+    _dense_slice_only(cfg, window)
+    a = cfg.attn
+    B = x1.shape[0]
+    idx = torch.broadcast_to(torch.as_tensor(index, dtype=torch.int32, device=x1.device), (B,))
+    q, k1, v1 = _project_qkv(p, x1, cfg)
+    pos = idx[:, None]
+    q = apply_rope(q, pos, a.rope_theta, a.rope_dim)
+    k1 = apply_rope(k1, pos, a.rope_theta, a.rope_dim)
+    k, v = cache["k"], cache["v"]
+    lane = torch.arange(B, device=x1.device)
+    slot = idx.long()
+    k[lane, slot] = k1[:, 0].to(k.dtype)
+    v[lane, slot] = v1[:, 0].to(v.dtype)
+
+    o = ops.decode(q[:, 0], k, v, idx + 1)                        # (B, H, Dh)
+    o = o.reshape(B, 1, a.n_heads, a.d_head).to(x1.dtype)
+    out = dense(o, p["wo"], 2)
+    return out, {"k": k, "v": v}

@@ -1,6 +1,6 @@
 """The port's CUDA kernels on the card, each against its plain PyTorch
-version: the generated kernels of ``lower_to_cuda`` bit-exact, the matmul
-kernel within the tolerance of the reference's kernel tests.
+version: the generated kernels of ``lower_to_cuda`` bit-exact, the matmul and
+attention kernels within the tolerance of the reference's kernel tests.
 
 Every test here is marked ``gpu``: a CUDA kernel has no CPU mode, so the
 tests skip where there is no device.  Run them on the card with
@@ -21,6 +21,8 @@ from repro_torch.core import ir as port_ir
 from repro_torch.core.builder import Builder as PortBuilder
 from repro_torch.core.gallery import gemm
 from repro_torch.core.lower import lower_to_cuda
+from repro_torch.kernels import decode_attention as dec
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import matmul as mm
 from repro_torch.kernels import ops, ref
 
@@ -102,20 +104,50 @@ SHAPES = [(128, 128, 128), (256, 384, 128), (100, 130, 70), (8, 8, 8)]
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def matmul_tol(name):
+def tol(name):
+    """The reference kernel tests' ``_tol``."""
     return dict(rtol=2e-2, atol=2e-2) if name == "bfloat16" else dict(rtol=2e-5, atol=2e-5)
 
 
-def matmul_operands(M, K, N, name):
-    """float32 numpy operands; for bfloat16, rounded so that the hop through
-    float32 loses nothing on either side."""
-    rng = np.random.default_rng(0)
-    x = rng.standard_normal((M, K)).astype(np.float32)
-    y = rng.standard_normal((K, N)).astype(np.float32)
+def normal(shape, name, seed):
+    """Seeded float32 numpy normals; for bfloat16, rounded so that the hop
+    through float32 loses nothing on either side."""
+    x = np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
     if name == "bfloat16":
         x = torch.as_tensor(x).bfloat16().float().numpy()
-        y = torch.as_tensor(y).bfloat16().float().numpy()
-    return x, y
+    return x
+
+
+def matmul_operands(M, K, N, name):
+    return normal((M, K), name, 0), normal((K, N), name, 1)
+
+
+# (Sq, Sk, H, KvH, D, window): the reference's test_flash_attention cases
+FLASH_CASES = [
+    (128, 128, 4, 4, 64, None),
+    (128, 128, 4, 2, 64, None),     # GQA
+    (256, 256, 2, 1, 32, 64),       # sliding window + MQA
+    (64, 64, 2, 2, 128, None),
+]
+# ... and on the card also the other head dims and ragged lengths, under a
+# window up to the last query row that still sees a key (Sq = Sk + window - 1)
+FLASH_CASES_CARD = FLASH_CASES + [(100, 100, 4, 2, 16, None), (130, 200, 8, 2, 128, 50),
+                                  (179, 130, 8, 2, 128, 50)]
+# (Sq, Sk, window, kv_len) where some query row sees no key: refused
+FLASH_NO_KEY_CASES = [(200, 130, 50, None), (180, 130, 50, None), (64, 64, 16, 40)]
+
+# (L, H, KvH, D, length): the reference's test_decode_attention cases
+DECODE_CASES = [
+    (512, 4, 4, 64, 200),
+    (1024, 4, 2, 64, 1024),
+    (256, 2, 1, 128, 1),
+]
+DECODE_CASES_CARD = DECODE_CASES + [(300, 8, 2, 16, 257), (96, 6, 3, 32, 96)]
+
+
+def attention_operands(q_shape, kv_shape, name, seed=1):
+    return (normal(q_shape, name, seed), normal(kv_shape, name, seed + 1),
+            normal(kv_shape, name, seed + 2))
 
 
 # -- on the card ---------------------------------------------------------------------
@@ -182,7 +214,7 @@ def test_matmul_kernel_matches_plain_on_card(shape, dtype):
     assert mm.launches == before + 1
     want = ref.matmul_ref(xt, yt)
     np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
-                               **matmul_tol(dtype))
+                               **tol(dtype))
 
 
 @pytest.mark.gpu
@@ -200,3 +232,92 @@ def test_matmul_refuses_an_unschedulable_tile_on_card():
     x = torch.zeros((512, 512), device=dev)
     with pytest.raises(ValueError, match="threads"):
         mm.matmul(x, x, bm=256, bn=256, bk=16)
+
+
+def _on(dev, name, *arrays):
+    return [torch.as_tensor(a).to(dev, DTYPES[name]) for a in arrays]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("Sq,Sk,H,KvH,D,window", FLASH_CASES_CARD)
+def test_flash_attention_kernel_matches_plain_on_card(Sq, Sk, H, KvH, D, window, dtype):
+    dev = _cuda_or_skip()
+    q, k, v = _on(dev, dtype, *attention_operands((2, Sq, H, D), (2, Sk, KvH, D), dtype))
+    before = fa.launches
+    got = ops.mha(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1 and got.shape == q.shape and got.dtype == q.dtype
+    want = ref.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                   causal=True, window=window).transpose(1, 2)
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                               **tol(dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_kv_len_masks_on_card(causal):
+    """Keys at or past ``kv_len`` never attend, whatever they hold."""
+    dev = _cuda_or_skip()
+    q, k, v = _on(dev, "float32", *attention_operands((1, 2, 80, 32), (1, 2, 64, 32), "float32"))
+    got = fa.flash_attention(q, k, v, causal=causal, kv_len=48)
+    want = ref.flash_attention_ref(q, k[:, :, :48], v[:, :, :48], causal=causal)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **tol("float32"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("L,H,KvH,D,length", DECODE_CASES_CARD)
+def test_decode_attention_kernel_matches_plain_on_card(L, H, KvH, D, length, dtype):
+    dev = _cuda_or_skip()
+    q, k, v = _on(dev, dtype, *attention_operands((3, H, D), (3, L, KvH, D), dtype, seed=3))
+    lanes = torch.tensor([length, max(1, length // 3), L], dtype=torch.int32, device=dev)
+    for n in (length, lanes):
+        before = dec.launches
+        got = ops.decode(q, k, v, n)
+        torch.cuda.synchronize()
+        assert dec.launches == before + 1 and got.shape == q.shape and got.dtype == q.dtype
+        want = ref.decode_attention_ref(q, k, v, n)
+        np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                                   **tol(dtype))
+
+
+@pytest.mark.gpu
+def test_decode_partials_merge_to_the_full_result_on_card():
+    dev = _cuda_or_skip()
+    B, L, H, KvH, D, S = 4, 1024, 32, 4, 64, 4
+    q, k, v = _on(dev, "float32", *attention_operands((B, H, D), (B, L, KvH, D), "float32", 4))
+    lengths = torch.tensor([1, 100, 513, 1024], dtype=torch.int32, device=dev)
+    full = ops.decode(q, k, v, lengths)
+    shard = L // S
+    parts = [ops.decode_partial(q, k[:, s * shard:(s + 1) * shard], v[:, s * shard:(s + 1) * shard],
+                                (lengths - s * shard).clamp(0, shard)) for s in range(S)]
+    acc, m, l = (torch.stack(x) for x in zip(*parts))
+    want = ref.decode_attention_ref(q, k, v, lengths, normalize=False)
+    # a shard past a lane's length is wholly masked; its weight exp(-1e30 - m) is 0
+    merged = ops.merge_partials(acc, m, l)
+    np.testing.assert_allclose(merged.cpu().numpy(), full.cpu().numpy(), rtol=1e-5, atol=1e-5)
+    got = ops.decode_partial(q, k, v, lengths)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.gpu
+def test_attention_kernels_refuse_what_they_do_not_take_on_card():
+    dev = _cuda_or_skip()
+    q = torch.zeros((1, 4, 8, 48), device=dev)           # head dim 48
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention(q, q, q)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fa.flash_attention(q.half(), q.half(), q.half())
+    for Sq, Sk, window, kv_len in FLASH_NO_KEY_CASES:
+        before = fa.launches
+        with pytest.raises(ValueError, match="see no key"):
+            fa.flash_attention(torch.zeros((1, 4, Sq, 64), device=dev),
+                               *[torch.zeros((1, 2, Sk, 64), device=dev)] * 2,
+                               window=window, kv_len=kv_len)
+        assert fa.launches == before
+    x = torch.zeros((1, 4, 64), device=dev)
+    with pytest.raises(ValueError, match="not contiguous"):
+        dec.decode_attention(x, torch.zeros((1, 8, 64, 4), device=dev).transpose(2, 3),
+                             torch.zeros((1, 8, 4, 64), device=dev), 8)

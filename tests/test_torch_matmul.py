@@ -23,7 +23,7 @@ from repro_torch.kernels import matmul as mm
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.matmul import check_schedule, micro_tile
 
-from test_torch_gpu import DTYPES, SHAPES, matmul_operands, matmul_tol
+from test_torch_gpu import DTYPES, SHAPES, matmul_operands, tol
 
 jax.config.update("jax_enable_x64", False)
 
@@ -41,9 +41,9 @@ def test_matmul(shape, dtype):
     got = ops.matmul(torch.as_tensor(x).to(tdt), torch.as_tensor(y).to(tdt),
                      bm=128, bn=128, bk=128)
     assert got.shape == (M, N) and got.dtype == tdt
-    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), **matmul_tol(dtype))
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), **tol(dtype))
     plain = ref.matmul_ref(torch.as_tensor(x).to(tdt), torch.as_tensor(y).to(tdt))
-    np.testing.assert_allclose(got.float().numpy(), plain.float().numpy(), **matmul_tol(dtype))
+    np.testing.assert_allclose(got.float().numpy(), plain.float().numpy(), **tol(dtype))
 
 
 def test_matmul_schedule_checker():

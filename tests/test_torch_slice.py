@@ -48,6 +48,8 @@ VERBATIM = (
                                        "schedule_transforms", "loop_transforms")]
     + [f"core/gallery/{m}.py" for m in ("array_add", "transpose", "stencil1d", "histogram",
                                         "conv2d", "gemm", "gemm_shared", "mac", "fifo")]
+    + [f"configs/{m}.py" for m in ("base", "tinyllama_1_1b", "smollm_360m", "qwen2_7b",
+                                   "qwen2_5_14b")]
 )
 
 
@@ -131,6 +133,24 @@ def test_passes_init_differs_only_by_the_rtl_reexports():
     assert port_lines == [ln for i, ln in enumerate(ref_lines) if i not in dropped]
     import repro_torch.core.passes as port_passes
     assert all(hasattr(port_passes, n) for n in port_passes.__all__)
+
+
+def test_registry_differs_only_by_the_archs_not_ported():
+    """``configs/registry.py`` lists the four dense archs the port runs:
+    the other archs' lines leave ``ARCHS`` and ``_ALIASES``, and the
+    ``KeyError`` says an arch may be unknown or not ported yet."""
+    ref_lines = (REF / "configs/registry.py").read_text().splitlines()
+    port_lines = (PORT / "configs/registry.py").read_text().splitlines()
+    ported = {"tinyllama_1_1b", "qwen2_7b", "smollm_360m", "qwen2_5_14b"}
+    dropped = {i for i, ln in enumerate(ref_lines) if ln.startswith('    "') and ln.endswith(",")
+               and ln.rstrip(",").split('"')[-2] not in ported}
+    assert len(dropped) == 2 * 6
+    raise_line = next(i for i, ln in enumerate(ref_lines) if "raise KeyError" in ln)
+    want = [ln for i, ln in enumerate(ref_lines) if i not in dropped]
+    want[want.index(ref_lines[raise_line])] = (
+        '        raise KeyError(f"arch {arch!r} is unknown or not ported yet; '
+        'ported: {sorted(_ALIASES)}")')
+    assert port_lines == want
 
 
 def test_analysis_copy_leaves_out_only_the_rtl_level_analyses():

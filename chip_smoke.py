@@ -12,25 +12,32 @@ PyTorch version on the card, then drives:
   vector and on 4096 of them, and check the results against the NumPy
   oracle, the cycle-accurate simulator and the functional lowering — and the
   GEMM binding through the hand-written matmul;
-* serving tinyllama-1.1b at full width (random weights from a seed): the
-  continuous-batching ``Engine`` answers 8 requests over 4 slots, every
-  decode step through the decode-attention kernel;
-* its 1024-token prefill step, through the flash-attention kernel;
-* the reference's decode-consistency invariant at full width: teacher-forced
-  decode steps against the forward pass over the same 128 tokens.
+* serving three models at full width (random weights from a seed) — the
+  dense tinyllama-1.1b, the attention-free mamba2-780m and the hybrid
+  recurrentgemma-9b: the continuous-batching ``Engine`` answers 8 requests
+  over 4 slots (the recurrent two refill in waves), every decode step through
+  the decode-attention kernel where the model has attention;
+* each model's prefill step: flash attention for tinyllama, the SSD scan for
+  Mamba-2, the RG-LRU scan and windowed flash attention (head dim 256) for
+  RecurrentGemma;
+* the reference's decode-consistency invariant: teacher-forced decode steps
+  against the forward pass over the same tokens, at full width (RecurrentGemma
+  cut to one group of its pattern, its window cut to 64).
 
 Each path runs with every kernel's launch count set to 0 just before it and
 read just after; a row of the ``kernels`` line that names a main-path shape
 carries that count, and the rows of further checks nested under it carry
-``"launches": null``.  Output: one JSON object per line (``env``, ``build``,
-``main_path``, ``serve``, ``prefill``, ``consistency``, ``profile``,
-``kernels``), the card's name and power limit as ``nvidia-smi`` gives them,
-and a last line ``{"ok": true, "device": {...}}``.  Any mismatch or failure
-exits non-zero before that line.
+``"launches": null``.  Output: one JSON object per line (``env``,
+``build``, ``main_path``, then ``serve``, ``prefill``,
+``consistency`` and ``profile`` for each model, ``kernels``), the card's
+name and power limit as ``nvidia-smi`` gives them, and a last line
+``{"ok": true, "device": {...}}``.  Any mismatch or failure exits non-zero
+before that line.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -52,13 +59,16 @@ from repro_torch.core.lower import lower_to_cuda, lower_to_torch, simulate  # no
 from repro_torch.core.lower import to_cuda  # noqa: E402
 from repro_torch.core.passes import DEFAULT_PIPELINE_SPEC, PassManager  # noqa: E402
 from repro_torch.core.verifier import verify  # noqa: E402
+from repro_torch.configs.base import Segment  # noqa: E402
 from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import decode_attention as dec  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import matmul as mm  # noqa: E402
+from repro_torch.kernels import rglru_scan as rg  # noqa: E402
+from repro_torch.kernels import ssd_scan as ssd_k  # noqa: E402
 from repro_torch.launch.serve import Engine, make_requests, serve_requests  # noqa: E402
-from repro_torch.models import transformer  # noqa: E402
+from repro_torch.models import ssd, transformer  # noqa: E402
 from repro_torch.train.steps import make_prefill_step  # noqa: E402
 
 SEED = 0
@@ -96,12 +106,20 @@ MATMUL_SHAPES = [
 ]
 MATMUL_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # relative to |plain|max
 
-# the served model and its traffic: 8 requests of 64-token prompts and 32 new
-# tokens over 4 slots of a 1024-position cache; prefill of 4 x 1024 tokens
-ARCH = "tinyllama-1.1b"
+# the served models and their traffic: 8 requests of 64-token prompts and 32
+# new tokens over 4 slots of a 1024-position cache
+ARCH, MAMBA, RGEMMA = "tinyllama-1.1b", "mamba2-780m", "recurrentgemma-9b"
 SLOTS, MAX_LEN, REQUESTS, PROMPT, NEW = 4, 1024, 8, 64, 32
-PREFILL_B, PREFILL_S = 4, 1024
-CONSIST_B, CONSIST_S = 2, 128
+# (batch, tokens) of each model's prefill step and of its consistency check
+PREFILL = {ARCH: (4, 1024), MAMBA: (4, 2048), RGEMMA: (2, 4096)}
+CONSIST = {ARCH: (2, 128), MAMBA: (2, 300), RGEMMA: (2, 160)}
+PREFILL_B, PREFILL_S = PREFILL[ARCH]
+CONSIST_B, CONSIST_S = CONSIST[ARCH]
+# Mamba-2's 300 tokens cross a chunk boundary of 256 and end in a ragged
+# chunk.  RecurrentGemma's check is cut to one (rglru, rglru, local_attn)
+# group with the window cut to 64, so that its 160 tokens wrap the decode's
+# ring and the forward's window masks; float32 only.
+RG_CUT_WINDOW = 64
 # The invariant is held twice on the same weights.  In float32 it is held to
 # the reference test's own tolerance (2e-3 + 2e-3 |forward|): there both
 # paths compute the same numbers up to the order of their sums.  In bfloat16
@@ -118,6 +136,8 @@ CONSIST_NOISE = 3.0
 
 # the reference kernel tests' _tol: |kernel - plain| <= atol + rtol * |plain|
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# and test_ssd_scan's / test_rglru_scan's, against the step-by-step oracles
+SCAN_TOL = 2e-4
 
 
 def emit(key: str, value) -> None:
@@ -212,7 +232,8 @@ def phase_build(device) -> dict:
     t0 = time.perf_counter()
     compiled = {}
     pending = [_build.start_build(*_build.csrc_source(src))
-               for src in ("matmul.cu", "flash_attention.cu", "decode_attention.cu")]
+               for src in ("matmul.cu", "flash_attention.cu", "decode_attention.cu",
+                           "ssd_scan.cu", "rglru_scan.cu")]
     for dname, gal, paper, large in DESIGNS:
         for tag, size in (("paper", paper), ("large", large)):
             module, name, fn = compile_design(gal, size, device)
@@ -402,12 +423,12 @@ def dtype_name(dtype) -> str:
     return str(dtype).split(".")[-1]
 
 
-def check_close(what: str, got, want, dtype) -> float:
+def check_close(what: str, got, want, dtype, tol=None) -> float:
     """max |got - want|; fails unless every element is within the reference
-    tests' tolerance, atol + rtol * |want|."""
+    tests' tolerance, atol + rtol * |want| (``tol``, else ``_tol`` of dtype)."""
     g, w = got.float(), want.float()
     diff = (g - w).abs()
-    tol = ATTN_TOL[dtype]
+    tol = ATTN_TOL[dtype] if tol is None else tol
     if got.shape != want.shape or not bool((diff <= tol + tol * w.abs()).all()):
         fail(f"{what}: max |difference| {float(diff.max())} outside {tol} + {tol} * |plain|")
     return float(diff.max())
@@ -563,22 +584,203 @@ def phase_kernels_k4(device) -> list[dict]:
     return rows
 
 
+def phase_kernels_d256(device) -> tuple[list[dict], list[dict]]:
+    """K3 and K4 at RecurrentGemma's head dim 256 (16 query heads over one KV
+    head): K3 at its 2 x 4096 prefill under the window of 2048 and at the
+    cut consistency check (window 64, float32), K4 at its serving cache and
+    at the consistency check's ring of 64 slots; the prefill shape in
+    float32 and K4 in float32 as checks."""
+    g = torch.Generator(device="cpu").manual_seed(SEED + 4)
+    a = get_config(RGEMMA).attn
+    H, KvH, D, w = a.n_heads, a.n_kv_heads, a.d_head, a.window
+    (B, S), (cb, cs) = PREFILL[RGEMMA], CONSIST[RGEMMA]
+    k3 = [k3_case("prefill", B, S, S, H, KvH, D, BF16, device, g, window=w),
+          k3_case("consistency", cb, cs, cs, H, KvH, D, F32, device, g, window=RG_CUT_WINDOW)]
+    k3[0]["checks"] = [k3_case("prefill float32", B, S, S, H, KvH, D, F32, device, g, window=w)]
+    lanes = [1, 100, 513, 1024]
+    k4 = [k4_case("serve", SLOTS, MAX_LEN, H, KvH, D, BF16, lanes, device, g),
+          k4_case("consistency", cb, RG_CUT_WINDOW, H, KvH, D, F32, [RG_CUT_WINDOW] * cb,
+                  device, g)]
+    k4[0]["checks"] = [k4_case("serve float32", SLOTS, MAX_LEN, H, KvH, D, F32, lanes, device, g)]
+    return k3, k4
+
+
+def ssd_flops(B, S, H, P, N, Q) -> float:
+    """Operations the SSD scan's result needs, chunk by chunk (q positions,
+    p = q (q + 1) / 2 causal pairs): C B^T over the pairs once per (lane,
+    chunk), since B and C are shared by the heads; per head the pairs'
+    decay weights and their product with x, C h in every chunk after the
+    first (h enters the first as zero), and the state update in every chunk
+    before the last (the last state is not an output).  Element-wise terms
+    of q P or fewer operations per head are left out, so the count stays a
+    lower bound."""
+    starts = list(range(0, S, Q))
+    total = 0.0
+    for i, c0 in enumerate(starts):
+        q = min(Q, S - c0)
+        pairs = q * (q + 1) / 2
+        per_head = pairs * (1 + 2.0 * P)
+        if i > 0:
+            per_head += 2.0 * q * N * P                     # C h
+        if i < len(starts) - 1:
+            per_head += 2.0 * q * N * P + N * P             # B^T x weighted, decay of h
+        total += B * (2.0 * pairs * N + H * per_head)
+    return total
+
+
+def k5_case(case: str, B, S, H, P, N, Q, device, g, rates=(0.01, 0.5)) -> dict:
+    """The SSD scan kernel against its plain version, the recurrence one
+    position at a time, run in float64 on the same inputs: normal x, B, C
+    and decay logs uniform in [-rates[1], -rates[0]] — the reference test's
+    [-0.5, -0.01] unless a case asks for slower decays."""
+    lo, hi = rates
+    x = seeded((B, S, H, P), F32, device, g)
+    dA = -(torch.rand((B, S, H), generator=g) * (hi - lo) + lo).to(device)
+    Bc, Cc = (seeded((B, S, N), F32, device, g) for _ in range(2))
+    got = ops.ssd_scan(x, dA, Bc, Cc, chunk=Q)
+    torch.cuda.synchronize()
+    want, _ = ref.ssd_scan_ref(*(t.double() for t in (x, dA, Bc, Cc)))
+    name = f"ssd_scan[{case} {B}x{S} H{H} P{P} N{N} Q{Q} float32]"
+    err = check_close(name, got, want, F32, SCAN_TOL)
+    nbytes = (2 * B * S * H * P + B * S * H + 2 * B * S * N) * 4
+    bound_ms, bound_by = bound(ssd_flops(B, S, H, P, N, min(Q, S)), nbytes, F32)
+    return {
+        "name": name, "route": "cuda", "source": "src/repro_torch/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:71",
+        "shape": {"B": B, "S": S, "H": H, "P": P, "N": N, "chunk": Q, "dtype": "float32",
+                  "decay_logs": [-hi, -lo]},
+        "launches": None, "max_abs_err": err, "max_abs_y": float(want.abs().max()),
+        "tolerance": f"{SCAN_TOL} + {SCAN_TOL}*|plain|",
+        "ms": time_ms(lambda: ops.ssd_scan(x, dA, Bc, Cc, chunk=Q), 10),
+        "plain_ms": time_ms(lambda: ref.ssd_scan_ref(x, dA, Bc, Cc), 2),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None,                    # no one PyTorch call computes the scan
+    }
+
+
+def ssd_model_core_check(device, g) -> dict:
+    """The model's dispatch on the card — ``ops.ssd_scan`` on the
+    dt-weighted inputs plus ``x * D`` — against the plain chunked core the
+    CPU runs, at the reference's test_ssd_kernel_matches_model_core shape.
+    (At Mamba-2's widths the float32 chunked core itself strays from the
+    recurrence by more than the tolerance; the rows above hold K5 to the
+    recurrence there, and the consistency check holds the model.)"""
+    B, S, H, P, N, Q = 1, 64, 2, 16, 16, 16
+    xh = seeded((B, S, H, P), F32, device, g)
+    dt = F.softplus(seeded((B, S, H), F32, device, g))
+    A = -torch.exp(seeded((H,), F32, device, g) * 0.2)
+    Bc, Cc = (seeded((B, S, N), F32, device, g) for _ in range(2))
+    D = seeded((H,), F32, device, g)
+    got = ops.ssd_scan(xh * dt[..., None], dt * A, Bc, Cc, chunk=Q)
+    got = got + xh * D[None, None, :, None]
+    want, _ = ssd.ssd_core_chunked(xh, dt, A, Bc, Cc, D, Q)
+    what = f"ops.ssd_scan + x*D against ssd_core_chunked, {B}x{S} H{H} P{P} N{N} Q{Q} float32"
+    return {"case": what, "max_abs_err": check_close(what, got, want, F32, SCAN_TOL),
+            "tolerance": f"{SCAN_TOL} + {SCAN_TOL}*|plain|"}
+
+
+def phase_kernels_k5(device) -> list[dict]:
+    """K5 at Mamba-2's prefill (4 x 2048, H 48, P 64, N 128, chunk 256) and
+    at its consistency check (2 x 300: a ragged second chunk), then checks:
+    a ragged S 2000, the prefill and the ragged S with slow decays, the
+    reference test's three shapes, and the model's dispatch against its
+    plain chunked core."""
+    g = torch.Generator(device="cpu").manual_seed(SEED + 5)
+    cfg = get_config(MAMBA)
+    _, H, P, N = ssd.dims(cfg)
+    Q = cfg.ssd.chunk
+    rows = [k5_case("prefill", *PREFILL[MAMBA], H, P, N, Q, device, g),
+            k5_case("consistency", *CONSIST[MAMBA], H, P, N, Q, device, g)]
+    slow = (0.001, 0.02)        # Mamba-2's dt of 1e-3..1e-1: every tile and the state count
+    rows[0]["checks"] = [
+        k5_case("ragged", PREFILL[MAMBA][0], 2000, H, P, N, Q, device, g),
+        k5_case("prefill slow decays", *PREFILL[MAMBA], H, P, N, Q, device, g, rates=slow),
+        k5_case("ragged slow decays", PREFILL[MAMBA][0], 2000, H, P, N, Q, device, g,
+                rates=slow),
+    ] + [
+        k5_case("test_ssd_scan", 2, S, h, p, n, q, device, g)
+        for S, h, p, n, q in [(64, 2, 16, 16, 16), (100, 1, 32, 16, 32), (128, 3, 8, 8, 128)]
+    ] + [ssd_model_core_check(device, g)]
+    return rows
+
+
+def k6_case(case: str, B, S, D, device, g) -> dict:
+    """The RG-LRU scan kernel against its plain version (one step at a time),
+    a uniform in [0.5, 0.999], b normal."""
+    a = (torch.rand((B, S, D), generator=g) * 0.499 + 0.5).to(device)
+    b = seeded((B, S, D), F32, device, g)
+    got = ops.rglru_scan(a, b)
+    torch.cuda.synchronize()
+    want, _ = ref.rglru_scan_ref(a, b)
+    name = f"rglru_scan[{case} {B}x{S}x{D} float32]"
+    err = check_close(name, got, want, F32, SCAN_TOL)
+    bound_ms, bound_by = bound(2.0 * B * S * D, 3 * B * S * D * 4, F32)
+    return {
+        "name": name, "route": "cuda", "source": "src/repro_torch/csrc/rglru_scan.cu",
+        "replaces": "src/repro/kernels/rglru_scan.py:56",
+        "shape": {"B": B, "S": S, "D": D, "dtype": "float32"},
+        "launches": None, "max_abs_err": err, "tolerance": f"{SCAN_TOL} + {SCAN_TOL}*|plain|",
+        "ms": time_ms(lambda: ops.rglru_scan(a, b), 20),
+        "plain_ms": time_ms(lambda: ref.rglru_scan_ref(a, b), 2),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None,                    # no one PyTorch call computes the scan
+    }
+
+
+def phase_kernels_k6(device) -> list[dict]:
+    """K6 at RecurrentGemma's prefill (2 x 4096, d_rnn 4096) and at its
+    consistency check (2 x 160), then checks: ragged S 1000 and D 4000, the
+    reference test's three shapes."""
+    g = torch.Generator(device="cpu").manual_seed(SEED + 6)
+    D = get_config(RGEMMA).rglru.d_rnn
+    rows = [k6_case("prefill", *PREFILL[RGEMMA], D, device, g),
+            k6_case("consistency", *CONSIST[RGEMMA], D, device, g)]
+    rows[0]["checks"] = [k6_case("ragged", 2, 1000, 4000, device, g)] + [
+        k6_case("test_rglru_scan", 2, S, d, device, g) for S, d in [(64, 32), (100, 48), (128, 8)]]
+    return rows
+
+
 # -- serving ------------------------------------------------------------------------
+
+KERNELS = {"lower_to_cuda": to_cuda, "matmul": mm, "flash_attention": fa,
+           "decode_attention": dec, "ssd_scan": ssd_k, "rglru_scan": rg}
 
 
 def zero_counts() -> None:
-    to_cuda.launches = mm.launches = fa.launches = dec.launches = 0
+    for module in KERNELS.values():
+        module.launches = 0
 
 
 def counts() -> dict:
-    return {"lower_to_cuda": to_cuda.launches, "matmul": mm.launches,
-            "flash_attention": fa.launches, "decode_attention": dec.launches}
+    return {name: module.launches for name, module in KERNELS.items()}
 
 
-def phase_serve(device):
+def layers(cfg) -> dict:
+    """Blocks of the model that run each kernel: attention (K3 in a forward,
+    K4 in a decode step), SSD (K5 in a forward), RG-LRU (K6 in a forward)."""
+    kinds = [k for s in cfg.segments for k in s.pattern * s.repeats]
+    return {"attn": sum(k in ("attn", "local_attn") for k in kinds),
+            "ssd": kinds.count("ssd"), "rglru": kinds.count("rglru")}
+
+
+def expect(what: str, n: dict, **want) -> None:
+    """Fail unless the launch counts are ``want``, every other count 0."""
+    full = {k: want.get(k, 0) for k in KERNELS}
+    if n != full:
+        fail(f"{what}: launches {n}, expected {full}")
+
+
+def forward_launches(cfg, passes: int = 1) -> dict:
+    n = layers(cfg)
+    return {"flash_attention": passes * n["attn"], "ssd_scan": passes * n["ssd"],
+            "rglru_scan": passes * n["rglru"]}
+
+
+def phase_serve(arch: str, device):
     """The Engine at full width answers the requests; K4 runs in every decode
-    step, prefill's included, once per layer."""
-    cfg = get_config(ARCH)
+    step, prefill's included, once per attention layer.  The recurrent
+    models refill in waves: 2 waves of 64 prompt positions and 32 steps."""
+    cfg = get_config(arch)
     t0 = time.perf_counter()
     eng = Engine(cfg, SLOTS, MAX_LEN, device=device)
     torch.cuda.synchronize()
@@ -592,26 +794,31 @@ def phase_serve(device):
     n = counts()
     tokens = sum(len(r.out) for r in done)
     if len(done) != REQUESTS or any(len(r.out) != NEW for r in done):
-        fail(f"serve: {len(done)} requests done, new tokens {[len(r.out) for r in done]}")
-    if not all(0 <= tok < cfg.vocab for r in done for tok in r.out):
-        fail("serve: a token outside the vocabulary")
-    if n["decode_attention"] != cfg.n_layers * eng.decode_calls:
-        fail(f"serve: {n['decode_attention']} decode-attention launches for "
-             f"{eng.decode_calls} decode calls of {cfg.n_layers} layers")
-    emit("serve", {"arch": ARCH, "params": transformer.param_count(eng.params),
+        fail(f"serve {arch}: {len(done)} requests done, new tokens {[len(r.out) for r in done]}")
+    if not all(0 <= tok < cfg.padded_vocab for r in done for tok in r.out):
+        fail(f"serve {arch}: a token outside the model's output vocabulary")
+    if eng.wave and eng.decode_calls != REQUESTS // SLOTS * (PROMPT + NEW):
+        fail(f"serve {arch}: {eng.decode_calls} decode calls for waves of {SLOTS} requests")
+    expect(f"serve {arch}", n, decode_attention=layers(cfg)["attn"] * eng.decode_calls)
+    emit("serve", {"arch": arch, "params": transformer.param_count(eng.params),
+                   "layers": layers(cfg), "waves": eng.wave,
                    "slots": SLOTS, "max_len": MAX_LEN, "requests": len(done),
                    "prompt_tokens": PROMPT, "tokens": tokens, "decode_steps": steps,
                    "decode_calls": eng.decode_calls, "seconds": secs,
-                   "tokens_per_s": tokens / secs, "init_seconds": init_s, "launches": n,
+                   "tokens_per_s": tokens / secs,
+                   "ms_per_decode_call": secs * 1e3 / eng.decode_calls,
+                   "init_seconds": init_s, "launches": n,
                    "first_outputs": [r.out[:8] for r in done[:2]]})
     return eng, n
 
 
 def phase_prefill(eng, device):
-    """The prefill step at B 4, S 1024 on the served weights: K3 once per layer."""
+    """The prefill step on the served weights: each forward kernel once per
+    layer that runs it."""
     cfg = eng.cfg
+    B, S = PREFILL[cfg.name]
     g = torch.Generator(device="cpu").manual_seed(SEED + 2)
-    tokens = torch.randint(1, cfg.vocab, (PREFILL_B, PREFILL_S), generator=g)
+    tokens = torch.randint(1, cfg.vocab, (B, S), generator=g)
     step = make_prefill_step(cfg, device=device)
     zero_counts()
     t0 = time.perf_counter()
@@ -619,13 +826,11 @@ def phase_prefill(eng, device):
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     n = counts()
-    if logits.shape != (PREFILL_B, PREFILL_S, cfg.padded_vocab) or \
-            not bool(torch.isfinite(logits).all()):
-        fail(f"prefill: logits {tuple(logits.shape)} not finite or of the wrong shape")
-    if n["flash_attention"] != cfg.n_layers:
-        fail(f"prefill: {n['flash_attention']} flash-attention launches for {cfg.n_layers} layers")
-    emit("prefill", {"batch": PREFILL_B, "seq": PREFILL_S, "seconds": secs,
-                     "tokens_per_s": PREFILL_B * PREFILL_S / secs, "launches": n,
+    if logits.shape != (B, S, cfg.padded_vocab) or not bool(torch.isfinite(logits).all()):
+        fail(f"prefill {cfg.name}: logits {tuple(logits.shape)} not finite or of the wrong shape")
+    expect(f"prefill {cfg.name}", n, **forward_launches(cfg))
+    emit("prefill", {"arch": cfg.name, "batch": B, "seq": S, "seconds": secs,
+                     "tokens_per_s": B * S / secs, "launches": n,
                      "max_abs_logit": float(logits.float().abs().max())})
     return n
 
@@ -652,34 +857,63 @@ def teacher_forced(params, cfg, tokens, device):
 
 def phase_consistency(eng, device):
     """The reference's invariant at full width: teacher-forced decode steps
-    (K4) reproduce the forward pass's logits (K3) over the same tokens — in
-    bfloat16, as served, and on the same weights in float32."""
-    cfg = eng.cfg
+    (no kernel in a recurrent step; K4 in an attention step) reproduce the
+    forward pass's logits (K3, K5, K6) over the same tokens.  tinyllama and
+    Mamba-2: in bfloat16, as served, and on the same weights in float32.
+    RecurrentGemma: cut to the first group of its pattern with the window
+    cut to 64, in float32."""
+    cfg, params = eng.cfg, eng.params
+    B, S = CONSIST[cfg.name]
+    cuts = {}
+    if cfg.name == RGEMMA:
+        first = cfg.segments[0]
+        cfg = cfg.scaled(segments=(Segment(first.pattern, 1, first.ffn),),
+                         attn=dataclasses.replace(cfg.attn, window=RG_CUT_WINDOW))
+        params = dict(params, segments=[[first_repeat(b) for b in params["segments"][0]]])
+        cuts = {"pattern": list(first.pattern), "repeats": 1, "weights": "the first repeat's",
+                "window": RG_CUT_WINDOW}
+        print(f"consistency {RGEMMA}: cut to {cuts}", flush=True)
     g = torch.Generator(device="cpu").manual_seed(SEED + 3)
-    tokens = torch.randint(1, cfg.vocab, (CONSIST_B, CONSIST_S), generator=g).to(device)
+    tokens = torch.randint(1, cfg.vocab, (B, S), generator=g).to(device)
+    out = {"arch": eng.cfg.name, "batch": B, "tokens": S, "cuts": cuts or None}
+    n16 = None
+    if not cuts:
+        zero_counts()
+        fwd16, dec16 = teacher_forced(params, cfg, tokens, device)
+        n16 = counts()
+        expect(f"consistency {cfg.name} bf16", n16, **forward_launches(cfg),
+               decode_attention=layers(cfg)["attn"] * S)
     zero_counts()
-    fwd16, dec16 = teacher_forced(eng.params, cfg, tokens, device)
-    n = counts()
-    if n["flash_attention"] != cfg.n_layers or \
-            n["decode_attention"] != cfg.n_layers * CONSIST_S:
-        fail(f"consistency: launches {n}")
     cfg32 = cfg.scaled(dtype="float32")
-    fwd32, dec32 = teacher_forced(as_float32(eng.params), cfg32, tokens, device)
+    fwd32, dec32 = teacher_forced(as_float32(params), cfg32, tokens, device)
+    n32 = counts()
+    expect(f"consistency {cfg.name} f32", n32, **forward_launches(cfg),
+           decode_attention=layers(cfg)["attn"] * S)
     gap32 = (dec32 - fwd32).abs()
     if not bool((gap32 <= CONSIST_TOL32 + CONSIST_TOL32 * fwd32.abs()).all()):
-        fail(f"consistency: float32 decode differs from forward by {float(gap32.max())}")
-    gap16 = float((dec16 - fwd16).abs().max())
-    noise = float((fwd16 - fwd32).abs().max())
-    if not gap16 <= CONSIST_NOISE * noise:
-        fail(f"consistency: bfloat16 decode differs from forward by {gap16} > "
-             f"{CONSIST_NOISE} x {noise}, the bf16 forward's distance from float32")
-    emit("consistency", {
-        "batch": CONSIST_B, "tokens": CONSIST_S, "max_abs_logit": float(fwd16.abs().max()),
-        "bf16_decode_vs_forward": gap16, "bf16_forward_vs_f32_forward": noise,
-        "bf16_decode_vs_f32_forward": float((dec16 - fwd32).abs().max()),
-        "bf16_limit": CONSIST_NOISE * noise, "f32_decode_vs_forward": float(gap32.max()),
-        "f32_limit": f"{CONSIST_TOL32} + {CONSIST_TOL32}*|forward|", "launches_bf16": n})
-    return n
+        fail(f"consistency {cfg.name}: float32 decode differs from forward by {float(gap32.max())}")
+    out.update({"max_abs_logit_f32": float(fwd32.abs().max()),
+                "f32_decode_vs_forward": float(gap32.max()),
+                "f32_limit": f"{CONSIST_TOL32} + {CONSIST_TOL32}*|forward|", "launches_f32": n32})
+    if n16 is not None:
+        gap16 = float((dec16 - fwd16).abs().max())
+        noise = float((fwd16 - fwd32).abs().max())
+        if not gap16 <= CONSIST_NOISE * noise:
+            fail(f"consistency {cfg.name}: bfloat16 decode differs from forward by {gap16} > "
+                 f"{CONSIST_NOISE} x {noise}, the bf16 forward's distance from float32")
+        out.update({"max_abs_logit": float(fwd16.abs().max()),
+                    "bf16_decode_vs_forward": gap16, "bf16_forward_vs_f32_forward": noise,
+                    "bf16_decode_vs_f32_forward": float((dec16 - fwd32).abs().max()),
+                    "bf16_limit": CONSIST_NOISE * noise, "launches_bf16": n16})
+    emit("consistency", out)
+    return {"bf16": n16, "f32": n32}
+
+
+def first_repeat(tree):
+    """A block's stacked parameters cut to their first repeat (views)."""
+    if isinstance(tree, dict):
+        return {k: first_repeat(v) for k, v in tree.items()}
+    return tree[:1]
 
 
 def phase_profile(eng) -> None:
@@ -706,6 +940,7 @@ def phase_profile(eng) -> None:
                        key=lambda kv: -kv[1])
     busy_us = sum(t for _, t in by_kernel)
     emit("profile", {
+        "arch": eng.cfg.name,
         "what": f"lm_decode_step, {SLOTS} lanes at position {PROMPT + NEW}, 8 steps",
         "wall_ms_per_step": wall_us / 8e3,
         "device_ms_per_step": busy_us / 1e3 if busy_us else "not measured",
@@ -715,6 +950,18 @@ def phase_profile(eng) -> None:
         "top_kernels_ms_per_step": [[k[:80], t / 1e3] for k, t in by_kernel[:8]]})
 
 
+def serve_model(arch: str, device) -> dict:
+    """Serve, prefill, consistency and profile of one model; frees it after.
+    Returns the launches of each phase."""
+    eng, served = phase_serve(arch, device)
+    prefilled = phase_prefill(eng, device)
+    consistent = phase_consistency(eng, device)
+    phase_profile(eng)
+    del eng
+    torch.cuda.empty_cache()
+    return {"serve": served, "prefill": prefilled, "consistency": consistent}
+
+
 def main() -> None:
     device = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False     # the library yardstick is float32 too
@@ -722,6 +969,8 @@ def main() -> None:
     compiled = phase_build(device)
     rows = phase_kernels_k1(compiled, device) + phase_kernels_k2(device)
     k3_rows, k4_rows = phase_kernels_k3(device), phase_kernels_k4(device)
+    k5_rows, k6_rows = phase_kernels_k5(device), phase_kernels_k6(device)
+    k3_256, k4_256 = phase_kernels_d256(device)
     torch.cuda.empty_cache()
 
     # every count to 0, then the compiler's main path, then read the counts
@@ -736,16 +985,25 @@ def main() -> None:
     for row in rows:
         row["launches"] = per_case.get(row["name"], 0)
 
-    # the serving paths, each with the counts at 0 just before it
-    eng, served = phase_serve(device)
-    prefilled = phase_prefill(eng, device)
-    consistent = phase_consistency(eng, device)
-    phase_profile(eng)
-    k3_rows[0]["launches"] = prefilled["flash_attention"]
-    k3_rows[1]["launches"] = consistent["flash_attention"]
-    k4_rows[0]["launches"] = served["decode_attention"]
-    k4_rows[1]["launches"] = consistent["decode_attention"]
-    rows += k3_rows + k4_rows
+    # the serving paths, each phase with the counts at 0 just before it
+    dense = serve_model(ARCH, device)
+    mamba = serve_model(MAMBA, device)
+    rgemma = serve_model(RGEMMA, device)
+    k3_rows[0]["launches"] = dense["prefill"]["flash_attention"]
+    # the consistency rows' cases: tinyllama's in bfloat16; Mamba-2's scan
+    # runs in float32 under both of its passes; RecurrentGemma's cut check in float32
+    k3_rows[1]["launches"] = dense["consistency"]["bf16"]["flash_attention"]
+    k4_rows[0]["launches"] = dense["serve"]["decode_attention"]
+    k4_rows[1]["launches"] = dense["consistency"]["bf16"]["decode_attention"]
+    k5_rows[0]["launches"] = mamba["prefill"]["ssd_scan"]
+    k5_rows[1]["launches"] = sum(n["ssd_scan"] for n in mamba["consistency"].values())
+    k6_rows[0]["launches"] = rgemma["prefill"]["rglru_scan"]
+    k6_rows[1]["launches"] = rgemma["consistency"]["f32"]["rglru_scan"]
+    k3_256[0]["launches"] = rgemma["prefill"]["flash_attention"]
+    k3_256[1]["launches"] = rgemma["consistency"]["f32"]["flash_attention"]
+    k4_256[0]["launches"] = rgemma["serve"]["decode_attention"]
+    k4_256[1]["launches"] = rgemma["consistency"]["f32"]["decode_attention"]
+    rows += k3_rows + k4_rows + k5_rows + k6_rows + k3_256 + k4_256
     for row in rows:
         if row["launches"] <= 0:
             fail(f"the main path never launched {row['name']}")

@@ -1,2 +1,3 @@
 """Model configurations, copied from the reference package: ``base`` and the
-four dense ``attn``+``mlp`` archs the port runs; ``registry`` lists only those."""
+six archs the port runs (four dense ``attn``+``mlp`` ones, Mamba-2 and
+RecurrentGemma); ``registry`` lists only those."""

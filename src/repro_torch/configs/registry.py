@@ -11,18 +11,22 @@ import importlib
 from .base import ModelCfg, SHAPES, ShapeCfg
 
 ARCHS = (
+    "recurrentgemma_9b",
     "tinyllama_1_1b",
     "qwen2_7b",
     "smollm_360m",
     "qwen2_5_14b",
+    "mamba2_780m",
 )
 
 # canonical assignment ids -> module names
 _ALIASES = {
+    "recurrentgemma-9b": "recurrentgemma_9b",
     "tinyllama-1.1b": "tinyllama_1_1b",
     "qwen2-7b": "qwen2_7b",
     "smollm-360m": "smollm_360m",
     "qwen2.5-14b": "qwen2_5_14b",
+    "mamba2-780m": "mamba2_780m",
 }
 
 

@@ -212,6 +212,7 @@ int launch(const void* q, const void* k, const void* v, const int* lengths, int 
     case 32: return launch_d<T, 32>(q, k, v, lengths, length, B, H, KvH, L, strides, scale, pacc, pm, pl, out, m_out, l_out, normalize, s);
     case 64: return launch_d<T, 64>(q, k, v, lengths, length, B, H, KvH, L, strides, scale, pacc, pm, pl, out, m_out, l_out, normalize, s);
     case 128: return launch_d<T, 128>(q, k, v, lengths, length, B, H, KvH, L, strides, scale, pacc, pm, pl, out, m_out, l_out, normalize, s);
+    case 256: return launch_d<T, 256>(q, k, v, lengths, length, B, H, KvH, L, strides, scale, pacc, pm, pl, out, m_out, l_out, normalize, s);
   }
   return (int)cudaErrorInvalidValue;
 }

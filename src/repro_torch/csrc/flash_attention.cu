@@ -260,6 +260,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H, i
     case 32: return launch_d<T, 32>(q, k, v, o, B, H, KvH, Sq, Sk, strides, scale, causal, window, kv_len, s);
     case 64: return launch_d<T, 64>(q, k, v, o, B, H, KvH, Sq, Sk, strides, scale, causal, window, kv_len, s);
     case 128: return launch_d<T, 128>(q, k, v, o, B, H, KvH, Sq, Sk, strides, scale, causal, window, kv_len, s);
+    case 256: return launch_d<T, 256>(q, k, v, o, B, H, KvH, Sq, Sk, strides, scale, causal, window, kv_len, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -29,7 +29,7 @@ import torch
 from . import _build
 from .ref import flash_attention_ref
 
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 
 #: kernel launches made by ``flash_attention`` (a run resets it to 0, drives
 #: its path, and reads it to show the path used the kernel)

@@ -1,7 +1,7 @@
 """Public wrappers around the hand-written kernels.
 
 Handles (a) padding arbitrary shapes to kernel tile multiples where a kernel
-needs it (the matmul; the attention kernels mask their ragged edges
+needs it (the matmul; the attention and scan kernels mask their ragged edges
 themselves), (b) layout adaptation from model conventions ((B,S,H,D)) to
 kernel conventions ((B,H,S,D)), as strided views, not copies.  Dispatch is by
 where the tensors lie: CUDA tensors launch the kernel, CPU tensors run the
@@ -18,6 +18,8 @@ import torch.nn.functional as F
 from . import decode_attention as _dec
 from . import flash_attention as _fa
 from . import matmul as _mm
+from . import rglru_scan as _rg
+from . import ssd_scan as _ssd
 
 
 def _pad_to(x: torch.Tensor, axis: int, mult: int, value=0.0) -> torch.Tensor:
@@ -66,3 +68,29 @@ def decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 decode_partial = _dec.partial_decode_attention
 merge_partials = _dec.merge_partials
+
+
+# -- ssd ----------------------------------------------------------------------
+
+
+def ssd_scan(xdt: torch.Tensor, dA: torch.Tensor, Bc: torch.Tensor, Cc: torch.Tensor, *,
+             chunk: int = 128) -> torch.Tensor:
+    """Model layout: xdt (B,S,H,P); dA (B,S,H); Bc, Cc (B,S,N).  Returns
+    y (B,S,H,P), the SSD recurrence's outputs.
+
+    The kernel reads the (B,H,S,P) views as the reference's (B,H,nc,Q,P)
+    chunk layout, ``Q = min(chunk, S)``, and masks a ragged last chunk
+    itself: the result is the reference's on the zero-padded inputs."""
+    Q = min(chunk, xdt.shape[1])
+    y = _ssd.ssd_scan(xdt.transpose(1, 2), dA.transpose(1, 2), Bc, Cc, chunk=Q)
+    return y.transpose(1, 2)
+
+
+# -- rglru --------------------------------------------------------------------
+
+
+def rglru_scan(a: torch.Tensor, b: torch.Tensor, *, bs: int = 256, bd: int = 512) -> torch.Tensor:
+    """a, b (B,S,D): ``h_t = a_t h_{t-1} + b_t``; returns h (B,S,D).  ``bs``
+    and ``bd``, the reference's block sizes, are accepted and not used: the
+    kernel has its own blocks and masks ragged S and D itself."""
+    return _rg.rglru_scan(a, b)

@@ -82,3 +82,37 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if normalize:
         return (acc / torch.clamp(l[..., None], min=1e-30)).reshape(B, H, D).to(q.dtype)
     return acc.reshape(B, H, D).to(q.dtype), m.reshape(B, H), l.reshape(B, H)
+
+
+def ssd_scan_ref(xdt: torch.Tensor, dA: torch.Tensor, Bc: torch.Tensor, Cc: torch.Tensor,
+                 h0: Optional[torch.Tensor] = None):
+    """The SSD recurrence one position at a time (no chunks), the ground truth
+    of K5.  xdt (B,S,H,P) dt-weighted inputs; dA (B,S,H) decay logs; Bc, Cc
+    (B,S,N).  ``h_t = exp(dA_t) h_{t-1} + B_t (xdt_t)^T``, ``y_t = C_t . h_t``,
+    with h (B,H,N,P) float32 (float64 for float64 inputs) from ``h0`` or
+    zero.  Returns (y (B,S,H,P) in xdt's dtype, the final h)."""
+    B, S, H, P = xdt.shape
+    N = Bc.shape[-1]
+    acc = torch.promote_types(xdt.dtype, torch.float32)
+    h = (torch.zeros((B, H, N, P), dtype=acc, device=xdt.device) if h0 is None
+         else h0.to(acc))
+    ys = []
+    for t in range(S):
+        a = torch.exp(dA[:, t].to(acc))                                    # (B,H)
+        upd = torch.einsum("bn,bhp->bhnp", Bc[:, t].to(acc), xdt[:, t].to(acc))
+        h = h * a[:, :, None, None] + upd
+        ys.append(torch.einsum("bn,bhnp->bhp", Cc[:, t].to(acc), h))
+    return torch.stack(ys, 1).to(xdt.dtype), h
+
+
+def rglru_scan_ref(a: torch.Tensor, b: torch.Tensor, h0: Optional[torch.Tensor] = None):
+    """The diagonal linear recurrence ``h_t = a_t * h_{t-1} + b_t`` one step
+    at a time, the ground truth of K6.  a, b (B,S,D); the carry is float32
+    from ``h0`` or zero.  Returns (h (B,S,D) in a's dtype, the final h)."""
+    h = (torch.zeros_like(a[:, 0], dtype=torch.float32) if h0 is None else h0.float())
+    af, bf = a.float(), b.float()
+    hs = []
+    for t in range(a.shape[1]):
+        h = af[:, t] * h + bf[:, t]
+        hs.append(h)
+    return torch.stack(hs, 1).to(a.dtype), h

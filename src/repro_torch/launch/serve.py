@@ -6,9 +6,9 @@
 A request = (prompt tokens, max_new_tokens).  The engine keeps ``--slots``
 decode lanes; finished lanes are refilled from the queue (prefill writes the
 prompt's KV into that lane, decode steps advance all lanes together — the
-standard continuous-batching serving loop).  On the card every decode step
-runs the decode-attention kernel (K4) once per layer, with each lane's own
-cache length.  Without ``--device`` the engine runs on the CUDA device and
+standard continuous-batching serving loop; recurrent archs refill in
+waves).  On the card every decode step runs the decode-attention kernel (K4)
+once per attention layer, with each lane's own cache length.  Without ``--device`` the engine runs on the CUDA device and
 raises where there is none."""
 
 from __future__ import annotations
@@ -41,8 +41,10 @@ class Engine:
     Decode steps advance all lanes with *per-lane* cache positions, so a
     freshly refilled lane starts at position 0 while its neighbours keep
     decoding (the per-lane length of the attention hides any stale cache
-    beyond each lane's index).  Recurrent-state archs would refill in waves
-    (``self.wave``); none is ported yet, so it stays False.
+    beyond each lane's index).  Recurrent-state archs (rglru/ssd) carry
+    hidden state no length can hide, so they refill in waves
+    (``self.wave = True``): a new wave starts only when every lane is done,
+    on a fresh cache.
 
     ``params`` defaults to the port's ``init_lm`` from seed 0 on ``device``;
     a test hands in parameters carried over from the reference instead.

@@ -1,13 +1,13 @@
-"""Attention: GQA with RoPE, flash-style chunked computation in plain torch
-(the oracle of the flash kernel), and single-token decode over a KV cache.
-The plain versions keep only what the dense slice uses (causal or not; the
-reference's window, soft-cap and query offset come with their blocks).
+"""Attention: GQA with RoPE (full or sliding-window), flash-style chunked
+computation in plain torch (the oracle of the flash kernel), and
+single-token decode over a KV cache — a full cache, or a ring buffer of
+``min(window, seq_len)`` slots under a window.
 
-On the card the reference's kernel-eligible regions run the hand-written
-kernels: ``attn_forward``'s attention is ``ops.mha`` (K3) and
-``attn_decode_step``'s softmax is ``ops.decode`` (K4).  What this dense slice
-does not cover — sliding windows (and their ring-buffer caches), logit
-soft-capping, cross-attention, the sequence-sharded decode — raises
+The reference's kernel-eligible regions run the kernels' wrappers on every
+device: ``attn_forward``'s attention is ``ops.mha`` (K3 on the card, its
+plain version on the CPU) and ``attn_decode_step``'s softmax is
+``ops.decode`` (K4).  What the port does not cover yet — logit soft-capping,
+cross-attention, the sequence-sharded decode — raises
 ``NotImplementedError``; nothing falls back to a plain path on the card.
 """
 
@@ -17,6 +17,7 @@ from typing import Optional
 
 import torch
 
+from .._device import resolve_device
 from ..configs.base import ModelCfg
 from ..kernels import ops
 from .common import apply_rope, dense, dtype_of, ninit
@@ -28,9 +29,7 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP.md queue A, item {item})")
 
 
-def _dense_slice_only(cfg: ModelCfg, window) -> None:
-    if window:
-        raise _not_ported("sliding-window attention and its ring-buffer cache", "6")
+def _no_softcap(cfg: ModelCfg) -> None:
     if cfg.attn.logit_softcap is not None:
         raise _not_ported("attention logit soft-capping", "6")
 
@@ -64,7 +63,8 @@ def init_attn(gen: torch.Generator, cfg: ModelCfg, cross: bool = False):
 
 def flash_attention(q, k, v, *, causal: bool = True, kv_chunk: int = 1024):
     """q: (B, Sq, H, D); k/v: (B, Sk, KvH, D).  Online-softmax over KV chunks:
-    O(Sq * kv_chunk) live memory instead of O(Sq * Sk)."""
+    O(Sq * kv_chunk) live memory instead of O(Sq * Sk).  An oracle of the
+    flash kernel in the tests; the model calls ``ops.mha``."""
     B, Sq, H, D = q.shape
     Sk, KvH = k.shape[1], k.shape[2]
     G = H // KvH
@@ -99,7 +99,7 @@ def flash_attention(q, k, v, *, causal: bool = True, kv_chunk: int = 1024):
 
 
 def dense_attention(q, k, v, *, causal=True):
-    """Reference O(Sq*Sk) attention (small shapes / tests)."""
+    """Reference O(Sq*Sk) attention (an oracle of the flash kernel in the tests)."""
     B, Sq, H, D = q.shape
     KvH = k.shape[2]
     G = H // KvH
@@ -132,13 +132,13 @@ def _project_qkv(p, x, cfg: ModelCfg):
 
 def attn_forward(p, x, cfg: ModelCfg, *, positions=None, window=None, kv=None,
                  causal: bool = True):
-    """Self-attention over x (B,S,D).  ``causal=False`` gives bidirectional
-    self-attention.  On the card the attention is K3 (``ops.mha``); on the
-    CPU the reference's choice between the dense and the chunked plain
-    versions."""
+    """Self-attention over x (B,S,D), sliding-window when ``window`` is set
+    (a query sees the ``window`` positions up to its own).  ``causal=False``
+    gives bidirectional self-attention.  The attention is ``ops.mha`` on
+    every device: K3 on the card, its plain version on the CPU."""
     if kv is not None:
         raise _not_ported("cross-attention", "6")
-    _dense_slice_only(cfg, window)
+    _no_softcap(cfg)
     a = cfg.attn
     B, S, _ = x.shape
     q, k, v = _project_qkv(p, x, cfg)
@@ -146,13 +146,7 @@ def attn_forward(p, x, cfg: ModelCfg, *, positions=None, window=None, kv=None,
         torch.arange(S, device=x.device)[None, :].expand(B, S)
     q = apply_rope(q, pos, a.rope_theta, a.rope_dim)
     k = apply_rope(k, pos, a.rope_theta, a.rope_dim)
-    Sk = k.shape[1]
-    if x.device.type == "cuda":
-        o = ops.mha(q, k, v, causal=causal)
-    elif Sk * S <= 2048 * 2048 or Sk <= 1024:
-        o = dense_attention(q, k, v, causal=causal)
-    else:
-        o = flash_attention(q, k, v, causal=causal)
+    o = ops.mha(q, k, v, causal=causal, window=window)
     return dense(o, p["wo"], 2)
 
 
@@ -163,9 +157,14 @@ def attn_forward(p, x, cfg: ModelCfg, *, positions=None, window=None, kv=None,
 
 def init_attn_cache(batch: int, seq_len: int, cfg: ModelCfg, window: Optional[int] = None,
                     device=None):
-    _dense_slice_only(cfg, window)
+    """Zeroed K/V caches of ``L = min(window, seq_len)`` slots under a window
+    (a ring buffer), else ``seq_len``, on ``device`` (``None``: the CUDA
+    device; raises where there is none)."""
+    _no_softcap(cfg)
+    device = resolve_device(device)
     a = cfg.attn
-    shape = (batch, seq_len, a.n_kv_heads, a.d_head)
+    L = min(window, seq_len) if window else seq_len
+    shape = (batch, L, a.n_kv_heads, a.d_head)
     dt = dtype_of(cfg.dtype)
     return {"k": torch.zeros(shape, dtype=dt, device=device),
             "v": torch.zeros(shape, dtype=dt, device=device)}
@@ -182,12 +181,18 @@ def attn_decode_step(p, x1, cache, index, cfg: ModelCfg, *, window=None):
     (out (B,1,D), cache).
 
     The new token's K/V go into the cache **in place** (``index_put_`` at
-    ``[lane, index]``, where the reference builds a new array with
+    ``[lane, slot]``, where the reference builds a new array with
     ``.at[lane, slot].set``); the returned cache holds the same tensors.  The
-    softmax over the cache is K4 (``ops.decode``) with a length per lane,
-    ``index + 1``: the kernel attends to positions ``< length`` where the
-    reference's mask reads ``<= index``."""
-    _dense_slice_only(cfg, window)
+    softmax over the cache is K4 (``ops.decode``) with a length per lane.
+    Without a window the slot is ``index`` and the length ``index + 1``: the
+    kernel attends to positions ``< length`` where the reference's mask reads
+    ``<= index``.  Under a window the cache is a ring of L slots: the slot is
+    ``index mod L`` and the length ``min(index + 1, L)``.  That selects the
+    reference's set, ``age < min(index + 1, L)``: slots are written in order
+    from position 0, so before the ring wraps the valid slots are
+    ``0..index``, and after it all L are; RoPE is applied before the cache and
+    attention does not depend on the order of its keys."""
+    _no_softcap(cfg)
     a = cfg.attn
     B = x1.shape[0]
     idx = torch.broadcast_to(torch.as_tensor(index, dtype=torch.int32, device=x1.device), (B,))
@@ -196,12 +201,14 @@ def attn_decode_step(p, x1, cache, index, cfg: ModelCfg, *, window=None):
     q = apply_rope(q, pos, a.rope_theta, a.rope_dim)
     k1 = apply_rope(k1, pos, a.rope_theta, a.rope_dim)
     k, v = cache["k"], cache["v"]
+    L = k.shape[1]
     lane = torch.arange(B, device=x1.device)
-    slot = idx.long()
+    slot = torch.remainder(idx, L).long() if window else idx.long()
     k[lane, slot] = k1[:, 0].to(k.dtype)
     v[lane, slot] = v1[:, 0].to(v.dtype)
 
-    o = ops.decode(q[:, 0], k, v, idx + 1)                        # (B, H, Dh)
+    length = torch.clamp(idx + 1, max=L) if window else idx + 1
+    o = ops.decode(q[:, 0], k, v, length)                         # (B, H, Dh)
     o = o.reshape(B, 1, a.n_heads, a.d_head).to(x1.dtype)
     out = dense(o, p["wo"], 2)
     return out, {"k": k, "v": v}

@@ -1,14 +1,19 @@
-"""Layer stacks and the unified language model, for dense models.
+"""Layer stacks and the unified language model.
 
 A model is ``embed -> [segments] -> final norm -> lm head``.  Each segment is
 a *pattern* of block kinds repeated ``repeats`` times.  Parameters keep the
 reference's tree: ``segments[i][pos]`` leaves have a leading ``repeats`` dim,
 and the reference's ``lax.scan`` over the repeats is a Python loop over it.
 
-Block kinds ported: ``attn`` (causal GQA self-attention with RoPE) followed
-by an ``mlp`` ffn, each pre-norm residual.  Every other kind (local_attn,
-enc_attn, cross_attn, mla, rglru, ssd), the MoE ffn, encoders and modality
-frontends raise ``NotImplementedError`` (ROADMAP.md queue A, item 6).
+Block kinds ported:
+    attn        causal GQA self-attention (+RoPE)
+    local_attn  sliding-window GQA (window = cfg.attn.window), ring-buffer cache
+    rglru       RG-LRU recurrent block (Griffin)
+    ssd         Mamba-2 SSD mixer
+each pre-norm residual, followed by an ``mlp`` ffn with its own pre-norm
+residual, or by none (``"none"``: no ``ln2``).  Every other kind (enc_attn,
+cross_attn, mla), the MoE ffn, encoders and modality frontends raise
+``NotImplementedError`` (ROADMAP.md queue A, item 6).
 """
 
 from __future__ import annotations
@@ -20,17 +25,18 @@ import torch
 
 from .._device import resolve_device
 from ..configs.base import ModelCfg, Segment
-from . import attention, mlp
+from . import attention, mlp, rglru, ssd
 from .common import dense, dtype_of, init_norm, ninit, rms_norm, softcap
 
-MIXER_KINDS = ("attn",)
+MIXER_KINDS = ("attn", "local_attn", "rglru", "ssd")
+FFN_KINDS = ("mlp", "none")
 
 
 def _check_kind(kind: str, ffn: str) -> None:
-    if kind not in MIXER_KINDS or ffn != "mlp":
+    if kind not in MIXER_KINDS or ffn not in FFN_KINDS:
         raise NotImplementedError(f"block kind {kind!r} with ffn {ffn!r} is not ported yet: "
-                                  "the port runs 'attn' blocks with an 'mlp' ffn "
-                                  "(ROADMAP.md queue A, item 6)")
+                                  f"the port runs {MIXER_KINDS} blocks with an ffn of "
+                                  f"{FFN_KINDS} (ROADMAP.md queue A, item 6)")
 
 
 def _check_cfg(cfg: ModelCfg) -> None:
@@ -60,32 +66,70 @@ def _take(tree, r: int):
 # ---------------------------------------------------------------------------
 
 
+def _window(kind: str, cfg: ModelCfg):
+    return cfg.attn.window if kind == "local_attn" else None
+
+
+def _init_mixer(gen: torch.Generator, kind: str, cfg: ModelCfg):
+    if kind in ("attn", "local_attn"):
+        return attention.init_attn(gen, cfg)
+    if kind == "rglru":
+        return rglru.init_rglru(gen, cfg)
+    return ssd.init_ssd(gen, cfg)
+
+
 def init_block(gen: torch.Generator, kind: str, ffn: str, cfg: ModelCfg):
     _check_kind(kind, ffn)
-    return {"ln1": init_norm(cfg.d_model, gen.device), "mixer": attention.init_attn(gen, cfg),
-            "ln2": init_norm(cfg.d_model, gen.device), "ffn": mlp.init_mlp(gen, cfg)}
+    p: dict[str, Any] = {"ln1": init_norm(cfg.d_model, gen.device),
+                         "mixer": _init_mixer(gen, kind, cfg)}
+    if ffn == "mlp":
+        p["ln2"] = init_norm(cfg.d_model, gen.device)
+        p["ffn"] = mlp.init_mlp(gen, cfg)
+    return p
+
+
+def _ffn(p, x, ffn: str, cfg: ModelCfg):
+    if ffn == "none":
+        return x
+    h = rms_norm(x, p["ln2"]["scale"], cfg.norm_eps, plus_one=cfg.norm == "rmsnorm_p1")
+    return x + mlp.mlp_forward(p["ffn"], h, cfg)
 
 
 def block_forward(p, x, kind: str, ffn: str, cfg: ModelCfg, *, positions=None, causal=True):
     """One block forward.  Returns (x, aux_loss)."""
     _check_kind(kind, ffn)
-    plus1 = cfg.norm == "rmsnorm_p1"
-    h = rms_norm(x, p["ln1"]["scale"], cfg.norm_eps, plus_one=plus1)
-    x = x + attention.attn_forward(p["mixer"], h, cfg, positions=positions, causal=causal)
-    h = rms_norm(x, p["ln2"]["scale"], cfg.norm_eps, plus_one=plus1)
-    x = x + mlp.mlp_forward(p["ffn"], h, cfg)
+    h = rms_norm(x, p["ln1"]["scale"], cfg.norm_eps, plus_one=cfg.norm == "rmsnorm_p1")
+    if kind in ("attn", "local_attn"):
+        m = attention.attn_forward(p["mixer"], h, cfg, positions=positions,
+                                   window=_window(kind, cfg), causal=causal)
+    elif kind == "rglru":
+        m = rglru.rglru_forward(p["mixer"], h, cfg)
+    else:
+        m = ssd.ssd_forward(p["mixer"], h, cfg)
+    x = _ffn(p, x + m, ffn, cfg)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def init_block_cache(kind: str, batch: int, seq_len: int, cfg: ModelCfg, device=None):
+    if kind in ("attn", "local_attn"):
+        return attention.init_attn_cache(batch, seq_len, cfg, window=_window(kind, cfg),
+                                         device=device)
+    if kind == "rglru":
+        return rglru.init_rglru_cache(batch, cfg, device=device)
+    return ssd.init_ssd_cache(batch, cfg, device=device)
 
 
 def block_decode_step(p, x1, cache, index, kind: str, ffn: str, cfg: ModelCfg):
     _check_kind(kind, ffn)
-    plus1 = cfg.norm == "rmsnorm_p1"
-    h = rms_norm(x1, p["ln1"]["scale"], cfg.norm_eps, plus_one=plus1)
-    m, cache = attention.attn_decode_step(p["mixer"], h, cache, index, cfg)
-    x1 = x1 + m
-    h = rms_norm(x1, p["ln2"]["scale"], cfg.norm_eps, plus_one=plus1)
-    x1 = x1 + mlp.mlp_forward(p["ffn"], h, cfg)
-    return x1, cache
+    h = rms_norm(x1, p["ln1"]["scale"], cfg.norm_eps, plus_one=cfg.norm == "rmsnorm_p1")
+    if kind in ("attn", "local_attn"):
+        m, cache = attention.attn_decode_step(p["mixer"], h, cache, index, cfg,
+                                              window=_window(kind, cfg))
+    elif kind == "rglru":
+        m, cache = rglru.rglru_decode_step(p["mixer"], h, cache, cfg)
+    else:
+        m, cache = ssd.ssd_decode_step(p["mixer"], h, cache, cfg)
+    return _ffn(p, x1 + m, ffn, cfg), cache
 
 
 # ---------------------------------------------------------------------------
@@ -115,7 +159,7 @@ def init_segment_cache(seg: Segment, batch: int, seq_len: int, cfg: ModelCfg, de
     out = []
     for pos, kind in enumerate(seg.pattern):
         _check_kind(kind, seg.ffn_at(pos))
-        c = attention.init_attn_cache(batch, seq_len, cfg, device=device)
+        c = init_block_cache(kind, batch, seq_len, cfg, device=device)
         out.append({k: torch.zeros((seg.repeats, *t.shape), dtype=t.dtype, device=device)
                     for k, t in c.items()})
     return out

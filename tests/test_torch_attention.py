@@ -219,18 +219,19 @@ def test_decode_attention_contract_errors():
 
 
 def test_model_attention_raises_for_what_the_dense_slice_leaves_out():
-    """No silent plain path for windows, soft-capping or cross-attention."""
+    """No silent plain path for soft-capping or cross-attention.  Windows are
+    ported: a windowed cache is a ring of ``min(window, seq_len)`` slots."""
     cfg = get_smoke_config("tinyllama-1.1b")
     gen = torch.Generator().manual_seed(0)
     p = attention.init_attn(gen, cfg)
     x = torch.zeros((1, 4, cfg.d_model))
-    cache = attention.init_attn_cache(1, 8, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        attention.attn_forward(p, x, cfg, window=2)
+    cache = attention.init_attn_cache(1, 8, cfg, window=2, device="cpu")
+    assert cache["k"].shape[1] == 2
+    assert attention.attn_forward(p, x, cfg, window=2).shape == x.shape
+    out, _ = attention.attn_decode_step(p, x[:, :1], cache, 0, cfg, window=2)
+    assert out.shape == (1, 1, cfg.d_model)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         attention.attn_forward(p, x, cfg, kv=x)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        attention.attn_decode_step(p, x[:, :1], cache, 0, cfg, window=2)
     capped = cfg.scaled(attn=cfg.attn.__class__(**{**cfg.attn.__dict__, "logit_softcap": 30.0}))
     with pytest.raises(NotImplementedError, match="soft-capping"):
         attention.attn_forward(p, x, capped)

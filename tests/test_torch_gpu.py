@@ -20,11 +20,16 @@ from repro_torch.core import gallery as port_gallery
 from repro_torch.core import ir as port_ir
 from repro_torch.core.builder import Builder as PortBuilder
 from repro_torch.core.gallery import gemm
+from repro_torch.configs.registry import get_smoke_config
 from repro_torch.core.lower import lower_to_cuda
 from repro_torch.kernels import decode_attention as dec
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import matmul as mm
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import rglru_scan as rg
+from repro_torch.kernels import ssd_scan as ssd_k
+from repro_torch.launch import serve
+from repro_torch.models import ssd, transformer
 
 LOOP_NESTS = ["array_add", "transpose", "stencil1d", "histogram", "conv2d"]
 
@@ -132,7 +137,9 @@ FLASH_CASES = [
 # ... and on the card also the other head dims and ragged lengths, under a
 # window up to the last query row that still sees a key (Sq = Sk + window - 1)
 FLASH_CASES_CARD = FLASH_CASES + [(100, 100, 4, 2, 16, None), (130, 200, 8, 2, 128, 50),
-                                  (179, 130, 8, 2, 128, 50)]
+                                  (179, 130, 8, 2, 128, 50),
+                                  # RecurrentGemma's heads: 16 over one KV head of 256
+                                  (300, 300, 16, 1, 256, 128), (64, 64, 4, 2, 256, None)]
 # (Sq, Sk, window, kv_len) where some query row sees no key: refused
 FLASH_NO_KEY_CASES = [(200, 130, 50, None), (180, 130, 50, None), (64, 64, 16, 40)]
 
@@ -142,7 +149,36 @@ DECODE_CASES = [
     (1024, 4, 2, 64, 1024),
     (256, 2, 1, 128, 1),
 ]
-DECODE_CASES_CARD = DECODE_CASES + [(300, 8, 2, 16, 257), (96, 6, 3, 32, 96)]
+DECODE_CASES_CARD = DECODE_CASES + [(300, 8, 2, 16, 257), (96, 6, 3, 32, 96),
+                                    (1024, 16, 1, 256, 513)]
+
+
+# (S, H, P, N, chunk): the reference's test_ssd_scan cases (a ragged tail, one chunk)
+SSD_CASES = [(64, 2, 16, 16, 16), (100, 1, 32, 16, 32), (128, 3, 8, 8, 128)]
+# ... and on the card also the smoke config's head (P 24, chunk 8), Mamba-2's
+# widths with a ragged tail, and two tiles of P
+SSD_CASES_CARD = SSD_CASES + [(40, 8, 24, 16, 8), (600, 4, 64, 128, 256), (300, 2, 80, 32, 64)]
+# (S, D): the reference's test_rglru_scan cases (ragged both dims, one block)
+RGLRU_CASES = [(64, 32), (100, 48), (128, 8)]
+# ... and on the card also several rounds of the kernel, ragged, and tiny
+RGLRU_CASES_CARD = RGLRU_CASES + [(1000, 4000), (300, 1000), (7, 3)]
+
+
+def ssd_operands(B, S, H, P, N, seed=5, lo=0.01, hi=0.5):
+    """Seeded float32 (xdt, dA, Bc, Cc) as the reference test draws them:
+    normal inputs, decay logs uniform in [-hi, -lo] ([-0.5, -0.01] there)."""
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, S, H, P)).astype(np.float32),
+            -rng.uniform(lo, hi, (B, S, H)).astype(np.float32),
+            rng.standard_normal((B, S, N)).astype(np.float32),
+            rng.standard_normal((B, S, N)).astype(np.float32))
+
+
+def rglru_operands(B, S, D, lo=0.5, hi=0.99, seed=8):
+    """Seeded float32 (a, b): a uniform in [lo, hi], b normal."""
+    rng = np.random.default_rng(seed)
+    return (rng.uniform(lo, hi, (B, S, D)).astype(np.float32),
+            rng.standard_normal((B, S, D)).astype(np.float32))
 
 
 def attention_operands(q_shape, kv_shape, name, seed=1):
@@ -321,3 +357,126 @@ def test_attention_kernels_refuse_what_they_do_not_take_on_card():
     with pytest.raises(ValueError, match="not contiguous"):
         dec.decode_attention(x, torch.zeros((1, 8, 64, 4), device=dev).transpose(2, 3),
                              torch.zeros((1, 8, 4, 64), device=dev), 8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,H,P,N,chunk", SSD_CASES_CARD)
+def test_ssd_scan_kernel_matches_plain_on_card(S, H, P, N, chunk):
+    """Within test_ssd_scan's tolerance of the step-by-step recurrence."""
+    dev = _cuda_or_skip()
+    x, dA, Bc, Cc = _on(dev, "float32", *ssd_operands(2, S, H, P, N))
+    before = ssd_k.launches
+    got = ops.ssd_scan(x, dA, Bc, Cc, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_k.launches == before + 1 and got.shape == x.shape
+    want, _ = ref.ssd_scan_ref(x, dA, Bc, Cc)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=2e-4, atol=2e-4)
+
+
+# Mamba-2's prefill (4 x 2048, H 48, P 64, N 128, chunk 256) and a ragged S,
+# with slow decays: decay logs in [-0.02, -0.001], as Mamba-2's dt range of
+# 1e-3 to 1e-1 gives them.  There every score tile of a chunk and the state
+# carried across chunks move y by far more than the tolerance; at the
+# reference test's rates the tiles two below the diagonal do not.
+SSD_SLOW_CASES_CARD = [(2048, 48, 64, 128, 256), (2000, 48, 64, 128, 256)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,H,P,N,chunk", SSD_SLOW_CASES_CARD)
+def test_ssd_scan_kernel_far_tiles_count_on_card(S, H, P, N, chunk):
+    """Within test_ssd_scan's tolerance of the step-by-step recurrence in
+    float64, with slow decays at Mamba-2's widths."""
+    dev = _cuda_or_skip()
+    x, dA, Bc, Cc = _on(dev, "float32", *ssd_operands(4, S, H, P, N, lo=0.001, hi=0.02))
+    got = ops.ssd_scan(x, dA, Bc, Cc, chunk=chunk)
+    want, _ = ref.ssd_scan_ref(*(t.double() for t in (x, dA, Bc, Cc)))
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.gpu
+def test_ssd_kernel_matches_model_core_on_card():
+    """The model's dispatch on the card equals the chunked core the CPU runs,
+    at the reference's test_ssd_kernel_matches_model_core shape.  (At
+    Mamba-2's widths the float32 chunked core is itself outside 2e-4 of the
+    recurrence: its within-chunk cumsum loses the decays' precision, which
+    K5 keeps in double; the kernel is held to the recurrence there.)"""
+    dev = _cuda_or_skip()
+    rng = np.random.default_rng(6)
+    Bb, S, H, P, N, Q = 1, 64, 2, 16, 16, 16
+    xh, dt0, a0, Bc, Cc, D = _on(dev, "float32", rng.standard_normal((Bb, S, H, P)),
+                                 rng.standard_normal((Bb, S, H)), rng.standard_normal(H),
+                                 rng.standard_normal((Bb, S, N)), rng.standard_normal((Bb, S, N)),
+                                 rng.standard_normal(H))
+    dt, A = torch.nn.functional.softplus(dt0), -torch.exp(a0 * 0.2)
+    y = ops.ssd_scan(xh * dt[..., None], dt * A, Bc, Cc, chunk=Q) + xh * D[None, None, :, None]
+    want, _ = ssd.ssd_core_chunked(xh, dt, A, Bc, Cc, D, Q)
+    np.testing.assert_allclose(y.cpu().numpy(), want.cpu().numpy(), rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,D", RGLRU_CASES_CARD)
+def test_rglru_scan_kernel_matches_plain_on_card(S, D):
+    dev = _cuda_or_skip()
+    a, b = _on(dev, "float32", *rglru_operands(2, S, D, hi=0.999))
+    before = rg.launches
+    got = ops.rglru_scan(a, b)
+    torch.cuda.synchronize()
+    assert rg.launches == before + 1 and got.shape == a.shape
+    want, _ = ref.rglru_scan_ref(a, b)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.gpu
+def test_scan_kernels_refuse_what_they_do_not_take_on_card():
+    dev = _cuda_or_skip()
+    x, dA, Bc, Cc = (t.to(dev) for t in map(torch.as_tensor, ssd_operands(1, 16, 2, 8, 8)))
+    with pytest.raises(TypeError, match="float32"):
+        ops.ssd_scan(x.bfloat16(), dA, Bc, Cc)
+    wide = torch.zeros((1, 16, 129), device=dev)
+    with pytest.raises(ValueError, match="state size"):
+        ops.ssd_scan(x, dA, wide, wide)
+    a = torch.zeros((1, 8, 4), device=dev)
+    with pytest.raises(TypeError, match="float32"):
+        ops.rglru_scan(a.bfloat16(), a.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.rglru_scan(a.transpose(1, 2), a.transpose(1, 2))
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["mamba2-780m", "recurrentgemma-9b"])
+def test_recurrent_model_on_card_equals_the_cpu(arch):
+    """The prefill step through K5 / K6 (and windowed K3) equals the plain
+    CPU forward, and the wave-refilling Engine, through K4 where the model
+    has attention, gives the CPU Engine's greedy tokens."""
+    dev = _cuda_or_skip()
+    cfg = get_smoke_config(arch)
+    params = transformer.init_lm(0, cfg, device="cpu")
+    on_card = _to(params, dev)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab, (2, 40))
+    before = {"ssd": ssd_k.launches, "rglru": rg.launches, "flash": fa.launches}
+    got, _ = transformer.lm_forward(on_card, {"tokens": torch.as_tensor(toks)}, cfg)
+    torch.cuda.synchronize()
+    kinds = [k for s in cfg.segments for k in s.pattern * s.repeats]
+    assert ssd_k.launches - before["ssd"] == kinds.count("ssd")
+    assert rg.launches - before["rglru"] == kinds.count("rglru")
+    assert fa.launches - before["flash"] == kinds.count("local_attn")
+    want, _ = transformer.lm_forward(params, {"tokens": torch.as_tensor(toks)}, cfg)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-4, atol=1e-4)
+    done = {}
+    for where, p in (("cpu", params), ("card", on_card)):
+        eng = serve.Engine(cfg, 3, 32, device=dev if where == "card" else "cpu", params=p)
+        assert eng.wave
+        before_dec = dec.launches
+        out, steps = serve.serve_requests(eng, serve.make_requests(6, 5, 6, cfg.vocab))
+        done[where] = [(r.rid, r.out) for r in out]
+        if where == "card":
+            assert dec.launches - before_dec == kinds.count("local_attn") * eng.decode_calls
+    assert done["card"] == done["cpu"]

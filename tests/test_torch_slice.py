@@ -49,7 +49,7 @@ VERBATIM = (
     + [f"core/gallery/{m}.py" for m in ("array_add", "transpose", "stencil1d", "histogram",
                                         "conv2d", "gemm", "gemm_shared", "mac", "fifo")]
     + [f"configs/{m}.py" for m in ("base", "tinyllama_1_1b", "smollm_360m", "qwen2_7b",
-                                   "qwen2_5_14b")]
+                                   "qwen2_5_14b", "mamba2_780m", "recurrentgemma_9b")]
 )
 
 
@@ -136,15 +136,17 @@ def test_passes_init_differs_only_by_the_rtl_reexports():
 
 
 def test_registry_differs_only_by_the_archs_not_ported():
-    """``configs/registry.py`` lists the four dense archs the port runs:
-    the other archs' lines leave ``ARCHS`` and ``_ALIASES``, and the
-    ``KeyError`` says an arch may be unknown or not ported yet."""
+    """``configs/registry.py`` lists the six archs the port runs (four dense,
+    Mamba-2 and RecurrentGemma): the other archs' lines leave ``ARCHS`` and
+    ``_ALIASES``, and the ``KeyError`` says an arch may be unknown or not
+    ported yet."""
     ref_lines = (REF / "configs/registry.py").read_text().splitlines()
     port_lines = (PORT / "configs/registry.py").read_text().splitlines()
-    ported = {"tinyllama_1_1b", "qwen2_7b", "smollm_360m", "qwen2_5_14b"}
+    ported = {"tinyllama_1_1b", "qwen2_7b", "smollm_360m", "qwen2_5_14b", "mamba2_780m",
+              "recurrentgemma_9b"}
     dropped = {i for i, ln in enumerate(ref_lines) if ln.startswith('    "') and ln.endswith(",")
                and ln.rstrip(",").split('"')[-2] not in ported}
-    assert len(dropped) == 2 * 6
+    assert len(dropped) == 2 * 4
     raise_line = next(i for i, ln in enumerate(ref_lines) if "raise KeyError" in ln)
     want = [ln for i, ln in enumerate(ref_lines) if i not in dropped]
     want[want.index(ref_lines[raise_line])] = (

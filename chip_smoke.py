@@ -11,7 +11,9 @@ PyTorch version on the card, then drives:
   optimize it, lower it to a generated CUDA kernel, run it on one stimulus
   vector and on 4096 of them, and check the results against the NumPy
   oracle, the cycle-accurate simulator and the functional lowering — and the
-  GEMM binding through the hand-written matmul;
+  GEMM binding through the hand-written matmul, whose bfloat16 kernel runs on
+  wgmma and whose float32 kernel stays exact on integer operands (every
+  shape, 4096^3 and a ragged 4000x3992x4104 included);
 * serving three models at full width (random weights from a seed) — the
   dense tinyllama-1.1b, the attention-free mamba2-780m and the hybrid
   recurrentgemma-9b: the continuous-batching ``Engine`` answers 8 requests
@@ -28,7 +30,7 @@ Each path runs with every kernel's launch count set to 0 just before it and
 read just after; a row of the ``kernels`` line that names a main-path shape
 carries that count, and the rows of further checks nested under it carry
 ``"launches": null``.  Output: one JSON object per line (``env``,
-``build``, ``main_path``, then ``serve``, ``prefill``,
+``build``, ``k1_without_staging``, ``main_path``, then ``serve``, ``prefill``,
 ``consistency`` and ``profile`` for each model, ``kernels``), the card's
 name and power limit as ``nvidia-smi`` gives them, and a last line
 ``{"ok": true, "device": {...}}``.  Any mismatch or failure exits non-zero
@@ -97,13 +99,24 @@ DESIGN_LIBRARY = {
 }
 
 # (M, K, N, tiles) of the matmul: the gallery GEMM's own binding, the ragged
-# shapes the tests use, and a full-width product
+# shapes the tests use, and full-width products, square and ragged (padded by
+# ops.matmul), on each dtype's own tile: 128x256 with 64 a stage for the
+# bfloat16 wgmma kernel, 128x128 with slabs of 32 for the float32 one
+BIG_TILES = {torch.bfloat16: dict(bm=128, bn=256, bk=64),
+             torch.float32: dict(bm=128, bn=128, bk=32)}
 MATMUL_SHAPES = [
-    (16, 16, 16, dict(bm=16, bn=16, bk=16)),
+    # the binding's float32 tile; bfloat16 takes the smallest wgmma tile
+    (16, 16, 16, {torch.float32: dict(bm=16, bn=16, bk=16),
+                  torch.bfloat16: dict(bm=64, bn=16, bk=16)}),
     (8, 8, 8, dict(bm=128, bn=128, bk=128)),
     (100, 130, 70, dict(bm=128, bn=128, bk=128)),
-    (4096, 4096, 4096, dict(bm=128, bn=128, bk=16)),
+    (4096, 4096, 4096, BIG_TILES),
+    (4000, 3992, 4104, BIG_TILES),
 ]
+
+
+def tiles_of(tiles: dict, dtype) -> dict:
+    return tiles.get(dtype, tiles)
 MATMUL_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # relative to |plain|max
 
 # the served models and their traffic: 8 requests of 64-token prompts and 32
@@ -247,9 +260,61 @@ def phase_build(device) -> dict:
     return compiled
 
 
+def element_steps(module, name) -> int:
+    """Executions of the innermost bodies of the design's main loop (its
+    largest-trip top-level loop): the element steps one lane walks."""
+    def steps(ops) -> int:
+        loops = [op for op in ops if op.opname == "for"]
+        return sum(op.trip_count() * max(1, steps(op.region(0).ops)) for op in loops)
+    top = [op for op in module.get(name).body.ops if op.opname == "for"]
+    main = max(top, key=lambda op: op.trip_count())
+    return main.trip_count() * max(1, steps(main.region(0).ops))
+
+
+def k1_case(dname, tag, module, name, fn, size, ins, lanes) -> dict:
+    """One generated kernel against its plain version, bit-exact."""
+    got = fn(*ins)
+    torch.cuda.synchronize()
+    plain = {}
+    plain_ms = wall_ms(lambda: plain.update(fn.plain(*ins)))
+    err = 0
+    for k in plain:
+        if got[k].shape != plain[k].shape or got[k].dtype != plain[k].dtype:
+            fail(f"K1 {dname}/{tag}/{lanes}: shape or dtype differs from plain")
+        err = max(err, int((got[k].long() - plain[k].long()).abs().max()))
+    if err != 0:
+        fail(f"K1 {dname}/{tag}/{lanes} lanes differs from its plain version by {err}")
+    ms = time_ms(lambda: fn(*ins), 20)
+    library_ms = None
+    if dname in DESIGN_LIBRARY:
+        lib_call = DESIGN_LIBRARY[dname]
+        (kernel_out,) = got.values()
+        if not torch.equal(lib_call(*ins), kernel_out):
+            fail(f"K1 {dname}/{tag}/{lanes}: the library call computes another function")
+        library_ms = time_ms(lambda: lib_call(*ins), 20)
+    nbytes = lanes * 4 * sum(int(np.prod(a.type.shape)) for a in module.get(name).args)
+    threads, pf = fn.launch_shape(lanes, ins[0].device)
+    steps = element_steps(module, name)
+    return {
+        "name": f"lower_to_cuda[{dname},{tag},{lanes} lanes]", "route": "cuda",
+        "source": "src/repro_torch/core/lower/to_cuda.py",
+        "replaces": "src/repro/core/lower/to_pallas.py:200",
+        "shape": {"design": dname, "size": size or "default", "lanes": lanes},
+        "launch": {"lanes_per_block": threads, "prefetch_distance": pf,
+                   "staged": fn.kernel.staged, "chunk": fn.kernel.chunk,
+                   "shared_allocs": fn.kernel.shared_allocs},
+        "launches": 0, "max_abs_err": err, "tolerance": 0,
+        "ms": ms, "plain_ms": plain_ms, "element_steps": steps, "ns_per_step": ms * 1e6 / steps,
+        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "library_ms": library_ms,
+    }
+
+
 def phase_kernels_k1(compiled, device) -> list[dict]:
     """Each generated kernel against its plain version, bit-exact, at every
-    shape the main path runs: both sizes, 1 lane and ``LANES`` lanes."""
+    shape the main path runs: both sizes, 1 lane and ``LANES`` lanes; and,
+    as a check no main path runs (``launches: null``), at ``LANES + 1``
+    lanes, a last block of one lane."""
     rows = []
     for (dname, tag), (module, name, fn, size) in compiled.items():
         gal = next(g for d, g, _, _ in DESIGNS if d == dname)
@@ -258,38 +323,11 @@ def phase_kernels_k1(compiled, device) -> list[dict]:
         dev_batch = [torch.as_tensor(x).to(device=device, dtype=torch.int32) for x in batch]
         for lanes in (1, LANES):
             ins = dev_batch if lanes > 1 else [x[0] for x in dev_batch]
-            got = fn(*ins)
-            torch.cuda.synchronize()
-            plain = {}
-            plain_ms = wall_ms(lambda: plain.update(fn.plain(*ins)))
-            want = plain
-            err = 0
-            for k in want:
-                if got[k].shape != want[k].shape or got[k].dtype != want[k].dtype:
-                    fail(f"K1 {dname}/{tag}/{lanes}: shape or dtype differs from plain")
-                err = max(err, int((got[k].long() - want[k].long()).abs().max()))
-            if err != 0:
-                fail(f"K1 {dname}/{tag}/{lanes} lanes differs from its plain version by {err}")
-            ms = time_ms(lambda: fn(*ins), 20)
-            library_ms = None
-            if dname in DESIGN_LIBRARY:
-                lib_call = DESIGN_LIBRARY[dname]
-                (kernel_out,) = got.values()
-                if not torch.equal(lib_call(*ins), kernel_out):
-                    fail(f"K1 {dname}/{tag}/{lanes}: the library call computes another function")
-                library_ms = time_ms(lambda: lib_call(*ins), 20)
-            nbytes = lanes * 4 * sum(int(np.prod(a.type.shape))
-                                     for a in module.get(name).args)
-            rows.append({
-                "name": f"lower_to_cuda[{dname},{tag},{lanes} lanes]", "route": "cuda",
-                "source": "src/repro_torch/core/lower/to_cuda.py",
-                "replaces": "src/repro/core/lower/to_pallas.py:200",
-                "shape": {"design": dname, "size": size or "default", "lanes": lanes},
-                "launches": 0, "max_abs_err": err, "tolerance": 0,
-                "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-                "library_ms": library_ms,
-            })
+            rows.append(k1_case(dname, tag, module, name, fn, size, ins, lanes))
+        ragged = [torch.cat([x, x[:1]]) for x in dev_batch]
+        check = k1_case(dname, tag, module, name, fn, size, ragged, LANES + 1)
+        check["launches"] = None
+        rows[-1]["checks"] = [check]
     return rows
 
 
@@ -307,8 +345,9 @@ def phase_kernels_k2(device) -> list[dict]:
     operands, within the tolerance of the tests, at every shape."""
     rows = []
     g = torch.Generator(device="cpu").manual_seed(SEED)
-    for M, K, N, tiles in MATMUL_SHAPES:
+    for M, K, N, both in MATMUL_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
+            tiles = tiles_of(both, dtype)
             x = torch.randn((M, K), generator=g).to(device=device, dtype=dtype)
             y = torch.randn((K, N), generator=g).to(device=device, dtype=dtype)
             got = ops.matmul(x, y, **tiles)
@@ -322,14 +361,17 @@ def phase_kernels_k2(device) -> list[dict]:
             limit = MATMUL_TOL[dtype] * max(1.0, float(want.float().abs().max()))
             if not err <= limit:
                 fail(f"K2 {M,K,N} {dtype}: max |kernel - plain| = {err} > {limit}")
-            iters = 5 if M >= 1024 else 50
+            iters = 10 if M >= 1024 else 50
             flops, nbytes = 2.0 * M * N * K, (M * K + K * N + M * N) * x.element_size()
             t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / HBM_BYTES_PER_S
+            sched = mm.schedule(tiles["bm"], tiles["bn"], tiles["bk"], dtype)
             rows.append({
                 "name": f"matmul[{M}x{K}x{N},{str(dtype).split('.')[-1]}]", "route": "cuda",
                 "source": "src/repro_torch/csrc/matmul.cu",
                 "replaces": "src/repro/kernels/matmul.py:71",
-                "shape": {"M": M, "K": K, "N": N, "dtype": str(dtype), **tiles},
+                "shape": {"M": M, "K": K, "N": N, "dtype": str(dtype)},
+                "kernel": sched.pop("kernel"), "launcher": sched.pop("launcher"),
+                "tile": sched,
                 "launches": 0, "max_abs_err": err, "tolerance": limit,
                 "ms": time_ms(lambda: ops.matmul(x, y, **tiles), iters),
                 "plain_ms": time_ms(lambda: ref.matmul_ref(x, y), iters),
@@ -338,6 +380,38 @@ def phase_kernels_k2(device) -> list[dict]:
                 "library_ms": time_ms(lambda: torch.matmul(x, y), iters),
             })
     return rows
+
+
+def phase_k1_without_staging(device) -> None:
+    """What staging buys: each large design's kernel generated with no
+    room for staging (so its reads known ahead are only prefetched), held
+    bit-exact to its plain version and timed at ``LANES`` lanes beside the
+    staged kernel's ``ms`` in the ``kernels`` line.  Outside every main
+    path: its launches count nowhere."""
+    budget = to_cuda.STAGE_BYTES_PER_PAIR
+    to_cuda.STAGE_BYTES_PER_PAIR = 0
+    try:
+        cases = [(dname, gal, large) + compile_design(gal, large, device)
+                 for dname, gal, _, large in DESIGNS]
+    finally:
+        to_cuda.STAGE_BYTES_PER_PAIR = budget
+    for p in [_build.start_build(fn.stem, fn.source) for *_, fn in cases]:
+        _build.finish_build(p)
+    out = []
+    for dname, gal, size, module, name, fn in cases:
+        if fn.kernel.staged:
+            fail(f"{dname}: staged with no room for staging")
+        ins = [torch.as_tensor(x).to(device=device, dtype=torch.int32)
+               for x in stimulus(gal, size, LANES)[:n_read_ports(module, name)]]
+        got, want = fn(*ins), fn.plain(*ins)
+        if not all(torch.equal(got[k], want[k]) for k in want):
+            fail(f"{dname}: the unstaged kernel differs from its plain version")
+        ms = time_ms(lambda: fn(*ins), 20)
+        out.append({"design": dname, "size": size, "lanes": LANES, "ms": ms,
+                    "ns_per_step": ms * 1e6 / element_steps(module, name),
+                    "prefetch_bytes_per_iteration": fn.kernel.prefetch_bytes,
+                    "shared_allocs": fn.kernel.shared_allocs})
+    emit("k1_without_staging", out)
 
 
 def phase_main_path(device) -> dict:
@@ -392,8 +466,9 @@ def phase_main_path(device) -> dict:
     if verify(module):
         fail("verifier rejected gemm")
     a, b, _ = gemm.make_inputs(seed=SEED)
-    for M, K, N, tiles in MATMUL_SHAPES:
+    for M, K, N, both in MATMUL_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
+            tiles = tiles_of(both, dtype)
             key = f"matmul[{M}x{K}x{N},{str(dtype).split('.')[-1]}]"
             before = mm.launches
             if (M, K, N) == a.shape + b.shape[1:] and dtype == torch.float32:
@@ -968,6 +1043,7 @@ def main() -> None:
     smi = phase_env()
     compiled = phase_build(device)
     rows = phase_kernels_k1(compiled, device) + phase_kernels_k2(device)
+    phase_k1_without_staging(device)
     k3_rows, k4_rows = phase_kernels_k3(device), phase_kernels_k4(device)
     k5_rows, k6_rows = phase_kernels_k5(device), phase_kernels_k6(device)
     k3_256, k4_256 = phase_kernels_d256(device)

@@ -13,13 +13,28 @@ map onto a generated ``__global__`` function as:
                 lives in per-thread arrays that persist across iterations;
   binding    -> memref arguments are global-memory arrays, one slice per
                 lane; ``hir.alloc`` buffers are zero-initialised per-thread
-                arrays (registers or local memory).
+                arrays (registers), or, where indexed at run time, a thread's
+                column of shared memory.
 
 What bounds it on the card: one design run is a few hundred *dependent*
 scalar operations over a few hundred bytes — nothing in it can be spread
 over threads.  The card gets its work from **lanes**: independent stimulus
 vectors (the differential-verification workload), one thread per lane.  The
-kernel is then bound by the bytes of stimulus read and results written.
+kernel's bound is the bytes of stimulus read and results written; what keeps
+it from there is that a lane's array lies a whole array away from the next
+lane's, so 32 threads reading their own lanes touch 32 cache lines an
+instruction, and at 4096 lanes an SM runs a single warp, which waits out
+every access.  Three things answer it (``_generate``'s header says which a
+kernel uses):
+
+* blocks are sized from the lane count and the SMs, so they cover the card;
+* the memrefs the main loop touches at indices known ahead (loop ivs and
+  constants) are *staged*: a helper warp beside each compute warp copies the
+  boxes that the next chunk of iterations touches into shared memory, one
+  lane's consecutive elements an instruction, and copies written boxes back,
+  while the compute warp runs the current chunk there — the card's form of
+  the Pallas grid's double buffering;
+* other reads known ahead are prefetched into L1 some iterations early.
 
 ``generate_cuda_source`` walks the HIR exactly as the reference interpreter
 does — effects in ``schedule_key`` order within each region, pure values
@@ -64,7 +79,14 @@ _PURE = set(_ARITH) | {"delay", "constant"}
 #: to 0, drives its path, and reads it to show the path used the kernel)
 launches = 0
 
-THREADS_PER_BLOCK = 128
+#: most lanes a block of the generated kernel runs (with staging, each lane's
+#: compute thread has a helper thread beside it)
+MAX_THREADS_PER_BLOCK = 128
+#: bytes each SM keeps in flight through the main loop's prefetches: Little's
+#: law at 3.35 TB/s over 132 SMs and about 700 ns of DRAM latency (17.8 KB)
+PREFETCH_BYTES_PER_SM = 16384
+#: shared memory one block can use on Hopper (227 KB)
+SMEM_BYTES = 232_448
 
 
 # ---------------------------------------------------------------------------
@@ -229,7 +251,79 @@ __device__ __forceinline__ int32_t hir_shl(int32_t a, int32_t b) {
 __device__ __forceinline__ int32_t hir_shr(int32_t a, int32_t b) {
   return ((uint32_t)b >= 32u) ? (a < 0 ? -1 : 0) : (a >> b);
 }
+// A warp's 32 lanes, rows row0.. of a (lanes, size) array, copied between
+// global memory and the warp's staging buffer: of each lane's array, seen as
+// rows of `cols`, the box of nr rows from r0 and nc columns from c0; element
+// e of the box (row e / pitch, column e % pitch) of lane l at st[e * 33 + l].
+// A copy instruction moves consecutive elements of one lane's rows, and the
+// stride of 33 keeps both sides free of bank conflicts.  Copies in are
+// asynchronous (`cp.async`, all in flight at once; 2-byte elements go
+// through registers) until hir_stage_wait.  Rows past `last_row` read that
+// row instead (inputs of the lanes past the last).
+template <typename T>
+__device__ __forceinline__ void hir_stage_in(T* st, const T* g, int row0, int last_row,
+                                             int size, int cols, int r0, int c0, int nr,
+                                             int nc, int pitch) {
+  const int t = threadIdx.x & 31;
+#pragma unroll 4
+  for (int l = 0; l < 32; ++l) {
+    const T* src = g + (size_t)min(row0 + l, last_row) * size + r0 * cols + c0;
+    for (int e = t; e < nr * pitch; e += 32) {
+      const int r = e / pitch, c = e - r * pitch;
+      if (c >= nc) continue;
+      if constexpr (sizeof(T) >= 4) {
+        asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n"
+                     :: "r"((uint32_t)__cvta_generic_to_shared(st + e * 33 + l)),
+                        "l"(src + r * cols + c), "n"(sizeof(T)) : "memory");
+      } else {
+        st[e * 33 + l] = src[r * cols + c];
+      }
+    }
+  }
+}
+__device__ __forceinline__ void hir_stage_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncwarp();
+}
+template <typename T>
+__device__ __forceinline__ void hir_stage_out(const T* st, T* g, int row0, int last_row,
+                                              int size, int cols, int r0, int c0, int nr,
+                                              int nc, int pitch) {
+  const int t = threadIdx.x & 31, n = nr * pitch;
+  for (int l = 0; l < 32; ++l) {
+    T* dst = g + (size_t)min(row0 + l, last_row) * size + r0 * cols + c0;
+    for (int e0 = t; e0 < n; e0 += 4 * 32) {   // four reads in flight, then four writes
+      T v[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int e = e0 + 32 * u;
+        if (e < n) v[u] = st[e * 33 + l];
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int e = e0 + 32 * u, r = e / pitch, c = e - r * pitch;
+        if (e < n && c < nc) dst[r * cols + c] = v[u];
+      }
+    }
+  }
+}
+// A compute warp and its helper meet at barrier pair + 1 (0 is __syncthreads').
+__device__ __forceinline__ void hir_pair_sync(int pair) {
+  asm volatile("bar.sync %0, 64;\n" :: "r"(pair + 1) : "memory");
+}
+// Ask L1 for the 32-byte sector that starts at p; other addresses ask for
+// nothing, so a stream read element by element prefetches once a sector.
+__device__ __forceinline__ void hir_prefetch(const void* p) {
+  if (((uintptr_t)p & 31u) == 0) asm volatile("prefetch.global.L1 [%0];" :: "l"(p));
+}
 """
+
+
+def _size(shape) -> int:
+    n = 1
+    for d in shape:
+        n *= d
+    return n
 
 
 class _CVal:
@@ -243,14 +337,25 @@ class _CVal:
 
 
 class _CMem:
-    """A per-lane array visible in the kernel body."""
+    """A per-lane array visible in the kernel body: a lane's slice of a
+    global memref, a per-thread array, or a thread's column of a shared
+    buffer (``shared``: element ``i`` at ``name[i * hir_lanes]``)."""
 
-    __slots__ = ("name", "shape", "ctype")
+    __slots__ = ("name", "shape", "ctype", "shared", "read_port", "window")
 
-    def __init__(self, name: str, shape: tuple, ctype: str):
+    def __init__(self, name: str, shape: tuple, ctype: str, shared: bool = False,
+                 read_port: bool = False, window: Optional[tuple] = None):
         self.name = name
         self.shape = tuple(shape)
         self.ctype = ctype
+        self.shared = shared
+        self.read_port = read_port
+        # staged: (first row, first column, row pitch) of the warp's window,
+        # the memref seen as (rows of every dim but the last, last dim)
+        self.window = window
+
+    def at(self, lin: str) -> str:
+        return f"{self.name}[({lin}) * hir_lanes]" if self.shared else f"{self.name}[{lin}]"
 
 
 def _literal(value, ctype: str) -> str:
@@ -281,6 +386,9 @@ class _Writer:
         self.lines: list[str] = []
         self.depth = 1
         self.counter = 0
+        self.dynamic: set[str] = set()     # arrays indexed by a run-time value
+        self.prefetch_bytes = 0            # bytes one main-loop iteration prefetches
+        self.trips = 1                     # iterations of the loops being walked
 
     def line(self, text: str) -> None:
         self.lines.append("  " * self.depth + text)
@@ -352,22 +460,43 @@ class _Emitter(_Interp):
     def _index(self, ref: _CMem, ixs: tuple) -> str:
         if len(ixs) != len(ref.shape):
             raise ValueError(f"{len(ixs)} indices into {ref.name} of rank {len(ref.shape)}")
+        return self._linear(ref.shape, ixs)
+
+    def _linear(self, shape: tuple, ixs: tuple) -> str:
         if not any(isinstance(i, _CVal) for i in ixs):
             lin = 0
-            for i, d in zip(ixs, ref.shape):
+            for i, d in zip(ixs, shape):
                 lin = lin * d + int(i)
             return str(lin)
         expr = ""
-        for i, d in zip(ixs, ref.shape):
+        for i, d in zip(ixs, shape):
             term = self._as(i, "int32_t") if isinstance(i, _CVal) else str(int(i))
             expr = term if not expr else f"({expr}) * {d} + {term}"
         return expr
 
+    def _element(self, ref: _CMem, ixs: tuple) -> str:
+        """The C++ element a read or write touches."""
+        if not ref.window:
+            return ref.at(self._index(ref, ixs))
+        if len(ixs) != len(ref.shape):
+            raise ValueError(f"{len(ixs)} indices into {ref.name} of rank {len(ref.shape)}")
+        row0, col0, pitch = ref.window
+        box = f"({self._linear(ref.shape[-1:], ixs[-1:])}) - {col0}"
+        if len(ixs) > 1:
+            box = f"(({self._linear(ref.shape[:-1], ixs[:-1])}) - {row0}) * {pitch} + {box}"
+        return f"{ref.name}[({box}) * 33 + hir_t]"
+
+    def _note(self, ref: _CMem, ixs: tuple) -> None:
+        if any(isinstance(i, _CVal) for i in ixs):
+            self.ctx.dynamic.add(ref.name)
+
     def read(self, ref, ixs):
-        return self._bind(ref.ctype, f"{ref.name}[{self._index(ref, ixs)}]", "r")
+        self._note(ref, ixs)
+        return self._bind(ref.ctype, self._element(ref, ixs), "r")
 
     def write(self, ref, ixs, val, pred):
-        store = f"{ref.name}[{self._index(ref, ixs)}] = {self._as(val, ref.ctype)};"
+        self._note(ref, ixs)
+        store = f"{self._element(ref, ixs)} = {self._as(val, ref.ctype)};"
         if pred is None:
             self.ctx.line(store)
         elif isinstance(pred, _CVal):
@@ -388,6 +517,49 @@ class _Emitter(_Interp):
         body.run_region(op.region(0))
         w.depth -= 1
         w.line("}")
+
+
+#: a value read from memory: an index built from it is known only at run time
+_DATA = object()
+
+
+class _Prefetcher(_Emitter):
+    """Walks the main loop's body for a later iteration and emits only the
+    address arithmetic and the prefetches of its reads: reads of read-port
+    memrefs whose index resolves through pure ops from loop ivs and
+    constants.  A read's value is ``_DATA``, so an index that depends on
+    data (histogram's bins) gets no prefetch; writes emit nothing."""
+
+    def arith(self, opname, args):
+        if any(a is _DATA for a in args):
+            return _DATA
+        return super().arith(opname, args)
+
+    def run_effect(self, op: Operation) -> None:
+        if op.opname == "mem_write":
+            return
+        if op.opname != "mem_read":
+            super().run_effect(op)
+            return
+        mem, idx = ir.mem_read_parts(op)
+        ref, ixs = self.refs[mem], tuple(self.value(i) for i in idx)
+        self.env[op.result] = _DATA
+        if (not ref.read_port or ref.window or any(i is _DATA for i in ixs)
+                or not any(isinstance(i, _CVal) for i in ixs)):
+            return                  # data-dependent, or the same address every time
+        w = self.ctx
+        w.prefetch_bytes += w.trips * _ELEM_BYTES[ref.ctype]
+        lin = self._bind("int32_t", self._index(ref, ixs), "p")
+        w.line(f"if ({lin.expr} >= 0 && {lin.expr} < {_size(ref.shape)}) "
+               f"hir_prefetch({ref.name} + {lin.expr});")
+
+    def loop(self, op, trip, lb, step):
+        self.ctx.trips *= trip
+        super().loop(op, trip, lb, step)
+        self.ctx.trips //= trip
+
+
+_ELEM_BYTES = {"int32_t": 4, "__half": 2, "float": 4, "double": 8}
 
 
 class _Plan:
@@ -419,116 +591,556 @@ class _Plan:
         self.step = ir.const_value(self.main.step)
 
 
-def _size(shape) -> int:
-    n = 1
-    for d in shape:
-        n *= d
-    return n
-
-
 def generate_cuda_source(module: Module, func_name: str,
                          allow_downcast: bool = False) -> tuple[str, str]:
     """CUDA C++ text for ``@func_name`` and the name of its launcher (see
     ``_generate``).  Needs no compiler and no device."""
-    return _generate(_Plan(module, func_name), allow_downcast)
+    k = _generate(_Plan(module, func_name), allow_downcast)
+    return k.source, k.launcher
 
 
-def _generate(plan: _Plan, allow_downcast: bool) -> tuple[str, str]:
-    """CUDA C++ text for the planned function and the name of its launcher.
+class _Kernel:
+    """A generated kernel: its text, its launcher's name, the bytes one
+    main-loop iteration prefetches (0: none), the shared memory a lane's
+    allocs take and a compute warp's pair takes for staging, the allocs
+    placed in shared memory and the memrefs staged, with the chunk of
+    main-loop iterations one staging serves (0: none staged), and the
+    write-port memrefs the kernel writes whole (their outputs need no
+    zeros first)."""
 
-    The launcher is ``extern "C" int <launcher>(in..., out..., int lanes,
-    void* stream)``: raw pointers to ``(lanes, *shape)`` arrays, one per
-    read-port memref then one per write/rw-port memref; it launches on
-    ``stream`` and returns ``cudaGetLastError()``."""
-    module, func_name = plan.module, plan.func.name
-    sym = _ident(func_name)
-    w = _Writer()
+    def __init__(self, source: str, launcher: str, prefetch_bytes: int,
+                 smem_per_thread: int, stage_per_pair: int, shared_allocs: list[str],
+                 staged: list[str], chunk: int, written_whole: list[str]):
+        self.source = source
+        self.launcher = launcher
+        self.prefetch_bytes = prefetch_bytes
+        self.smem_per_thread = smem_per_thread
+        self.stage_per_pair = stage_per_pair
+        self.shared_allocs = shared_allocs
+        self.staged = staged
+        self.chunk = chunk
+        self.written_whole = written_whole
+
+    def smem_bytes(self, lanes_per_block: int) -> int:
+        """Dynamic shared memory of a block that runs ``lanes_per_block`` lanes."""
+        return (self.smem_per_thread * lanes_per_block
+                + self.stage_per_pair * (lanes_per_block // 32))
+
+
+class _Tracer(_Interp):
+    """Walks the main loop's body over Python numbers.  ``ctx`` is a dict:
+    ``span`` gets, per memref name, the box (first and last row, first and
+    last column; the memref seen as rows of its last dim) this iteration
+    touches at indices known ahead (loop ivs and constants alone);
+    ``wrote`` the elements it writes unconditionally; ``read`` the memrefs
+    it reads; ``data`` the memrefs touched at an index that depends on
+    data; ``touches`` counts accesses."""
+
+    def arith(self, opname, args):
+        if any(a is _DATA for a in args):
+            return _DATA
+        return _ARITH[opname](*args)
+
+    def _touch(self, ref: _CMem, ixs: tuple) -> Optional[int]:
+        self.ctx["touches"] += 1
+        if self.ctx["touches"] > _TRACE_LIMIT:
+            raise _TraceTooLong
+        if any(i is _DATA for i in ixs):
+            self.ctx["data"].add(ref.name)
+            return None
+        lin = 0
+        for i, d in zip(ixs, ref.shape):
+            lin = lin * d + int(i)
+        r, c = divmod(lin, ref.shape[-1])
+        r0, r1, c0, c1 = self.ctx["span"].get(ref.name, (r, r, c, c))
+        self.ctx["span"][ref.name] = (min(r0, r), max(r1, r), min(c0, c), max(c1, c))
+        return lin
+
+    def read(self, ref, ixs):
+        self._touch(ref, ixs)
+        self.ctx["read"].add(ref.name)
+        return _DATA
+
+    def write(self, ref, ixs, val, pred):
+        lin = self._touch(ref, ixs)
+        if lin is not None and (pred is None or (pred is not _DATA and pred != 0)):
+            self.ctx["wrote"].setdefault(ref.name, set()).add(lin)
+
+    def loop(self, op, trip, lb, step):
+        for t in range(trip):
+            body = self.fork(self.env)
+            body.env[op.iv] = lb + t * step
+            body.run_region(op.region(0))
+
+
+class _TraceTooLong(Exception):
+    pass
+
+
+_TRACE_LIMIT = 200_000          # accesses the generator walks to plan the staging
+#: bytes of staging windows (two buffers of each) one compute warp's pair holds
+STAGE_BYTES_PER_PAIR = 196608
+#: most main-loop iterations a chunk: the first chunk's copy in and the last
+#: one's copy out are not hidden behind compute, so chunks stay short
+MAX_CHUNK = 128
+
+
+class _Window:
+    """How one memref is staged: its box of ``rows`` x ``cols`` elements
+    (the memref seen as rows of its last dim) at ``offset`` in a warp's
+    buffer; the box's first row and column in each chunk; whether the main
+    loop writes it, and whether the box must be copied in (not when the
+    loop only writes it and writes all of every chunk's box)."""
+
+    def __init__(self, offset, rows, cols, row0s, col0s, written, load, elem_bytes):
+        self.offset, self.rows, self.cols = offset, rows, cols
+        self.row0s, self.col0s = row0s, col0s
+        self.written, self.load = written, load
+        self.nbytes = 2 * (-(-rows * cols * 33 * elem_bytes // 16) * 16)     # two buffers
+
+
+class _Staging:
+    """Which memrefs the main loop touches through a warp's shared windows:
+    ``chunk`` main-loop iterations a staging, a ``_Window`` per memref name;
+    and the memrefs whose every element the main loop writes unconditionally
+    (``whole``)."""
+
+    def __init__(self, chunk: int, mems: dict, whole: frozenset = frozenset()):
+        self.chunk = chunk
+        self.mems = mems
+        self.whole = whole
+        self.per_pair = sum(win.nbytes for win in mems.values())
+
+
+def _boxes(spans: list, chunk: int) -> tuple[list, list, int, int]:
+    """Each chunk's first row and column, and the box that holds every
+    chunk's: (row0s, col0s, rows, cols)."""
+    row0s, col0s, rows, cols = [], [], 1, 1
+    for k0 in range(0, len(spans), chunk):
+        part = [sp for sp in spans[k0:k0 + chunk] if sp is not None] or [(0, 0, 0, 0)]
+        r0, c0 = min(sp[0] for sp in part), min(sp[2] for sp in part)
+        row0s.append(r0)
+        col0s.append(c0)
+        rows = max(rows, max(sp[1] for sp in part) - r0 + 1)
+        cols = max(cols, max(sp[3] for sp in part) - c0 + 1)
+    return row0s, col0s, rows, cols
+
+
+def _covers(wrote: list, shape: tuple, chunk: int, box: tuple) -> bool:
+    """Whether each chunk writes every element of its box (clipped to the
+    memref) unconditionally."""
+    row0s, col0s, rows, cols = box
+    n_rows, n_cols = _size(shape[:-1]), shape[-1]
+    for k, k0 in enumerate(range(0, len(wrote), chunk)):
+        done = set().union(*wrote[k0:k0 + chunk])
+        if len(done) != min(rows, n_rows - row0s[k]) * min(cols, n_cols - col0s[k]):
+            return False
+    return True
+
+
+def _plan_staging(plan: _Plan, refs: dict) -> _Staging:
+    """Stage the memrefs (arguments, not allocs) that the main loop touches
+    only at indices known ahead, in as long chunks (a power of two, at most
+    256 iterations) as their boxes allow within ``STAGE_BYTES_PER_PAIR``;
+    where even one iteration's boxes do not fit, the memref with the widest
+    is left out and the rest tried again."""
+    spans_of: dict[str, list] = {}
+    wrote_of: dict[str, list] = {}
+    ctx = {"data": set(), "read": set(), "touches": 0}
+    try:
+        for pid in range(plan.trip):
+            ctx["span"], ctx["wrote"] = {}, {}
+            t = _Tracer(plan.module, refs, ctx)
+            t.env[plan.main.iv] = plan.lb + pid * plan.step
+            t.run_region(plan.main.region(0))
+            for name, sp in ctx["span"].items():
+                spans_of.setdefault(name, [None] * plan.trip)[pid] = sp
+                wrote_of.setdefault(name, [set()] * plan.trip)[pid] = ctx["wrote"].get(name, set())
+    except _TraceTooLong:
+        return _Staging(0, {})
+    args = {refs[a].name: refs[a] for a in plan.in_args + plan.out_args}
+    cands = [n for n in args if n in spans_of and n not in ctx["data"]]
+    whole = frozenset(n for n in cands
+                      if len(set().union(*wrote_of[n])) == _size(args[n].shape))
+
+    def window(n: str, chunk: int, offset: int) -> Optional[_Window]:
+        """None where a box is copied in and out and meets the next chunk's:
+        the helper copies chunk k + 1 in before chunk k is copied out."""
+        m = args[n]
+        row0s, col0s, rows, cols = box = _boxes(spans_of[n], chunk)
+        written = not m.read_port
+        load = not (written and n not in ctx["read"]
+                    and _covers(wrote_of[n], m.shape, chunk, box))
+        if written and load and any(
+                abs(row0s[k + 1] - row0s[k]) < rows and abs(col0s[k + 1] - col0s[k]) < cols
+                for k in range(len(row0s) - 1)):
+            return None
+        return _Window(offset, rows, cols, row0s, col0s, written, load, _ELEM_BYTES[m.ctype])
+
+    chunks = [c for c in (256, 128, 64, 32, 16, 8, 4, 2, 1) if c <= min(plan.trip, MAX_CHUNK)]
+    while cands:
+        for chunk in chunks:
+            mems, off = {}, 0
+            for n in cands:
+                win = window(n, chunk, off)
+                if win is not None:
+                    mems[n] = win
+                    off += win.nbytes
+            if off <= STAGE_BYTES_PER_PAIR:
+                return _Staging(chunk, mems, whole)
+        cands.remove(max(cands, key=lambda n: _boxes(spans_of[n], 1)[2] * _boxes(spans_of[n], 1)[3]
+                         * _ELEM_BYTES[args[n].ctype]))
+    return _Staging(0, {}, whole)
+
+
+def _window_start(name: str, starts: list[int]) -> str:
+    """A device function of the chunk giving its box's first row or column."""
+    step = starts[1] - starts[0] if len(starts) > 1 else 0
+    if all(v == starts[0] + k * step for k, v in enumerate(starts)):
+        return (f"__device__ __forceinline__ int32_t {name}(int32_t k) "
+                f"{{ return {starts[0]} + k * {step}; }}")
+    return (f"__device__ const int32_t {name}_at[{len(starts)}] = "
+            f"{{{', '.join(map(str, starts))}}};\n"
+            f"__device__ __forceinline__ int32_t {name}(int32_t k) {{ return {name}_at[k]; }}")
+
+
+def _refs(plan: _Plan, allow_downcast: bool, shared: dict[int, int]) -> dict[Value, _CMem]:
+    """The arrays of the kernel body: a lane's slice of each memref
+    argument, and the allocs (those indexed in ``shared`` in a thread's
+    shared column)."""
     refs: dict[Value, _CMem] = {}
-    params, names = [], []
-    uses_half = False
     for a in plan.in_args + plan.out_args:
         ct = _CTYPE[_dtype(a.type.elem, allow_downcast)]
-        uses_half |= ct == "__half"
-        const = "const " if a in plan.in_args else ""
-        g = f"g_{_ident(a.name)}"
-        params.append(f"{const}{ct}* __restrict__ {g}")
-        names.append(g)
-        m = _CMem(f"m_{_ident(a.name)}", a.type.shape, ct)
-        refs[a] = m
-        w.line(f"{const}{ct}* __restrict__ {m.name} = {g} + (size_t)lane * {_size(m.shape)};")
+        refs[a] = _CMem(f"m_{_ident(a.name)}", a.type.shape, ct, read_port=a in plan.in_args)
     for k, al in enumerate(plan.allocs):
         base: MemrefType = al.attrs["base"]
         ct = _CTYPE[_dtype(base.elem, allow_downcast)]
-        uses_half |= ct == "__half"
-        m = _CMem(f"a{k}_{_ident(al.results[0].name or 'buf')}", base.shape, ct)
+        m = _CMem(f"a{k}_{_ident(al.results[0].name or 'buf')}", base.shape, ct,
+                  shared=k in shared)
         for res in al.results:          # every port aliases one buffer
             refs[res] = m
-        w.line(f"{ct} {m.name}[{_size(m.shape)}] = {{}};")
+    return refs
+
+
+def _box_args(plan: _Plan, a: Value, m: _CMem, win: _Window, chunk: str) -> str:
+    """Arguments of hir_stage_in or hir_stage_out for ``chunk``'s box of
+    memref ``a``, in buffer ``chunk & 1``, clipped to the memref."""
+    name, rows, cols = _ident(a.name), _size(m.shape[:-1]), m.shape[-1]
+    r0, c0 = f"hir_r0_{name}({chunk})", f"hir_c0_{name}({chunk})"
+    lanes = "row0, lanes - 1" if a in plan.in_args else "row0, row0 + 31"
+    half = win.nbytes // 2 // _ELEM_BYTES[m.ctype]
+    return (f"s_{name} + (({chunk}) & 1) * {half}, g_{name}, {lanes}, {_size(m.shape)}, "
+            f"{cols}, {r0}, {c0}, min({win.rows}, {rows} - {r0}), "
+            f"min({win.cols}, {cols} - {c0}), {win.cols}")
+
+
+def _helper(plan: _Plan, refs: dict, staging: _Staging) -> list[str]:
+    """The helper warp of a pair: stages chunk k + 1 in and copies chunk
+    k - 1 out while its compute warp runs chunk k, in two buffers."""
+    staged = [(a, refs[a], staging.mems[refs[a].name]) for a in plan.in_args + plan.out_args
+              if refs[a].name in staging.mems]
+    n = -(-plan.trip // staging.chunk)
+
+    def copy_in(chunk: str) -> list[str]:
+        return [f"hir_stage_in({_box_args(plan, a, m, win, chunk)});"
+                for a, m, win in staged if win.load] + ["hir_stage_wait();"]
+
+    def copy_out(chunk: str) -> list[str]:
+        return [f"hir_stage_out({_box_args(plan, a, m, win, chunk)});"
+                for a, m, win in staged if win.written]
+
+    def block(cond: str, lines: list[str]) -> list[str]:
+        return [f"      if ({cond}) {{"] + ["        " + x for x in lines] + ["      }"]
+
+    out = copy_out("k - 1")
+    return (["  if (hir_helper) {  // stage chunks in and out for the compute warp",
+             "    hir_pair_sync(pair);  // the prologue's writes are in memory"]
+            + ["    " + x for x in copy_in("0")]
+            + ["    hir_pair_sync(pair);  // chunk 0 staged",
+               f"    for (int32_t k = 0; k < {n}; ++k) {{"]
+            + (block("k > 0", out) if out else []) + block(f"k + 1 < {n}", copy_in("k + 1"))
+            + ["      hir_pair_sync(pair);  // chunk k done, chunk k + 1 staged", "    }"]
+            + ["    " + x for x in copy_out(f"{n - 1}")]
+            + ["    hir_pair_sync(pair);  // the last chunk's results are in memory",
+               "    return;", "  }"])
+
+
+def _emit(plan: _Plan, allow_downcast: bool, shared: dict[int, int], staging: _Staging):
+    """The kernel body for the planned function: the helper warp's part
+    (when memrefs are staged), then the compute warp's.  Returns (writer,
+    refs, file-scope declarations)."""
+    module = plan.module
+    w = _Writer()
+    refs = _refs(plan, allow_downcast, shared)
+    staged = [(a, refs[a], staging.mems[refs[a].name]) for a in plan.in_args + plan.out_args
+              if refs[a].name in staging.mems]
+    decls = []
+    main_refs = dict(refs)          # the main loop sees the staged memrefs' windows
+    for a, m, win in staged:
+        name = _ident(a.name)
+        decls += [_window_start(f"hir_r0_{name}", win.row0s),
+                  _window_start(f"hir_c0_{name}", win.col0s)]
+        w.line(f"{m.ctype}* const s_{name} = reinterpret_cast<{m.ctype}*>"
+               f"(hir_stage + {win.offset});")
+        main_refs[a] = _CMem(f"b_{name}", m.shape, m.ctype, read_port=m.read_port,
+                             window=(f"r0_{name}", f"c0_{name}", win.cols))
+    if staged:
+        w.lines += _helper(plan, refs, staging)
+    for a in plan.in_args + plan.out_args:
+        m = refs[a]
+        const = "const " if a in plan.in_args else ""
+        w.line(f"{const}{m.ctype}* __restrict__ {m.name} = g_{_ident(a.name)} "
+               f"+ (size_t){'in_lane' if a in plan.in_args else 'lane'} * {_size(m.shape)};")
+    for k, al in enumerate(plan.allocs):
+        m = refs[al.results[0]]
+        n = _size(m.shape)
+        if m.shared:
+            w.line(f"{m.ctype}* const {m.name} = reinterpret_cast<{m.ctype}*>("
+                   f"hir_smem + {shared[k]} * hir_lanes) + hir_lane;")
+            w.line(f"for (int32_t i = 0; i < {n}; ++i) {m.at('i')} = {_literal(0, m.ctype)};")
+        else:
+            w.line(f"{m.ctype} {m.name}[{n}] = {{}};")
 
     w.line("{  // prologue")
     w.depth += 1
     _Emitter(module, refs, w).run_effects(plan.prologue)
     w.depth -= 1
     w.line("}")
-    w.line(f"for (int32_t pid = 0; pid < {plan.trip}; ++pid) {{  // main loop")
+    if staged:
+        C = staging.chunk
+        w.line("hir_pair_sync(pair);  // the prologue's writes are in memory")
+        w.line("hir_pair_sync(pair);  // chunk 0 staged")
+        w.line(f"for (int32_t k = 0; k < {-(-plan.trip // C)}; ++k) {{  "
+               f"// main loop, {C} iterations a chunk")
+        w.depth += 1
+        for a, m, win in staged:
+            name = _ident(a.name)
+            half = win.nbytes // 2 // _ELEM_BYTES[m.ctype]
+            w.line(f"const int32_t r0_{name} = hir_r0_{name}(k), c0_{name} = hir_c0_{name}(k);")
+            w.line(f"{m.ctype}* __restrict__ const b_{name} = s_{name} + (k & 1) * {half};")
+        w.line(f"for (int32_t pid = k * {C}; pid < min((k + 1) * {C}, {plan.trip}); ++pid) {{")
+    else:
+        w.line(f"for (int32_t pid = 0; pid < {plan.trip}; ++pid) {{  // main loop")
     w.depth += 1
-    body = _Emitter(module, refs, w)
-    body.env[plan.main.iv] = body._bind(
-        "int32_t",
-        f"{_literal(plan.lb, 'int32_t')} + pid * {_literal(plan.step, 'int32_t')}",
-        _ident(plan.main.iv.name or "iv") + "_")
+    iv_name = _ident(plan.main.iv.name or "iv") + "_"
+    lb, step = _literal(plan.lb, "int32_t"), _literal(plan.step, "int32_t")
+    # the reads of iteration pid + pf, asked for ahead of this iteration's
+    start = len(w.lines)
+    w.line(f"if (pid + pf < {plan.trip}) {{  // prefetch iteration pid + pf")
+    w.depth += 1
+    ahead = _Prefetcher(module, main_refs, w)
+    ahead.env[plan.main.iv] = ahead._bind("int32_t", f"{lb} + (pid + pf) * {step}", iv_name)
+    ahead.run_region(plan.main.region(0))
+    w.depth -= 1
+    w.line("}")
+    if not w.prefetch_bytes:
+        del w.lines[start:]
+    body = _Emitter(module, main_refs, w)
+    body.env[plan.main.iv] = body._bind("int32_t", f"{lb} + pid * {step}", iv_name)
     body.run_region(plan.main.region(0))
     w.depth -= 1
     w.line("}")
+    if staged:
+        w.line("hir_pair_sync(pair);  // chunk k done, chunk k + 1 staged")
+        w.depth -= 1
+        w.line("}")
+        w.line("hir_pair_sync(pair);  // the last chunk's results are in memory")
     w.line("{  // epilogue")
     w.depth += 1
     _Emitter(module, refs, w).run_effects(plan.epilogue)
     w.depth -= 1
     w.line("}")
+    return w, refs, decls
 
-    bytes_per_lane = sum(_size(refs[a].shape) * (2 if refs[a].ctype == "__half" else
-                                                 8 if refs[a].ctype == "double" else 4)
-                         for a in plan.in_args + plan.out_args)
+
+def _place_allocs(plan: _Plan, allow_downcast: bool, dynamic: set[str],
+                  room: int) -> dict[int, int]:
+    """Allocs that go to shared memory, by index, with their byte offset in a
+    thread's column: those indexed by a run-time value somewhere (the rest
+    are indexed by constants only and stay in registers), in order, while
+    they fit in ``room`` bytes a thread."""
+    refs = _refs(plan, allow_downcast, {})
+    shared, used = {}, 0
+    for k, m in enumerate(refs[al.results[0]] for al in plan.allocs):
+        nbytes = -(-_size(m.shape) * _ELEM_BYTES[m.ctype] // 16) * 16
+        if m.name in dynamic and used + nbytes <= room:
+            shared[k] = used
+            used += nbytes
+    return shared
+
+
+def _generate(plan: _Plan, allow_downcast: bool) -> _Kernel:
+    """The kernel for the planned function.
+
+    The launcher is ``extern "C" int <launcher>(in..., out..., int lanes,
+    int threads, int pf, void* stream)``: raw pointers to ``(lanes, *shape)``
+    arrays, one per read-port memref then one per write/rw-port memref (the
+    outputs hold a row for every thread of the last block: ``padded_lanes``);
+    the threads of a block (``launch_shape``) and the prefetch distance in
+    main-loop iterations (``prefetch_distance``).  It launches on ``stream``
+    and returns ``cudaGetLastError()``."""
+    func_name = plan.func.name
+    sym = _ident(func_name)
+    staging = _plan_staging(plan, _refs(plan, allow_downcast, {}))
+    # a first walk finds the allocs indexed at run time; the second places
+    # them, in what a block of one warp (and its helper) leaves beside the
+    # staging buffers
+    dynamic = _emit(plan, allow_downcast, {}, staging)[0].dynamic
+    shared = _place_allocs(plan, allow_downcast, dynamic,
+                           (SMEM_BYTES - staging.per_pair) // 32)
+    w, refs, decls = _emit(plan, allow_downcast, shared, staging)
+    args = plan.in_args + plan.out_args
+    uses_half = any(m.ctype == "__half" for m in refs.values())
+    alloc_refs = [refs[al.results[0]] for al in plan.allocs]
+    smem = sum(-(-_size(alloc_refs[k].shape) * _ELEM_BYTES[alloc_refs[k].ctype] // 16) * 16
+               for k in shared)
+    shared_names = [alloc_refs[k].name for k in sorted(shared)]
+    local_names = [m.name for k, m in enumerate(alloc_refs) if k not in shared]
+    staged_names = [f"m_{_ident(a.name)}" for a in args if refs[a].name in staging.mems]
+    per_block = 2 if staged_names else 1         # threads a block per lane it runs
+
+    bytes_per_lane = sum(_size(refs[a].shape) * _ELEM_BYTES[refs[a].ctype] for a in args)
     head = [
         f"// Generated from HIR function @{func_name} by repro_torch.core.lower.to_cuda.",
         "// Replaces: repro/core/lower/to_pallas.py, the generated `kernel` driven by",
         "// `_KernelInterp` (one pallas_call per design, main loop as sequential grid).",
-        "// Bound on this card: bytes. One lane is a chain of dependent scalar ops over",
-        f"// {bytes_per_lane} bytes of stimulus and results; no parallelism exists inside it.",
-        "// Design: one thread runs one lane (an independent stimulus vector) from",
-        "// prologue through the main loop to the epilogue; hir.alloc buffers are",
-        "// per-thread arrays; the grid covers the lanes.",
-        "#include <cstdint>",
-        "#include <cuda_runtime.h>",
+        "// Bound on this card: bytes, reached only if latency is hidden. One lane is a",
+        f"// chain of dependent scalar ops over {bytes_per_lane} bytes of stimulus and results;",
+        "// no parallelism exists inside it. Design: one thread runs one lane (an",
+        "// independent stimulus vector) from prologue through the main loop to the",
+        "// epilogue; the launcher gives a block 32..128 lanes so that the blocks cover",
+        "// every SM; threads past the last lane run its inputs into spare output rows.",
     ]
+    if staged_names:
+        head += [
+            f"// Staging: {', '.join(staged_names)} are touched in the main loop only at",
+            "// indices known ahead (loop ivs and constants), within a box of rows and",
+            f"// columns a chunk of {staging.chunk} iterations. Each compute warp has a helper "
+            "warp that",
+            "// copies its 32 lanes' boxes into shared memory for chunk k + 1, one lane's",
+            "// consecutive elements an instruction, and written boxes of chunk k - 1 back,",
+            "// while the compute warp runs chunk k on chunk k's copies (two buffers,",
+            f"// {staging.per_pair} bytes a pair). The lanes' arrays lie a whole array apart, "
+            "so a",
+            "// thread reading its own lane would touch 32 cache lines an instruction.",
+        ]
+    if w.prefetch_bytes:
+        head += [
+            f"// Prefetch: the unstaged reads of an iteration take {w.prefetch_bytes} bytes at "
+            "addresses",
+            "// that depend on loop ivs and constants alone; iteration pid asks L1 for those",
+            "// of iteration pid + pf (one prefetch per 32-byte sector, inside the memref),",
+            f"// with pf = {PREFETCH_BYTES_PER_SM} / (lanes per SM x {w.prefetch_bytes}) "
+            "iterations from the launcher,",
+            f"// so that each SM keeps about {PREFETCH_BYTES_PER_SM} bytes in flight.",
+        ]
+    else:
+        head.append("// Prefetch: none (no unstaged read's address is known ahead of its "
+                    "iteration).")
+    if shared_names:
+        head.append(f"// Shared memory, element-major ({smem} bytes a lane; element i of a "
+                    "lane's buffer")
+        head.append("// at [i * hir_lanes + hir_lane], one bank per thread): "
+                    + ", ".join(shared_names) + ".")
+    if local_names:
+        head.append("// Per-thread arrays: " + ", ".join(local_names) + ".")
+    head += ["#include <cstdint>", "#include <cuda_runtime.h>"]
     if uses_half:
         head.append("#include <cuda_fp16.h>")
-    void_params = [("const void* " if a in plan.in_args else "void* ") + n
-                   for a, n in zip(plan.in_args + plan.out_args, names)]
-    casts = [f"({'const ' if a in plan.in_args else ''}{refs[a].ctype}*){n}"
-             for a, n in zip(plan.in_args + plan.out_args, names)]
+
+    params = [f"{'const ' if a in plan.in_args else ''}{refs[a].ctype}* __restrict__ "
+              f"g_{_ident(a.name)}" for a in args]
+    void_params = [("const void* " if a in plan.in_args else "void* ") + f"g_{_ident(a.name)}"
+                   for a in args]
+    casts = [f"({'const ' if a in plan.in_args else ''}{refs[a].ctype}*)g_{_ident(a.name)}"
+             for a in args]
     launcher = f"launch_hir_{sym}"
+    if staged_names:      # threads 64p..64p+31 compute, 64p+32..64p+63 help them
+        entry = ["  const int pair = threadIdx.x / 64;",
+                 "  const bool hir_helper = (threadIdx.x & 32) != 0;",
+                 "  const int hir_t = threadIdx.x & 31;",
+                 "  const int hir_lanes = blockDim.x / 2, hir_lane = pair * 32 + hir_t;"]
+    else:
+        entry = ["  const int hir_lanes = blockDim.x, hir_lane = threadIdx.x;"]
+    entry += ["  const int lane = blockIdx.x * hir_lanes + hir_lane;",
+              "  const int in_lane = min(lane, lanes - 1);"]
+    if shared or staged_names:
+        entry.append("  extern __shared__ __align__(16) unsigned char hir_smem[];")
+    if staged_names:
+        entry += ["  const int row0 = lane - hir_t;",
+                  f"  unsigned char* const hir_stage = hir_smem + {smem} * hir_lanes"
+                  f" + pair * {staging.per_pair};"]
+    max_threads = per_block * MAX_THREADS_PER_BLOCK
+    launch = [f'extern "C" int {launcher}('
+              f'{", ".join(void_params + ["int lanes", "int threads", "int pf", "void* stream"])}) {{',
+              "  // threads: lanes a block runs (a multiple of 32, at most "
+              f"{MAX_THREADS_PER_BLOCK})",
+              f"  const size_t smem = (size_t){smem} * threads"
+              f" + (size_t){staging.per_pair} * (threads / 32);",
+              f"  if (threads < 32 || threads > {MAX_THREADS_PER_BLOCK} || threads % 32 || pf < 1"
+              f" || smem > {SMEM_BYTES})",
+              "    return (int)cudaErrorInvalidValue;"]
+    if smem * MAX_THREADS_PER_BLOCK + staging.per_pair * 4 > 48 * 1024:
+        launch += ["  static bool attr_set = false;   // once per kernel",
+                   "  if (!attr_set) {",
+                   f"    const cudaError_t e = cudaFuncSetAttribute(hir_{sym}, "
+                   "cudaFuncAttributeMaxDynamicSharedMemorySize,",
+                   f"                                               {SMEM_BYTES});",
+                   "    if (e != cudaSuccess) return (int)e;",
+                   "    attr_set = true;",
+                   "  }"]
+    launch += ["  const int blocks = (lanes + threads - 1) / threads;",
+               f"  hir_{sym}<<<blocks, {per_block} * threads, smem, (cudaStream_t)stream>>>("
+               f"{', '.join(casts + ['lanes', 'pf'])});",
+               "  return (int)cudaGetLastError();",
+               "}", ""]
     text = "\n".join(
-        head + [_PREAMBLE,
-                f'extern "C" __global__ void __launch_bounds__({THREADS_PER_BLOCK})',
-                f"hir_{sym}({', '.join(params + ['int lanes'])}) {{",
-                "  const int lane = blockIdx.x * blockDim.x + threadIdx.x;",
-                "  if (lane >= lanes) return;"]
-        + w.lines
-        + ["}", "",
-           f'extern "C" int {launcher}({", ".join(void_params + ["int lanes", "void* stream"])}) {{',
-           f"  const int threads = {THREADS_PER_BLOCK};",
-           "  const int blocks = (lanes + threads - 1) / threads;",
-           f"  hir_{sym}<<<blocks, threads, 0, (cudaStream_t)stream>>>("
-           f"{', '.join(casts + ['lanes'])});",
-           "  return (int)cudaGetLastError();",
-           "}", ""])
-    return text, launcher
+        head + [_PREAMBLE] + decls + ([""] if decls else [])
+        + [f'extern "C" __global__ void __launch_bounds__({max_threads})',
+           f"hir_{sym}({', '.join(params + ['int lanes', 'int pf'])}) {{"]
+        + entry + w.lines + ["}", ""] + launch)
+    written_whole = [a.name for a in plan.out_args
+                     if a.type.port == ir.PORT_W and refs[a].name in staging.whole]
+    return _Kernel(text, launcher, w.prefetch_bytes, smem, staging.per_pair, shared_names,
+                   staged_names, staging.chunk, written_whole)
+
+
+def block_threads(lanes: int, sm_count: int) -> int:
+    """Threads a block of the generated kernel: 128 only when the lanes fill
+    every SM with 128-thread blocks, else 64 when they fill it with those,
+    else 32 (one warp a block, so the blocks reach as many SMs as there are
+    warps of lanes)."""
+    for t in (MAX_THREADS_PER_BLOCK, 64):
+        if -(-lanes // t) >= sm_count:
+            return t
+    return 32
+
+
+def prefetch_distance(lanes: int, sm_count: int, prefetch_bytes: int, trip: int,
+                      threads: int = 32) -> int:
+    """Main-loop iterations between a prefetch and the read it serves, so that
+    each SM keeps about ``PREFETCH_BYTES_PER_SM`` in flight: the lanes an SM
+    runs at once times the bytes one iteration reads, times the distance."""
+    if not prefetch_bytes:
+        return 1
+    blocks = -(-lanes // threads)
+    per_sm = min(-(-blocks // sm_count) * threads, 2048)    # 2048 threads an SM at most
+    return max(1, min(trip, PREFETCH_BYTES_PER_SM // (per_sm * prefetch_bytes)))
 
 
 # ---------------------------------------------------------------------------
 # The callable
 # ---------------------------------------------------------------------------
+
+
+_sm_counts: dict = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    """SMs of a CUDA device (read once per device)."""
+    if device not in _sm_counts:
+        _sm_counts[device] = torch.cuda.get_device_properties(device).multi_processor_count
+    return _sm_counts[device]
 
 
 class CudaLowered:
@@ -547,7 +1159,8 @@ class CudaLowered:
         self._plan = _Plan(module, func_name)
         self.device = device
         self.allow_downcast = allow_downcast
-        self.source, self._launcher_name = _generate(self._plan, allow_downcast)
+        self.kernel = _generate(self._plan, allow_downcast)
+        self.source, self._launcher_name = self.kernel.source, self.kernel.launcher
         self.stem = f"hir_{_ident(func_name)}"
         self.launches = 0
         self._launcher = None
@@ -564,7 +1177,7 @@ class CudaLowered:
             self._launcher = _build.bind(
                 lib, self._launcher_name,
                 [ctypes.c_void_p] * (len(p.in_args) + len(p.out_args))
-                + [ctypes.c_int, ctypes.c_void_p])
+                + [ctypes.c_int] * 3 + [ctypes.c_void_p])
         return self._launcher
 
     # -- running -------------------------------------------------------------
@@ -595,19 +1208,35 @@ class CudaLowered:
         global launches
         p = self._plan
         launcher = self.build()
-        outs = [torch.zeros(self._out_shape(a, lanes), device=dev,
-                            dtype=_dtype(a.type.elem, self.allow_downcast))
+        n = 1 if lanes is None else lanes
+        threads, pf = self.launch_shape(n, dev)
+        # a row for every thread of the last block: threads past the last
+        # lane write there, and the caller sees the first ``n`` rows
+        rows = -(-n // threads) * threads
+        outs = [(torch.empty if a.name in self.kernel.written_whole else torch.zeros)(
+                    (rows,) + tuple(a.type.shape), device=dev,
+                    dtype=_dtype(a.type.elem, self.allow_downcast))
                 for a in p.out_args]
         from ...kernels import _build
 
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            rc = launcher(*[t.data_ptr() for t in ins + outs],
-                          1 if lanes is None else lanes, stream)
+            rc = launcher(*[t.data_ptr() for t in ins + outs], n, threads, pf, stream)
         _build.check_launch(rc, self._launcher_name)
         self.launches += 1
         launches += 1
-        return {a.name: o for a, o in zip(p.out_args, outs)}
+        return {a.name: o[0] if lanes is None else o[:n] for a, o in zip(p.out_args, outs)}
+
+    def launch_shape(self, lanes: int, device: torch.device) -> tuple[int, int]:
+        """(threads a block, prefetch distance) of a launch over ``lanes`` on
+        ``device``, from its count of SMs: blocks cover every SM, and shrink
+        until their shared memory fits."""
+        sms = _sm_count(device)
+        threads = block_threads(lanes, sms)
+        while threads > 32 and self.kernel.smem_bytes(threads) > SMEM_BYTES:
+            threads //= 2
+        return threads, prefetch_distance(lanes, sms, self.kernel.prefetch_bytes,
+                                          self._plan.trip, threads)
 
     def plain(self, *arrays) -> dict[str, torch.Tensor]:
         """The plain PyTorch version on the same inputs, wherever they lie."""

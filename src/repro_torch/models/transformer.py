@@ -156,11 +156,12 @@ def segment_forward(params, x, seg: Segment, cfg: ModelCfg, *, positions=None, c
 
 
 def init_segment_cache(seg: Segment, batch: int, seq_len: int, cfg: ModelCfg, device=None):
+    dev = resolve_device(device)
     out = []
     for pos, kind in enumerate(seg.pattern):
         _check_kind(kind, seg.ffn_at(pos))
-        c = init_block_cache(kind, batch, seq_len, cfg, device=device)
-        out.append({k: torch.zeros((seg.repeats, *t.shape), dtype=t.dtype, device=device)
+        c = init_block_cache(kind, batch, seq_len, cfg, device=dev)
+        out.append({k: torch.zeros((seg.repeats, *t.shape), dtype=t.dtype, device=dev)
                     for k, t in c.items()})
     return out
 

@@ -105,6 +105,24 @@ def build_float_add(elem):
     return b.module, "fadd"
 
 
+def build_running_sum(ir, Builder, n=64):
+    """X[i + 1] = X[i] + A[i] over a read-write X: the main loop reads what
+    the iteration before it wrote, so consecutive chunks' boxes of X meet."""
+    b = Builder(ir.Module("rsum"))
+    r = ir.MemrefType((n,), ir.i32, ir.PORT_R)
+    x = ir.MemrefType((n + 1,), ir.i32, ir.PORT_RW)
+    with b.func("rsum", [r, x], ["A", "X"]) as f:
+        A, X = f.args
+        with b.for_(0, n, 1, at=f.t + 1, iv_name="i", tv_name="ti") as li:
+            b.yield_(at=li.time + 2)
+            a = b.read(A, [li.iv], at=li.time)
+            v = b.read(X, [li.iv], at=li.time)
+            i1 = b.delay(li.iv, 1, at=li.time)
+            b.write(b.add(a, v), X, [b.add(i1, 1)], at=li.time + 1)
+        b.ret()
+    return b.module, "rsum"
+
+
 SHAPES = [(128, 128, 128), (256, 384, 128), (100, 130, 70), (8, 8, 8)]
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -268,6 +286,111 @@ def test_matmul_refuses_an_unschedulable_tile_on_card():
     x = torch.zeros((512, 512), device=dev)
     with pytest.raises(ValueError, match="threads"):
         mm.matmul(x, x, bm=256, bn=256, bk=16)
+
+
+# the gallery designs at their paper size and at the size chip_smoke.py runs
+DESIGN_SIZES = [("array_add", {}), ("array_add", {"n": 4096}), ("transpose", {}),
+                ("transpose", {"n": 64}), ("stencil1d", {}), ("stencil1d", {"n": 4096}),
+                ("histogram", {}), ("histogram", {"n": 4096, "bins": 256}),
+                ("conv2d", {}), ("conv2d", {"h": 64, "w": 64})]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lanes", [1, 33, 4097])
+@pytest.mark.parametrize("gal_name,size", DESIGN_SIZES)
+def test_generated_kernel_bit_exact_at_every_lane_count_on_card(gal_name, size, lanes):
+    """One lane, a ragged warp, and 4097 lanes (a last block of one lane
+    whose other 31 threads run the last lane's inputs into spare rows)."""
+    dev = _cuda_or_skip()
+    gal = port_gallery.GALLERY[gal_name]
+    module, name = gal.build(**size)
+    fn = lower_to_cuda(module, name, device=dev)
+    n_in = sum(1 for a in module.get(name).args if a.type.port == "r")
+    per = [gal.make_inputs(**size, seed=s) for s in range(8)]
+    batch = [torch.as_tensor(np.stack([per[s % 8][i] for s in range(lanes)])).to(dev, torch.int32)
+             for i in range(n_in)]
+    if lanes == 1:
+        batch = [x[0] for x in batch]
+    got = fn(*batch)
+    want = fn.plain(*batch)
+    for k in want:
+        assert got[k].shape == want[k].shape and torch.equal(got[k], want[k])
+
+
+@pytest.mark.gpu
+def test_running_sum_with_meeting_boxes_on_card():
+    """A read-write memref whose chunks' boxes meet stays in global memory
+    and still gives the plain version's results."""
+    dev = _cuda_or_skip()
+    module, name = build_running_sum(port_ir, PortBuilder, n=300)
+    fn = lower_to_cuda(module, name, device=dev)
+    a = np.random.default_rng(2).integers(-1000, 1000, (40, 300))
+    assert torch.equal(fn(a)["X"], fn.plain(a)["X"])
+
+
+# a large ragged product, padded by ops.matmul to each dtype's tile
+RAGGED_BIG = (4000, 3992, 4104)
+MATMUL_BIG_TILES = {"bfloat16": dict(bm=128, bn=256, bk=64), "float32": dict(bm=128, bn=128, bk=32)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_matmul_ragged_large_shape_on_card(dtype):
+    dev = _cuda_or_skip()
+    M, K, N = RAGGED_BIG
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn((M, K), generator=g).to(dev, DTYPES[dtype])
+    y = torch.randn((K, N), generator=g).to(dev, DTYPES[dtype])
+    got = ops.matmul(x, y, **MATMUL_BIG_TILES[dtype])
+    want = ref.matmul_ref(x, y)
+    assert got.shape == (M, N) and got.dtype == x.dtype
+    scale = max(1.0, float(want.float().abs().max()))
+    assert float((got.float() - want.float()).abs().max()) <= tol(dtype)["atol"] * scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_matmul_integer_exact_at_4096_on_card(dtype):
+    """Small integers: every product and partial sum is exact in float32, so
+    both kernels must match the float64 product exactly."""
+    dev = _cuda_or_skip()
+    g = torch.Generator().manual_seed(4)
+    x, y = (torch.randint(-8, 9, (4096, 4096), generator=g).to(dev, DTYPES[dtype])
+            for _ in range(2))
+    got = ops.matmul(x, y, **MATMUL_BIG_TILES[dtype])
+    assert torch.equal(got, (x.double() @ y.double()).to(x.dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile", [(128, 128, 128), (128, 256, 64), (64, 16, 16), (128, 48, 48),
+                                  (64, 96, 32), (128, 256, 16), (64, 128, 128)])
+def test_matmul_bf16_wgmma_tiles_on_card(tile):
+    """Every width of wgmma (16..256), both warpgroup counts and the three
+    swizzles of a stage's rows (32, 64 and 128 bytes) against the plain
+    version."""
+    dev = _cuda_or_skip()
+    bm, bn, bk = tile
+    M, K, N = 2 * bm, 3 * bk, 2 * bn
+    x, y = matmul_operands(M, K, N, "bfloat16")
+    xt, yt = (torch.as_tensor(a).to(dev, torch.bfloat16) for a in (x, y))
+    got = mm.matmul(xt, yt, bm=bm, bn=bn, bk=bk)
+    want = ref.matmul_ref(xt, yt)
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                               **tol("bfloat16"))
+
+
+@pytest.mark.gpu
+def test_matmul_bf16_refuses_a_tile_wgmma_does_not_take_on_card():
+    """No fallback: the call raises before any kernel runs."""
+    dev = _cuda_or_skip()
+    x = torch.zeros((256, 256), device=dev, dtype=torch.bfloat16)
+    before = mm.launches
+    for tile, message in ((dict(bm=32, bn=128, bk=64), "bm=32"),
+                          (dict(bm=128, bn=24, bk=64), "bn=24"),
+                          (dict(bm=128, bn=128, bk=8), "bk=8")):
+        with pytest.raises(ValueError, match=message):
+            ops.matmul(x, x, **tile)
+    assert mm.launches == before
 
 
 def _on(dev, name, *arrays):

@@ -9,6 +9,7 @@ CUDA C++ cannot be compiled without ``nvcc``; its text is produced and its
 structure checked; ``tests/test_torch_gpu.py`` runs it where there is a card.
 """
 
+import re
 import warnings
 
 import jax  # noqa: F401  (both frameworks in one process; jax stays on the CPU)
@@ -31,6 +32,7 @@ from repro_torch.core.builder import Builder as PortBuilder
 from repro_torch.core.lower import lower_to_cuda, lower_to_torch, simulate
 from repro_torch.core.lower.common import (PrecisionWarning, cuda_dtype,
                                            torch_arith_table, torch_dtype)
+from repro_torch.core.lower import to_cuda
 from repro_torch.core.lower.to_cuda import generate_cuda_source
 from repro_torch.kernels import _build
 
@@ -339,23 +341,30 @@ def test_generated_source_structure(gal_name):
     src = fn.source
     func = module.get(name)
     top_trips = [op.trip_count() for op in func.body.ops if op.opname == "for"]
-    assert f'extern "C" __global__ void __launch_bounds__(128)\nhir_{name}(' in src
+    # a block runs at most 128 lanes; staged kernels give each a helper thread
+    bound = 256 if fn.kernel.staged else 128
+    assert f'extern "C" __global__ void __launch_bounds__({bound})\nhir_{name}(' in src
     assert f'extern "C" int launch_hir_{name}(' in src
     assert "return (int)cudaGetLastError();" in src
-    assert "const int lane = blockIdx.x * blockDim.x + threadIdx.x;" in src
-    pro, main, epi = (src.index("{  // prologue"),
-                      src.index(f"for (int32_t pid = 0; pid < {max(top_trips)}; ++pid) {{  // main loop"),
-                      src.index("{  // epilogue"))
-    assert pro < main < epi
+    assert "const int lane = blockIdx.x * hir_lanes + hir_lane;" in src
+    assert f"hir_{name}<<<blocks, {bound // 128} * threads, " in src   # the caller sizes blocks
+    main = re.search(r"for \(int32_t pid = (0|k \* \d+); pid < (min\(\(k \+ 1\) \* \d+, )?"
+                     + str(max(top_trips)) + r"\)?; \+\+pid\) \{", src)
+    pro, epi = src.index("{  // prologue"), src.index("{  // epilogue")
+    assert main and pro < main.start() < epi
     assert src.count("{") == src.count("}")
     # every memref argument becomes one pointer parameter, sliced per lane
     for a in func.args:
         size = int(np.prod(a.type.shape))
-        assert f"g_{a.name} + (size_t)lane * {size};" in src
-    # hir.alloc buffers are zero-initialised per-thread arrays
+        lane = "in_lane" if a.type.port == "r" else "lane"
+        assert f"g_{a.name} + (size_t){lane} * {size};" in src
+    # hir.alloc buffers are zero-initialised: per-thread arrays, or a
+    # thread's column of shared memory
     for op in func.body.ops:
         if op.opname == "alloc":
-            assert f"[{int(np.prod(op.attrs['base'].shape))}] = {{}};" in src
+            n = int(np.prod(op.attrs["base"].shape))
+            assert (f"[{n}] = {{}};" in src
+                    or f"for (int32_t i = 0; i < {n}; ++i) " in src)
     # a separately built module generates the same text, so the same library
     module2, _ = gal.build()
     src2, launcher = generate_cuda_source(module2, name)
@@ -399,3 +408,156 @@ def test_lowering_rejects_what_it_cannot_take():
         fn(np.zeros((2, 8), np.int64), np.zeros((3, 8), np.int64))
 
 
+
+
+# -- latency hiding and placement in the generated kernel --------------------------
+
+
+def _kernel(gal_name, **size):
+    module, name = port_gallery.GALLERY[gal_name].build(**size)
+    return lower_to_cuda(module, name, device="cpu")
+
+
+def _helper_part(src):
+    start = src.index("  if (hir_helper) {")
+    return src[start:src.index("\n  }\n", start)]
+
+
+@pytest.mark.parametrize("gal_name,size,staged,chunk", [
+    ("array_add", {"n": 4096}, ["m_A", "m_B", "m_C"], 128),
+    ("transpose", {"n": 64}, ["m_Ai", "m_Co"], 4),
+    ("conv2d", {"h": 64, "w": 64}, ["m_Img", "m_Out"], 4),
+    ("stencil1d", {"n": 4096}, ["m_Ai", "m_Bw"], 128),
+    ("histogram", {"n": 4096, "bins": 256}, ["m_Img"], 128),
+])
+def test_staged_kernels_copy_the_next_chunk_while_the_warp_computes(gal_name, size, staged, chunk):
+    """The memrefs the main loop touches at indices known ahead are staged
+    in chunks; a helper warp copies chunk k + 1 in and chunk k - 1 out
+    while its compute warp runs chunk k, and the two meet at a barrier of
+    their own the same number of times."""
+    fn = _kernel(gal_name, **size)
+    src = fn.source
+    assert fn.kernel.staged == staged and fn.kernel.chunk == chunk
+    helper = _helper_part(src)
+    compute = src[src.index(helper) + len(helper):src.index('extern "C" int launch_hir')]
+    assert helper.count("hir_pair_sync(pair);") == compute.count("hir_pair_sync(pair);") == 4
+    assert "    for (int32_t k = 0; k < " in helper and "if (k + 1 < " in helper
+    for m in staged:
+        name = m[2:]
+        assert f"hir_r0_{name}(int32_t k)" in src and f"hir_c0_{name}(int32_t k)" in src
+        assert f"b_{name} = s_{name} + (k & 1) * " in compute          # two buffers
+        loop = compute[compute.index("// main loop"):compute.index("// epilogue")]
+        assert f"m_{name}[" not in loop               # the main loop touches the copies
+    assert "cp.async.ca.shared.global" in src and "// Staging: " in src
+    assert fn.kernel.stage_per_pair <= to_cuda.STAGE_BYTES_PER_PAIR
+
+
+def test_boxes_follow_the_main_loop():
+    """transpose 64 reads rows of Ai and writes columns of Co: a chunk of 4
+    iterations stages 4 rows of one and 4 columns of the other; Co is only
+    written, all of each box, so it is copied out and never in."""
+    fn = _kernel("transpose", n=64)
+    src = fn.source
+    assert "hir_r0_Ai(int32_t k) { return 0 + k * 4; }" in src
+    assert "hir_c0_Ai(int32_t k) { return 0 + k * 0; }" in src
+    assert "hir_r0_Co(int32_t k) { return 0 + k * 0; }" in src
+    assert "hir_c0_Co(int32_t k) { return 0 + k * 4; }" in src
+    helper = _helper_part(src)
+    assert "hir_stage_in(s_Ai" in helper and "hir_stage_out(s_Co" in helper
+    assert "hir_stage_in(s_Co" not in helper and "hir_stage_out(s_Ai" not in helper
+    assert re.search(r"b_Co\[\(\(\(j_\d+\) - r0_Co\) \* 4 \+ \(i_\d+\) - c0_Co\) \* 33 \+ hir_t\]",
+                     src)
+
+
+def test_boxes_that_meet_the_next_chunks_are_not_staged():
+    """A running sum writes X[i + 1] after reading X[i]: over 300
+    iterations in chunks of 128 the boxes of X meet, and copying chunk k + 1
+    in before chunk k is out would read stale values, so X stays in global
+    memory; A is staged."""
+    from test_torch_gpu import build_running_sum
+
+    module, name = build_running_sum(port_ir, PortBuilder, n=300)
+    fn = lower_to_cuda(module, name, device="cpu")
+    assert fn.kernel.staged == ["m_A"] and fn.kernel.chunk == 128
+    assert "m_X[" in fn.source and "s_X" not in fn.source
+    got = fn(np.arange(300))["X"]
+    np.testing.assert_array_equal(got.numpy(), np.concatenate([[0], np.cumsum(np.arange(300))]))
+
+
+def test_unstaged_reads_are_prefetched_with_their_guards():
+    """The ALU design gathers A at a data-dependent index, so A is not
+    staged; its reads at the loop's index are prefetched, inside the memref,
+    for iteration pid + pf; the gather gets none."""
+    module, name = build_alu(port_ir, PortBuilder)
+    fn = lower_to_cuda(module, name, device="cpu")
+    src = fn.source
+    assert "m_A" not in fn.kernel.staged and fn.kernel.prefetch_bytes == 4
+    main = src.index("// main loop")
+    ahead = src.index("if (pid + pf < 64) {  // prefetch iteration pid + pf", main)
+    assert re.search(r"if \((p\d+) >= 0 && \1 < 64\) hir_prefetch\(m_A \+ \1\);", src[ahead:])
+    assert re.findall(r"hir_prefetch\((m_\w+) \+", src) == ["m_A"]
+    assert "if (((uintptr_t)p & 31u) == 0)" in src and "prefetch.global.L1" in src
+    assert "// Prefetch: the unstaged reads of an iteration take 4 bytes" in src
+
+
+def test_histogram_bins_get_no_prefetch_and_live_in_shared_memory():
+    """The bins are indexed by data, so they are neither staged nor
+    prefetched; they live element-major in shared memory."""
+    fn = _kernel("histogram")
+    src = fn.source
+    assert "hir_prefetch(m_" not in src and fn.kernel.staged == ["m_Img"]
+    assert fn.kernel.shared_allocs == ["a0_Hr"] and fn.kernel.smem_per_thread == 16 * 4
+    assert "extern __shared__ __align__(16) unsigned char hir_smem[];" in src
+    assert re.search(r"a0_Hr\[\(r\d+\) \* hir_lanes\]", src)           # a data-indexed bin
+    assert "reinterpret_cast<int32_t*>(hir_smem + 0 * hir_lanes) + hir_lane;" in src
+    assert "// Shared memory, element-major" in src
+
+
+def test_allocs_placed_by_index_and_size():
+    """conv2d's line buffers are indexed by the column and go to shared
+    memory; its window, indexed by constants only, stays in registers; bins
+    too many for a block's shared memory stay per-thread arrays."""
+    conv = _kernel("conv2d")
+    assert conv.kernel.shared_allocs == ["a0_L0r", "a1_L1r"]
+    assert "int32_t a2_Pr[6] = {};" in conv.source
+    big = _kernel("histogram", n=64, bins=4096)
+    assert big.kernel.shared_allocs == [] and big.kernel.smem_per_thread == 0
+    assert "int32_t a0_Hr[4096] = {};" in big.source
+    large = _kernel("histogram", n=4096, bins=256)
+    assert large.kernel.shared_allocs == ["a0_Hr"]
+    assert "cudaFuncSetAttribute(hir_histogram" in large.source
+    assert large.source.count("static bool attr_set = false;") == 1
+    assert large.kernel.smem_bytes(32) <= to_cuda.SMEM_BYTES
+
+
+@pytest.mark.parametrize("lanes,threads", [(1, 32), (33, 32), (4096, 32), (4097, 32),
+                                           (10_000, 64), (1_000_000, 128)])
+def test_block_size_covers_every_sm(lanes, threads):
+    """32 lanes a block while the lanes cannot fill 132 SMs with bigger
+    blocks, 128 only when they fill the card at that size."""
+    assert to_cuda.block_threads(lanes, 132) == threads
+    assert -(-lanes // threads) >= min(132, -(-lanes // 32))
+
+
+def test_prefetch_distance_keeps_16_kb_in_flight_per_sm():
+    assert to_cuda.prefetch_distance(4096, 132, 8, 4096) == 64        # 32 lanes an SM
+    assert to_cuda.prefetch_distance(4096, 132, 256, 64) == 2
+    assert to_cuda.prefetch_distance(1, 132, 8, 4096) == 64           # a block is a warp
+    assert to_cuda.prefetch_distance(1, 132, 8, 50) == 50             # never past the loop
+    assert to_cuda.prefetch_distance(10 ** 6, 132, 4096, 64, 128) == 1
+    assert to_cuda.prefetch_distance(4096, 132, 0, 64) == 1           # nothing to prefetch
+
+
+@pytest.mark.parametrize("gal_name,size,whole", [
+    ("array_add", {"n": 4096}, ["C"]), ("transpose", {"n": 64}, ["Co"]),
+    ("stencil1d", {"n": 4096}, ["Bw"]), ("conv2d", {"h": 64, "w": 64}, ["Out"]),
+    ("histogram", {"n": 4096, "bins": 256}, []),
+])
+def test_outputs_the_main_loop_writes_whole_need_no_zeros(gal_name, size, whole):
+    """A write-port memref whose every element the main loop writes
+    unconditionally starts as ``torch.empty``; histogram's output is written
+    in the epilogue, so it starts from zeros as the plain version's does."""
+    fn = _kernel(gal_name, **size)
+    assert fn.kernel.written_whole == whole
+    module, name = build_alu(port_ir, PortBuilder)          # O is a read-write port
+    assert lower_to_cuda(module, name, device="cpu").kernel.written_whole == []

@@ -48,7 +48,7 @@ def test_matmul(shape, dtype):
 
 def test_matmul_schedule_checker():
     """The Hopper rules: tiles divide the dims, the block fits the thread and
-    register limits, the staged tiles fit shared memory, rows are 16-byte
+    register limits, the staged ring fits shared memory, rows are 16-byte
     aligned."""
     assert check_schedule(256, 256, 256, 128, 128, 128) == []
     assert check_schedule(4096, 4096, 4096, 128, 128, 16, elem_bytes=4) == []
@@ -57,10 +57,17 @@ def test_matmul_schedule_checker():
     assert errs and any("aligned" in e or "tile" in e for e in errs)
     errs = check_schedule(512, 512, 512, 256, 256, 16, elem_bytes=4)
     assert len(errs) == 1 and "threads" in errs[0]
-    errs = check_schedule(1024, 1024, 1024, 128, 128, 256, elem_bytes=4)
+    # float32 stages K in slabs of 16, so a deep bk no longer fills shared
+    # memory; a tall tile's ring still can
+    assert check_schedule(1024, 1024, 1024, 128, 128, 256, elem_bytes=4) == []
+    errs = check_schedule(2048, 8, 16, 2048, 8, 16, elem_bytes=4)
     assert len(errs) == 1 and "shared memory" in errs[0]
+    # misaligned rows are refused (beside the wgmma tile rules a 4-wide
+    # bfloat16 tile also breaks)
     errs = check_schedule(4, 4, 4, 4, 4, 4, elem_bytes=2)
-    assert errs and all("16-byte aligned" in e for e in errs)
+    aligned = [e for e in errs if "16-byte aligned" in e]
+    assert len(aligned) == 3
+    assert all("wgmma" in e for e in errs if e not in aligned)
 
 
 @pytest.mark.parametrize("bm,bn,want", [(128, 128, 8), (64, 64, 8), (32, 32, 4), (16, 16, 2),
@@ -107,3 +114,41 @@ def test_matmul_rejects_what_the_kernel_does_not_take():
     assert mm.launches == before          # the plain version is not a launch
 
 
+
+
+@pytest.mark.parametrize("tile,message", [
+    ((96, 128, 64), "bm=96: a wgmma tile takes 64 or 128 rows"),
+    ((256, 128, 64), "bm=256: a wgmma tile takes 64 or 128 rows"),
+    ((128, 24, 64), "bn=24: a wgmma tile takes a multiple of 16 columns up to 256"),
+    ((128, 512, 64), "bn=512: a wgmma tile takes a multiple of 16 columns up to 256"),
+    ((128, 128, 8), "bk=8: a wgmma stage takes a multiple of 16 up to 256"),
+    ((128, 128, 512), "bk=512: a wgmma stage takes a multiple of 16 up to 256"),
+    ((128, 256, 256), "a ring of 3 stages of 196608 bytes exceeds shared memory 232448"),
+])
+def test_matmul_schedule_checker_bf16_rules(tile, message):
+    """bfloat16 runs on wgmma: each rule it adds, one case per message."""
+    bm, bn, bk = tile
+    errs = check_schedule(4 * bm, 3 * bn, 5 * bk, bm, bn, bk, elem_bytes=2)
+    assert errs == [e for e in errs if e.startswith(message)] and len(errs) == 1
+
+
+@pytest.mark.parametrize("tile", [(128, 128, 128), (128, 256, 64), (64, 16, 16), (128, 48, 48),
+                                  (64, 96, 32), (128, 256, 16)])
+def test_matmul_bf16_tiles_that_wgmma_takes(tile):
+    """The tiles the tests and the chip run use stay legal, with a ring of at
+    least 3 stages and a wgmma width that divides bn."""
+    bm, bn, bk = tile
+    assert check_schedule(4 * bm, 3 * bn, 5 * bk, bm, bn, bk) == []
+    s = mm.schedule(bm, bn, bk, torch.bfloat16)
+    assert s["kernel"] == "mm_bf16_wgmma" and s["stages"] >= 3 and bn % s["wgmma_n"] == 0
+    assert s["stages"] * mm.stage_bytes(bm, bn, bk) + 1024 + 128 <= mm.SMEM_BYTES
+
+
+def test_matmul_schedule_names_the_kernel_per_dtype():
+    """float32 never reaches the tensor cores, bfloat16 never the CUDA cores."""
+    assert mm.schedule(128, 128, 16, torch.float32)["kernel"] == "mm_f32"
+    assert mm.schedule(128, 128, 16, torch.bfloat16)["kernel"] == "mm_bf16_wgmma"
+    assert mm.schedule(16, 16, 16, torch.float32) == {
+        "kernel": "mm_f32", "launcher": "launch_matmul_f32", "bm": 16, "bn": 16, "bk": 16,
+        "micro": 2, "slab": 16}
+    assert mm.schedule(128, 256, 64, torch.bfloat16)["stages"] == 4

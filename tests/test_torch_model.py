@@ -236,3 +236,15 @@ def test_entry_point_without_device_raises_where_there_is_no_cuda(entry):
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "mamba2-780m", "recurrentgemma-9b"])
+def test_init_segment_cache_builds_every_leaf_on_the_device_asked_for(arch):
+    """Called directly with ``device="cpu"``, every leaf (the block caches
+    and the stacked zeros around them) lies on the CPU."""
+    cfg = registry.get_smoke_config(arch)
+    for seg in cfg.segments:
+        caches = transformer.init_segment_cache(seg, B, S, cfg, device="cpu")
+        leaves = [t for c in caches for t in c.values()]
+        assert leaves and all(t.device.type == "cpu" for t in leaves)
+        assert all(t.shape[0] == seg.repeats for t in leaves)

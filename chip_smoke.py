@@ -29,7 +29,11 @@ PyTorch version on the card, then drives:
 Each path runs with every kernel's launch count set to 0 just before it and
 read just after; a row of the ``kernels`` line that names a main-path shape
 carries that count, and the rows of further checks nested under it carry
-``"launches": null``.  Output: one JSON object per line (``env``,
+``"launches": null``.  The attention rows (K3, K4) name the kernel they ran
+and carry ``device_ms`` and ``library_device_ms`` beside the CUDA-event
+``ms``: one replay of a CUDA graph of 20 calls over 20, the device's time
+without the host's (``null`` with the reason where a call cannot be
+captured).  Output: one JSON object per line (``env``,
 ``build``, ``k1_without_staging``, ``main_path``, then ``serve``, ``prefill``,
 ``consistency`` and ``profile`` for each model, ``kernels``), the card's
 name and power limit as ``nvidia-smi`` gives them, and a last line
@@ -174,6 +178,50 @@ def time_ms(fn, iters: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def graph_ms(fn, calls: int = 20, replays: int = 5):
+    """Device time of one call without the host's part: a CUDA graph holds
+    ``calls`` calls, and the mean time of one replay (over ``replays``, after
+    one warm-up replay) is divided by ``calls``.  Returns (ms, None), or
+    (None, the reason) where the call cannot be captured."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.stream(stream):
+            fn()                                   # warm-up on the capturing stream
+            with torch.cuda.graph(graph, stream=stream):
+                for _ in range(calls):
+                    fn()
+    except Exception as e:                         # the capture was refused
+        torch.cuda.synchronize()
+        return None, f"not captured: {type(e).__name__}: {str(e).splitlines()[0][:160]}"
+    torch.cuda.current_stream().wait_stream(stream)
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(stop) / (replays * calls)
+    del graph
+    torch.cuda.empty_cache()
+    return ms, None
+
+
+def device_times(kernel, library) -> dict:
+    """``device_ms`` of the kernel's call and of the library call (``graph_ms``),
+    with the reason where one could not be captured."""
+    out = {}
+    for key, fn in (("device_ms", kernel), ("library_device_ms", library)):
+        out[key], why = graph_ms(fn)
+        if why:
+            out[key + "_note"] = why
+    return out
 
 
 def wall_ms(fn) -> float:
@@ -545,16 +593,18 @@ def k3_case(case: str, B, Sq, Sk, H, KvH, D, dtype, device, g, *, window=None,
     flops = 4.0 * B * H * pairs * D               # two products, a multiply and an add each
     nbytes = (2 * B * H * Sq * D + 2 * B * KvH * (kv_len or Sk) * D) * es
     bound_ms, bound_by = bound(flops, nbytes, dtype)
+    kernel = lambda: fa.flash_attention(q, k, v, **kwargs)
     return {
         "name": name, "route": "cuda", "source": "src/repro_torch/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:96",
+        "replaces": "src/repro/kernels/flash_attention.py:96", "kernel": fa.KERNEL[dtype],
         "shape": {"B": B, "Sq": Sq, "Sk": Sk, "H": H, "KvH": KvH, "D": D,
                   "dtype": dtype_name(dtype), "causal": True, "window": window, "kv_len": kv_len},
         "launches": None, "max_abs_err": err, "tolerance": f"{ATTN_TOL[dtype]} + {ATTN_TOL[dtype]}*|plain|",
-        "ms": time_ms(lambda: fa.flash_attention(q, k, v, **kwargs), 20),
+        "ms": time_ms(kernel, 20),
         "plain_ms": time_ms(lambda: ref.flash_attention_ref(q, k, v, **kwargs), 5),
         "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": time_ms(library, 20),
+        **device_times(kernel, library),
     }
 
 
@@ -600,16 +650,21 @@ def k4_case(case: str, B, L, H, KvH, D, dtype, lengths, device, g) -> dict:
     es = q.element_size()
     bound_ms, bound_by = bound(4.0 * H * D * rows_read,
                                (2 * B * H * D + 2 * rows_read * KvH * D) * es, dtype)
+    kernel = lambda: ops.decode(q, k, v, n)
+    chunk, n_chunks = dec.split(L, B * KvH, D, torch.cuda.get_device_properties(device)
+                                .multi_processor_count)
     return {
         "name": name, "route": "cuda", "source": "src/repro_torch/csrc/decode_attention.cu",
-        "replaces": "src/repro/kernels/decode_attention.py:73",
+        "replaces": "src/repro/kernels/decode_attention.py:73", "kernel": dec.KERNEL[dtype],
         "shape": {"B": B, "L": L, "H": H, "KvH": KvH, "D": D, "dtype": dtype_name(dtype),
                   "length": lengths},
+        "split": {"chunk": chunk, "chunks": n_chunks, "blocks": n_chunks * B * KvH},
         "launches": None, "max_abs_err": err, "tolerance": f"{ATTN_TOL[dtype]} + {ATTN_TOL[dtype]}*|plain|",
-        "ms": time_ms(lambda: ops.decode(q, k, v, n), 50),
+        "ms": time_ms(kernel, 50),
         "plain_ms": time_ms(lambda: ref.decode_attention_ref(q, k, v, n), 20),
         "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": time_ms(library, 50),
+        **device_times(kernel, library),
     }
 
 
@@ -1021,7 +1076,7 @@ def phase_profile(eng) -> None:
         "device_ms_per_step": busy_us / 1e3 if busy_us else "not measured",
         "device_idle_share": 1 - busy_us * 8 / wall_us if busy_us else "not measured",
         "decode_attention_ms_per_step": sum(t for k, t in by_kernel
-                                            if "partial_kernel" in k or "merge_kernel" in k) / 1e3,
+                                            if any(name in k for name in dec.KERNEL.values())) / 1e3,
         "top_kernels_ms_per_step": [[k[:80], t / 1e3] for k, t in by_kernel[:8]]})
 
 

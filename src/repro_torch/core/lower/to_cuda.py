@@ -1219,9 +1219,7 @@ class CudaLowered:
                 for a in p.out_args]
         from ...kernels import _build
 
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            rc = launcher(*[t.data_ptr() for t in ins + outs], n, threads, pf, stream)
+        rc = _build.on_device(dev, launcher, *[t.data_ptr() for t in ins + outs], n, threads, pf)
         _build.check_launch(rc, self._launcher_name)
         self.launches += 1
         launches += 1

@@ -1,64 +1,84 @@
-// Flash attention (causal / sliding-window / kv_len masks, GQA) for float and
-// bfloat16 inputs, one pass over the keys with an online softmax.
+// Flash attention (causal / sliding-window / kv_len masks, GQA), one pass over
+// the keys with an online softmax: one kernel per dtype.
 //
 // Replaces: repro/kernels/flash_attention.py:96, the `pallas_call` of
 // `_flash_kernel` (grid (B, H, Sq/bq, Sk/bk), KV innermost and sequential on the
-// TPU, with (acc, m, l) carried in VMEM scratch across the KV steps).
+// TPU, with (acc, m, l) carried in VMEM scratch across the KV steps).  On the
+// card the sequential KV dimension is a loop inside one block per (q-block,
+// head, lane) over tiles of keys; under a causal mask it stops at the block's
+// diagonal, under a window it starts at the first tile any row can see, and
+// the longest q-blocks launch first.  The KV head is h / (H / KvH), never
+// replicated.  Keys at or past Sk do not exist (-inf, weight 0) and query rows
+// at or past Sq are not stored, so the caller never pads.  Semantics are the
+// Pallas body's: a masked score is -1e30 (not -inf: a row that has seen only
+// masked keys holds m = -1e30 and p = exp(0) until a valid key rescales its
+// sums by exp(-1e30 - m) = 0), and the output is acc / max(l, 1e-30).
 //
-// Bound on this card: operations. Under a causal mask the two products take
+// Bound on this card: operations.  Under a causal mask the two products take
 // 2*B*H*Sq*Sk*D floating-point operations (half of 4*B*H*Sq*Sk*D); at the shape
 // of a 1024-token prefill of tinyllama (B 4, H 32, D 64) that is 17.2 GFLOP, or
 // 0.017 ms at 989 TFLOP/s bf16, against 38 MB of Q, K, V and O, or 0.011 ms at
 // 3.35 TB/s.
 //
-// Design: one block of four warps per (q-block of 64 rows, head, batch). The
-// TPU's sequential KV grid dimension is a loop inside the block over tiles of
-// 64 keys; under a causal mask it stops at the block's diagonal and under a
-// window it starts at the first tile any row can see, so the work is the
-// causal half. Each tile of K (and V) is staged once in shared memory as float
-// and serves all 64 query rows; the KV head is h / (H / KvH), never replicated.
-// Each warp owns 16 query rows: a lane computes the scores of 2 keys for all 16
-// rows (float4 reads; the rows of Q and K are padded by 4 floats so those reads
-// are free of bank conflicts), the row maxima are all-reduced over the warp,
-// the probabilities go through shared memory, and the lane accumulates D/2
-// outputs of P.V. (acc, m) live in registers and l as per-lane partial sums,
-// added up once at the end. Arithmetic is float32 on the CUDA cores, as in the
-// Pallas body: scores are (q * scale) . k, masked scores are -1e30 (not -inf:
-// a row that has seen only masked keys holds m = -1e30 and p = exp(0) until a
-// valid key rescales its sums by exp(-1e30 - m) = 0), and the output is
-// acc / max(l, 1e-30), rounded to nearest even. Keys at or past Sk do not
-// exist (-inf, weight 0) and query rows at or past Sq are not stored, so the
-// caller never pads. The tensor cores (wgmma) and TMA are later work.
-#include <cstdint>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+// bfloat16 (`flash_bf16_wgmma`), head dims 16-256.  Both products run on the
+// tensor cores, `wgmma.mma_async` m64nNk16 with f32 accumulators.  A block is
+// one or two consumer warpgroups of 64 query rows each and one producer
+// warpgroup, of which one thread works.  It loads Q once and K, V tiles into a
+// ring of stages with TMA (`cp.async.bulk.tensor.4d` over (D, head, position,
+// batch) with the caller's strides, so the (B,H,S,D) views of the model's
+// (B,S,H,D) tensors are read without a copy; keys past Sk arrive as zeros and
+// are scored -inf); stages complete on mbarriers and go back to the producer
+// when every consumer warp is done with them.  S = Q K^T takes Q and K
+// K-major from shared memory (swizzled as wide as a row of D allows, 128 bytes
+// at D >= 64).  The scale is folded with log2(e) into the f32 scores and the
+// softmax runs on exp2; masks are selects against each row's bounds, applied
+// only in tiles that a mask reaches (a test per element, in every tile, took
+// a third of the time).  Row maxima and sums reduce over the 4 threads that
+// share a row.  P is rounded to bf16 in registers, where the f32 fragment of
+// S is already the A fragment of O += P V, so P never goes through shared
+// memory; V enters as an N-major B through wgmma's transpose bit.  D <= 128:
+// two consumer warpgroups (128 rows), tiles of 128 keys, a ring of 3 stages;
+// `setmaxnreg` moves registers from the producer to them.  D 256: the O
+// accumulator alone is 128 f32 registers a thread, and ptxas allots a
+// 384-thread block 168 a thread whatever `setmaxnreg` asks later (it spilled
+// 316 bytes), so the block is one consumer warpgroup (64 rows) and the
+// producer, 256 threads with up to 255 registers each, no spill; tiles of 64
+// keys, a ring of 2: Q and the ring take 160 KB of the 227 KB a block may use.
+// The one rounding beyond the Pallas body's is P to bf16 before P V.
+//
+// float32 (`flash_f32`), head dims 16-256: the CUDA cores, 2e-5 of the plain
+// version (TF32 could not meet it).  One block of four warps per (q-block of
+// 64 rows, head, batch) over tiles of 64 keys.  Each tile of K (and V) is
+// staged once in shared memory and serves all 64 query rows.  Each warp owns
+// 16 query rows: a lane computes the scores of 2 keys for all 16 rows (float4
+// reads; the rows of Q and K are padded by 4 floats so those reads are free of
+// bank conflicts), the row maxima are all-reduced over the warp, the
+// probabilities go through shared memory, and the lane accumulates D/2 outputs
+// of P.V; (acc, m) live in registers and l as per-lane partial sums.  Scores
+// are (q * scale) . k.  At D 256 its accumulator spills.
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int BQ = 64;             // query rows per block
-constexpr int BK = 64;             // keys per tile
+constexpr int BQ = 64;             // query rows per block (f32)
+constexpr int BK = 64;             // keys per tile (f32)
 constexpr int WARPS = 4;
 constexpr int THREADS = WARPS * 32;
 constexpr int ROWS = BQ / WARPS;   // query rows per warp
 constexpr int PS = BK + 4;         // row stride of the probability tile (floats)
 constexpr float MASKED = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
 #define ABSENT __int_as_float(0xff800000u)  // -inf: a key past the end, weight 0
 
 struct Strides {
   long long b, h, s;               // in elements; the head dim is contiguous
 };
 
+// -- float32 on the CUDA cores ----------------------------------------------------
+
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  // four bfloat16 values: each is the high half of its float
-  const uint2 r = *reinterpret_cast<const uint2*>(p);
-  return make_float4(__uint_as_float(r.x << 16), __uint_as_float(r.x & 0xffff0000u),
-                     __uint_as_float(r.y << 16), __uint_as_float(r.y & 0xffff0000u));
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -79,10 +99,10 @@ constexpr size_t smem_floats() {
   return (size_t)BQ * (D + 4) + (size_t)BK * (D + 4) + (size_t)BK * D + (size_t)BQ * PS;
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-             T* __restrict__ o, int group, int Sq, int Sk, Strides qs, Strides ks,
+flash_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+          float* __restrict__ o, int group, int Sq, int Sk, Strides qs, Strides ks,
              Strides vs, Strides os, float scale, int causal, int window, int kv_len) {
   constexpr int DP = D + 4;                // padded row stride of the Q and K tiles
   constexpr int DL = D < 32 ? D : 32;      // lanes along the head dim in P.V
@@ -100,9 +120,9 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   // last q-blocks first: under a causal mask they have the most tiles
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
   const int h = blockIdx.y, b = blockIdx.z, kvh = h / group;
-  const T* qp = q + b * qs.b + h * qs.h;
-  const T* kp = k + b * ks.b + kvh * ks.h;
-  const T* vp = v + b * vs.b + kvh * vs.h;
+  const float* qp = q + b * qs.b + h * qs.h;
+  const float* kp = k + b * ks.b + kvh * ks.h;
+  const float* vp = v + b * vs.b + kvh * vs.h;
 
   for (int e = tid; e < BQ * D / 4; e += THREADS) {
     const int r = e / (D / 4), c = (e % (D / 4)) * 4;
@@ -209,7 +229,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
 
 #pragma unroll
   for (int r = 0; r < ROWS; ++r) l[r] = warp_sum(l[r]);
-  T* op = o + b * os.b + h * os.h;
+  float* op = o + b * os.b + h * os.h;
 #pragma unroll
   for (int u = 0; u < RPL; ++u) {
     float den = l[u * RG];
@@ -220,16 +240,16 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
     const int qpos = q0 + warp * ROWS + u * RG + rg;
     if (qpos < Sq) {
 #pragma unroll
-      for (int t = 0; t < DPL; ++t) store(op + qpos * os.s + dl + DL * t, acc[u][t] / den);
+      for (int t = 0; t < DPL; ++t) op[qpos * os.s + dl + DL * t] = acc[u][t] / den;
     }
   }
 }
 
-template <typename T, int D>
-int launch_d(const void* q, const void* k, const void* v, void* o, int B, int H, int KvH,
-             int Sq, int Sk, const long long* st, float scale, int causal, int window,
-             int kv_len, cudaStream_t stream) {
-  auto kernel = flash_kernel<T, D>;
+template <int D>
+int launch_f32_d(const float* q, const float* k, const float* v, float* o, int B, int H,
+                 int KvH, int Sq, int Sk, const long long* st, float scale, int causal,
+                 int window, int kv_len, cudaStream_t stream) {
+  auto kernel = flash_f32<D>;
   const size_t smem = smem_floats<D>() * sizeof(float);
   static bool attribute_set = false;       // above 48 KB a kernel must ask, once
   if (smem > 48 * 1024 && !attribute_set) {
@@ -241,49 +261,319 @@ int launch_d(const void* q, const void* k, const void* v, void* o, int B, int H,
   const Strides qs{st[0], st[1], st[2]}, ks{st[3], st[4], st[5]};
   const Strides vs{st[6], st[7], st[8]}, os{st[9], st[10], st[11]};
   dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  kernel<<<grid, THREADS, smem, stream>>>((const T*)q, (const T*)k, (const T*)v, (T*)o,
-                                          H / KvH, Sq, Sk, qs, ks, vs, os, scale, causal,
-                                          window, kv_len);
+  kernel<<<grid, THREADS, smem, stream>>>(q, k, v, o, H / KvH, Sq, Sk, qs, ks, vs, os, scale,
+                                          causal, window, kv_len);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int H, int KvH,
-           int Sq, int Sk, int D, const long long* strides, float scale, int causal,
-           int window, int kv_len, void* stream) {
-  if (B <= 0 || H <= 0 || KvH <= 0 || H % KvH || Sq <= 0 || Sk <= 0 || kv_len <= 0 ||
-      kv_len > Sk)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (D) {
-    case 16: return launch_d<T, 16>(q, k, v, o, B, H, KvH, Sq, Sk, strides, scale, causal, window, kv_len, s);
-    case 32: return launch_d<T, 32>(q, k, v, o, B, H, KvH, Sq, Sk, strides, scale, causal, window, kv_len, s);
-    case 64: return launch_d<T, 64>(q, k, v, o, B, H, KvH, Sq, Sk, strides, scale, causal, window, kv_len, s);
-    case 128: return launch_d<T, 128>(q, k, v, o, B, H, KvH, Sq, Sk, strides, scale, causal, window, kv_len, s);
-    case 256: return launch_d<T, 256>(q, k, v, o, B, H, KvH, Sq, Sk, strides, scale, causal, window, kv_len, s);
+// -- bfloat16 on the tensor cores ---------------------------------------------------
+
+template <int D>
+struct WgTile {
+  // warpgroups of 64 query rows: at D 256 one, whose 128 accumulators of O
+  // and the scores then have the registers of a 256-thread block
+  static constexpr int CONSUMERS = D == 256 ? 1 : 2;
+  static constexpr int BQ = 64 * CONSUMERS;           // query rows per block
+  static constexpr int THREADS = 128 * (CONSUMERS + 1);   // and one producer warpgroup
+  static constexpr int BK = D == 256 ? 64 : 128;      // keys per tile
+  static constexpr int STAGES = D == 256 ? 2 : 3;     // (K, V) tiles in the ring
+  static constexpr int SWZ = D >= 64 ? 128 : D * 2;   // bytes of a box row, its swizzle
+  static constexpr int COLS = SWZ / 2;                // head dims a box
+  static constexpr int BOXES = D / COLS;
+  static constexpr int Q_BYTES = BQ * D * 2;
+  static constexpr int KV_BYTES = BK * D * 2;         // K or V of one tile
+  static constexpr int STAGE_BYTES = 2 * KV_BYTES;
+  // slack to align to 1 KB (where a swizzle atom starts), Q, the ring, barriers
+  static constexpr int SMEM = 1024 + Q_BYTES + STAGES * STAGE_BYTES + 64;
+  static_assert(SMEM <= SMEM_LIMIT, "the tiles do not fit a block's shared memory");
+};
+
+// Which dim (1..3) of a tensor map holds the head, the position and the batch:
+// the map orders them by stride.
+struct MapDims {
+  int h, s, b;
+};
+
+__device__ __forceinline__ void tma_load_bhsd(uint32_t dst, const CUtensorMap* map, MapDims md,
+                                              int col, int h, int s, int b, uint32_t bar) {
+  int c[4];
+  c[0] = col;
+  c[md.h] = h;
+  c[md.s] = s;
+  c[md.b] = b;
+  tma_load_4d(dst, map, c[0], c[1], c[2], c[3], bar);
+}
+
+template <int D>
+__global__ void __launch_bounds__(WgTile<D>::THREADS, 1)
+flash_bf16_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv, MapDims mq, MapDims mk, MapDims mv,
+                 __nv_bfloat16* __restrict__ o, Strides os, int group, int Sq, int Sk,
+                 float scale_log2, int causal, int window, int kv_len) {
+  using T = WgTile<D>;
+  constexpr int TK = T::BK, SWZ = T::SWZ, COLS = T::COLS, BQ = T::BQ, STAGES = T::STAGES;
+  extern __shared__ __align__(1024) uint8_t fsm[];
+  const uint32_t base = (smem_u32(fsm) + 1023u) & ~1023u;
+  const uint32_t q_sm = base, ring = base + T::Q_BYTES;
+  const uint32_t q_full = ring + STAGES * T::STAGE_BYTES;
+  const uint32_t full = q_full + 8, empty = full + 8 * STAGES;
+
+  const int wg = threadIdx.x / 128;
+  // last q-blocks first: under a causal mask they have the most tiles
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+  const int h = blockIdx.y, b = blockIdx.z, kvh = h / group;
+  // keys at or past kv_len are masked for every row, so tiles wholly past it
+  // are skipped, as are tiles wholly before every row's window (each row meets
+  // a valid key, which zeroes what they would add)
+  const int kv_end = min(causal ? min(Sk, q0 + BQ) : Sk, kv_len);
+  const int kv_begin = window > 0 ? max(0, q0 - window + 1) / TK * TK : 0;
+  const int tiles = kv_end > kv_begin ? (kv_end - kv_begin + TK - 1) / TK : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 4 * T::CONSUMERS);   // one arrival from each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  return (int)cudaErrorInvalidValue;
+  __syncthreads();
+
+  if (wg == T::CONSUMERS) {
+    // producer: one thread loads Q, then keeps the ring full
+    if constexpr (T::CONSUMERS == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x % 128 == 0) {
+      mbar_expect_tx(q_full, T::Q_BYTES);
+      for (int j = 0; j < T::BOXES; ++j)
+        tma_load_bhsd(q_sm + j * BQ * SWZ, &tq, mq, j * COLS, h, q0, b, q_full);
+      for (int t = 0; t < tiles; ++t) {
+        const int s = t % STAGES;
+        if (t >= STAGES) mbar_wait(empty + 8 * s, ((t / STAGES) - 1) & 1);
+        const uint32_t bar = full + 8 * s;
+        const uint32_t k_sm = ring + s * T::STAGE_BYTES, v_sm = k_sm + T::KV_BYTES;
+        mbar_expect_tx(bar, T::STAGE_BYTES);
+        const int k0 = kv_begin + t * TK;
+        for (int j = 0; j < T::BOXES; ++j) {
+          tma_load_bhsd(k_sm + j * TK * SWZ, &tk, mk, j * COLS, kvh, k0, b, bar);
+          tma_load_bhsd(v_sm + j * TK * SWZ, &tv, mv, j * COLS, kvh, k0, b, bar);
+        }
+      }
+    }
+  } else {
+    // consumer warpgroup wg: query rows q0 + wg*64 .. +63.  Accumulator i of a
+    // thread is row w*16 + l/4 + 8*((i/2)%2), column 8*(i/4) + 2*(l%4) + i%2.
+    if constexpr (T::CONSUMERS == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int t128 = threadIdx.x % 128, w = t128 / 32, l = t128 % 32;
+    const int wq0 = q0 + wg * 64;                    // first row of the warpgroup
+    const int row0 = wq0 + w * 16 + l / 4;           // this thread's rows: row0, row0 + 8
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    float m[2] = {MASKED, MASKED}, lsum[2] = {0.f, 0.f};
+    const uint32_t q_wg = q_sm + wg * 64 * SWZ;
+    mbar_wait(q_full, 0);
+
+    for (int t = 0; t < tiles; ++t) {
+      const int s = t % STAGES;
+      const int k0 = kv_begin + t * TK;
+      const uint32_t k_sm = ring + s * T::STAGE_BYTES, v_sm = k_sm + T::KV_BYTES;
+      mbar_wait(full + 8 * s, (t / STAGES) & 1);
+
+      // S = Q K^T: k16 step kk lies in box kk*16/COLS, 32 bytes a step into its rows
+      float sc[TK / 2];
+#pragma unroll
+      for (int i = 0; i < TK / 2; ++i) sc[i] = 0.f;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t in_box = (kk * 16 / COLS), off = (kk * 16 % COLS) * 2;
+        const uint64_t da = smem_desc(q_wg + in_box * BQ * SWZ + off, 16, 8 * SWZ, SWZ);
+        const uint64_t db = smem_desc(k_sm + in_box * TK * SWZ + off, 16, 8 * SWZ, SWZ);
+        wgmma_ss<TK>(sc, da, db, 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+
+      // scale; masks only where one reaches this tile, as selects against
+      // each row's bounds, relative to this thread's first column k0 + 2*(l%4)
+#pragma unroll
+      for (int i = 0; i < TK / 2; ++i) sc[i] *= scale_log2;
+      if (k0 + TK > kv_len || (causal && k0 + TK - 1 > wq0) ||
+          (window > 0 && k0 <= wq0 + 63 - window)) {
+        const int base_col = k0 + 2 * (l % 4);
+        const int absent = Sk - base_col;
+        int lo[2], hi[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int qpos = row0 + 8 * r;
+          hi[r] = (causal ? min(kv_len - 1, qpos) : kv_len - 1) - base_col;
+          lo[r] = window > 0 ? qpos - window + 1 - base_col : -TK;
+        }
+#pragma unroll
+        for (int i = 0; i < TK / 2; ++i) {
+          const int c = 8 * (i >> 2) + (i & 1), r = (i >> 1) & 1;
+          sc[i] = c >= absent ? ABSENT : (c >= lo[r] && c <= hi[r] ? sc[i] : MASKED);
+        }
+      }
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int i = 0; i < TK / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+      float corr[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        corr[r] = exp2f(m[r] - mx[r]);
+        m[r] = mx[r];
+        lsum[r] *= corr[r];
+      }
+      // P: the f32 fragment of S, rounded to bf16 pairs, is the A fragment of
+      // k16 step kk: a0..a3 = accumulators 8kk + {0,1}, {2,3}, {4,5}, {6,7}
+      uint32_t pa[TK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < TK / 16; ++kk)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int i = kk * 8 + j * 2, r = j & 1;
+          const float p0 = exp2f(sc[i] - m[r]), p1 = exp2f(sc[i + 1] - m[r]);
+          lsum[r] += p0 + p1;
+          __nv_bfloat162 pair = __floats2bfloat162_rn(p0, p1);
+          pa[kk][j] = *reinterpret_cast<uint32_t*>(&pair);
+        }
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
+
+      // O += P V: V is (keys, D), N-major; k16 step kk is 16 rows down, the
+      // boxes of COLS columns lie TK*SWZ bytes apart
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < TK / 16; ++kk)
+        wgmma_rs<D>(acc, pa[kk], smem_desc(v_sm + kk * 16 * SWZ, TK * SWZ, 8 * SWZ, SWZ));
+      wgmma_commit();
+      wgmma_wait_all();
+      if (l == 0) mbar_arrive(empty + 8 * s);
+    }
+
+    __nv_bfloat16* ob = o + b * os.b + h * os.h;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      lsum[r] += __shfl_xor_sync(0xffffffffu, lsum[r], 1);
+      lsum[r] += __shfl_xor_sync(0xffffffffu, lsum[r], 2);
+      const float den = fmaxf(lsum[r], 1e-30f);
+      const int row = row0 + 8 * r;
+      if (row < Sq) {
+        __nv_bfloat16* orow = ob + (long long)row * os.s + 2 * (l % 4);
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j)
+          *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
+              __floats2bfloat162_rn(acc[4 * j + 2 * r] / den, acc[4 * j + 2 * r + 1] / den);
+      }
+    }
+  }
+}
+
+// A tensor map of a (B, heads, S, D) bf16 view with element strides st (batch,
+// head, position), boxes of COLS head dims x `rows` positions: dims 1..3 are
+// head, position and batch in order of their strides.
+bool map_bhsd(CUtensorMap* map, MapDims* md, const void* ptr, int B, int heads, int S, int D,
+              const long long* st, int cols, int rows, int swz) {
+  const long long stride[3] = {st[1], st[2], st[0]}, extent[3] = {heads, S, B};
+  int order[3] = {0, 1, 2};
+  for (int i = 1; i < 3; ++i)
+    for (int j = i; j > 0 && stride[order[j]] < stride[order[j - 1]]; --j) {
+      const int x = order[j];
+      order[j] = order[j - 1];
+      order[j - 1] = x;
+    }
+  long long dims[4] = {D, 0, 0, 0}, bytes[3];
+  int box[4] = {cols, 1, 1, 1}, at[3];
+  for (int i = 0; i < 3; ++i) {
+    const int a = order[i];
+    dims[i + 1] = extent[a];
+    bytes[i] = stride[a] * 2;
+    if (a == 1) box[i + 1] = rows;
+    at[a] = i + 1;
+  }
+  *md = MapDims{at[0], at[1], at[2]};
+  return make_map_4d(map, ptr, dims, bytes, box, swz);
+}
+
+template <int D>
+int launch_bf16_d(const void* q, const void* k, const void* v, void* o, int B, int H, int KvH,
+                  int Sq, int Sk, const long long* st, float scale, int causal, int window,
+                  int kv_len, cudaStream_t stream) {
+  using T = WgTile<D>;
+  CUtensorMap tq, tk, tv;
+  MapDims mq, mk, mv;
+  if (!map_bhsd(&tq, &mq, q, B, H, Sq, D, st, T::COLS, T::BQ, T::SWZ) ||
+      !map_bhsd(&tk, &mk, k, B, KvH, Sk, D, st + 3, T::COLS, T::BK, T::SWZ) ||
+      !map_bhsd(&tv, &mv, v, B, KvH, Sk, D, st + 6, T::COLS, T::BK, T::SWZ))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = flash_bf16_wgmma<D>;
+  static bool attribute_set = false;       // once per instantiation
+  if (!attribute_set) {
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         T::SMEM);
+    if (e != cudaSuccess) return (int)e;
+    attribute_set = true;
+  }
+  const Strides os{st[9], st[10], st[11]};
+  dim3 grid((Sq + T::BQ - 1) / T::BQ, H, B);
+  kernel<<<grid, T::THREADS, T::SMEM, stream>>>(tq, tk, tv, mq, mk, mv, (__nv_bfloat16*)o, os,
+                                                H / KvH, Sq, Sk, scale * LOG2E, causal, window,
+                                                kv_len);
+  return (int)cudaGetLastError();
+}
+
+bool bad_shape(int B, int H, int KvH, int Sq, int Sk, int kv_len) {
+  return B <= 0 || H <= 0 || KvH <= 0 || H % KvH || Sq <= 0 || Sk <= 0 || kv_len <= 0 ||
+         kv_len > Sk;
 }
 
 }  // namespace
 
 // Launchers: q (B,H,Sq,D), k and v (B,KvH,Sk,D), o (B,H,Sq,D), each given by its
 // pointer and its strides in elements over (batch, head, position) — twelve
-// values in `strides`, in the order q, k, v, o — with the head dim contiguous,
-// rows 16-byte aligned. `window` <= 0 means none; keys at positions >= `kv_len`
-// are masked. They launch on `stream` and return cudaGetLastError().
+// values in `strides`, in the order q, k, v, o — with the head dim contiguous.
+// float32: rows 16-byte aligned; bfloat16: q, k, v 16-byte aligned with
+// strides of whole 16 bytes (TMA's rule), o's rows 4-byte aligned.  `window`
+// <= 0 means none; keys at positions >= `kv_len` are masked.  D is 16, 32, 64,
+// 128 or 256.  They launch on `stream` and return cudaGetLastError()
+// (cudaErrorInvalidValue for a shape they do not take).
 extern "C" int launch_flash_attention_f32(const void* q, const void* k, const void* v, void* o,
                                           int B, int H, int KvH, int Sq, int Sk, int D,
                                           const long long* strides, float scale, int causal,
                                           int window, int kv_len, void* stream) {
-  return launch<float>(q, k, v, o, B, H, KvH, Sq, Sk, D, strides, scale, causal, window,
-                       kv_len, stream);
+  if (bad_shape(B, H, KvH, Sq, Sk, kv_len)) return (int)cudaErrorInvalidValue;
+  const float *fq = (const float*)q, *fk = (const float*)k, *fv = (const float*)v;
+  float* fo = (float*)o;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (D) {
+    case 16: return launch_f32_d<16>(fq, fk, fv, fo, B, H, KvH, Sq, Sk, strides, scale, causal, window, kv_len, s);
+    case 32: return launch_f32_d<32>(fq, fk, fv, fo, B, H, KvH, Sq, Sk, strides, scale, causal, window, kv_len, s);
+    case 64: return launch_f32_d<64>(fq, fk, fv, fo, B, H, KvH, Sq, Sk, strides, scale, causal, window, kv_len, s);
+    case 128: return launch_f32_d<128>(fq, fk, fv, fo, B, H, KvH, Sq, Sk, strides, scale, causal, window, kv_len, s);
+    case 256: return launch_f32_d<256>(fq, fk, fv, fo, B, H, KvH, Sq, Sk, strides, scale, causal, window, kv_len, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
-extern "C" int launch_flash_attention_bf16(const void* q, const void* k, const void* v, void* o,
-                                           int B, int H, int KvH, int Sq, int Sk, int D,
-                                           const long long* strides, float scale, int causal,
-                                           int window, int kv_len, void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, o, B, H, KvH, Sq, Sk, D, strides, scale, causal,
-                               window, kv_len, stream);
+extern "C" int launch_flash_attention_bf16_wgmma(const void* q, const void* k, const void* v,
+                                                 void* o, int B, int H, int KvH, int Sq, int Sk,
+                                                 int D, const long long* strides, float scale,
+                                                 int causal, int window, int kv_len,
+                                                 void* stream) {
+  if (bad_shape(B, H, KvH, Sq, Sk, kv_len) || ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16)
+    return (int)cudaErrorInvalidValue;
+  for (int i = 0; i < 9; ++i)
+    if (strides[i] % 8) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (D) {
+    case 16: return launch_bf16_d<16>(q, k, v, o, B, H, KvH, Sq, Sk, strides, scale, causal, window, kv_len, s);
+    case 32: return launch_bf16_d<32>(q, k, v, o, B, H, KvH, Sq, Sk, strides, scale, causal, window, kv_len, s);
+    case 64: return launch_bf16_d<64>(q, k, v, o, B, H, KvH, Sq, Sk, strides, scale, causal, window, kv_len, s);
+    case 128: return launch_bf16_d<128>(q, k, v, o, B, H, KvH, Sq, Sk, strides, scale, causal, window, kv_len, s);
+    case 256: return launch_bf16_d<256>(q, k, v, o, B, H, KvH, Sq, Sk, strides, scale, causal, window, kv_len, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }

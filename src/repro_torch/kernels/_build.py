@@ -17,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -121,10 +122,29 @@ def load_library(stem: str, source: str) -> ctypes.CDLL:
     return finish_build(start_build(stem, source))
 
 
-def csrc_source(filename: str) -> tuple[str, str]:
+# a local header of csrc/, as in: #include "hopper.cuh"
+_LOCAL_INCLUDE = re.compile(r'^[ \t]*#include[ \t]+"([\w.]+\.cuh)"[^\n]*$', re.M)
+_PRAGMA_ONCE = re.compile(r'^[ \t]*#pragma[ \t]+once[^\n]*\n?', re.M)
+
+
+def csrc_source(filename: str, directory: Path = CSRC_DIR) -> tuple[str, str]:
     """``(stem, source text)`` of a hand-written source in ``csrc/``, as
-    ``start_build`` and ``load_library`` take them."""
-    return Path(filename).stem, (CSRC_DIR / filename).read_text()
+    ``start_build`` and ``load_library`` take them.  Each local
+    ``#include "<name>.cuh"`` is replaced by that header's text (once per
+    source), so the text builds on its own in the build directory and its
+    hash covers the headers it uses."""
+    seen: set[str] = set()
+
+    def splice(text: str) -> str:
+        def header(m: re.Match) -> str:
+            name = m.group(1)
+            if name in seen:
+                return ""
+            seen.add(name)
+            return splice(_PRAGMA_ONCE.sub("", (directory / name).read_text()))
+        return _LOCAL_INCLUDE.sub(header, text)
+
+    return Path(filename).stem, splice((directory / filename).read_text())
 
 
 def bind(lib: ctypes.CDLL, symbol: str, argtypes: Sequence) -> ctypes._CFuncPtr:
@@ -136,6 +156,18 @@ def bind(lib: ctypes.CDLL, symbol: str, argtypes: Sequence) -> ctypes._CFuncPtr:
     fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int
     return fn
+
+
+def on_device(device, launcher, *args) -> int:
+    """``launcher(*args, stream)`` with the current stream of ``device`` (a
+    CUDA ``torch.device`` with its index); the device is entered only when it
+    is not already the current one."""
+    import torch
+
+    if device.index == torch.cuda.current_device():
+        return launcher(*args, torch.cuda.current_stream(device).cuda_stream)
+    with torch.cuda.device(device):
+        return launcher(*args, torch.cuda.current_stream(device).cuda_stream)
 
 
 def check_launch(rc: int, what: str) -> None:

@@ -3,17 +3,25 @@
 The Pallas kernel runs a grid (B, H, L/bk) with the cache length sequential
 and the online-softmax state in VMEM scratch, and takes one scalar
 ``length`` for the whole batch.  On the card (``csrc/decode_attention.cu``)
-the cache length is split into chunks of 64 positions: one block per (chunk,
-KV head, lane) reads its K/V rows once for all the query heads of that KV
-head and writes a partial (acc, m, l); a second pass of the same launch
-merges the chunks by log-sum-exp.  ``length`` is a scalar or one int per
-lane — the serving engine refills lanes independently, so each lane has its
-own — and chunks past a lane's length are not read.
+one launch does the whole call: the cache is split into chunks (``split``),
+one block per (chunk, KV head, lane) reads its K/V rows once for all the
+query heads of that KV head and forms a partial (acc, m, l), and the last
+block of each (lane, KV head) merges the partials by log-sum-exp.
+``length`` is a scalar or one int per lane — the serving engine refills
+lanes independently, so each lane has its own — and chunks past a lane's
+length are not read.  bfloat16 runs ``decode_bf16_mma`` (the query heads of
+a KV head as the rows of ``mma.sync`` tiles), float32 ``decode_f32`` (the
+CUDA cores, held to 2e-5).
 
 ``normalize=False`` (``partial_decode_attention``) is the same kernel
 returning the unnormalised accumulator and (m, l), so that sequence shards
 merge with ``merge_partials``, which stays plain tensor math as in the
 reference.
+
+The float32 partials and the per-(lane, KV head) counters live in one
+workspace per device, made once and grown when a call needs more; the
+kernel leaves every counter at 0.  The workspace serves one stream at a
+time (all the port uses): two calls in flight on two streams would share it.
 
 CUDA tensors launch the kernel or raise; CPU tensors take the plain version
 (``ref.decode_attention_ref``).
@@ -22,6 +30,8 @@ CUDA tensors launch the kernel or raise; CPU tensors take the plain version
 from __future__ import annotations
 
 import ctypes
+import functools
+import struct
 from typing import Optional, Union
 
 import torch
@@ -30,25 +40,63 @@ from . import _build
 from .flash_attention import HEAD_DIMS, check_rows
 from .ref import decode_attention_ref
 
-CHUNK = 64          # cache positions per block of the kernel's first pass (checked there)
+CHUNK = 64          # chunks are whole multiples of this many cache positions
+MAX_GROUP = 16      # query heads a KV head: the rows of one mma tile
+SMS = 132           # SMs of an H100 SXM; a call asks its own device
 
 #: kernel launches made by ``decode_attention`` and ``partial_decode_attention``
 launches = 0
+
+#: the kernel each dtype runs
+KERNEL = {torch.float32: "decode_f32", torch.bfloat16: "decode_bf16_mma"}
 
 _SYMBOL = {torch.float32: "launch_decode_attention_f32",
            torch.bfloat16: "launch_decode_attention_bf16"}
 _launchers: dict = {}
 
 
+# the kernel's DecodeArgs, field by field: pointers, strides, ints, the scale
+_POINTERS = ("q", "k", "v", "lengths", "out", "m_out", "l_out", "partials", "counters")
+_STRIDES = ("q_sb", "q_sh", "k_sb", "k_sl", "k_sh", "v_sb", "v_sl", "v_sh")
+_INTS = ("length", "B", "H", "KvH", "L", "D", "chunk", "n_chunks", "normalize")
+ARGS_FIELDS = ([(n, "P") for n in _POINTERS] + [(n, "q") for n in _STRIDES]
+               + [(n, "i") for n in _INTS] + [("scale", "f")])
+_ARGS = struct.Struct("@" + "".join(code for _, code in ARGS_FIELDS))
+
+
 def _launcher(dtype: torch.dtype):
     if dtype not in _launchers:
         lib = _build.load_library(*_build.csrc_source("decode_attention.cu"))
-        _launchers[dtype] = _build.bind(
-            lib, _SYMBOL[dtype],
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p, ctypes.c_float,
-                                                           ctypes.c_int]
-            + [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p])
+        _launchers[dtype] = _build.bind(lib, _SYMBOL[dtype], [ctypes.c_char_p, ctypes.c_void_p])
     return _launchers[dtype]
+
+
+@functools.lru_cache(maxsize=256)
+def split(L: int, pairs: int, D: int, sms: int = SMS) -> tuple[int, int]:
+    """``(chunk, n_chunks)`` for a cache of L positions read by ``pairs``
+    (lane, KV head) pairs: the largest multiple of ``CHUNK`` that still gives
+    every SM a block, within the 64 KB of bfloat16 K and V a block stages
+    (16384 / D positions), and no longer than the cache needs."""
+    cap = max(CHUNK, 16384 // D // CHUNK * CHUNK)
+    chunk = max(CHUNK, L * pairs // sms // CHUNK * CHUNK)
+    chunk = min(chunk, cap, -(-L // CHUNK) * CHUNK)
+    return chunk, -(-L // chunk)
+
+
+_workspaces: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
+_sms: dict[int, int] = {}
+
+
+def _workspace(device: torch.device, n_partials: int, n_counters: int):
+    """(float32 partials, int32 counters) of ``device``, at least this large.
+    Counters are zeroed once, when made; the kernel leaves them at 0."""
+    partials, counters = _workspaces.get(device.index, (None, None))
+    if partials is None or partials.numel() < n_partials:
+        partials = torch.empty(max(n_partials, 1 << 16), dtype=torch.float32, device=device)
+    if counters is None or counters.numel() < n_counters:
+        counters = torch.zeros(max(n_counters, 256), dtype=torch.int32, device=device)
+    _workspaces[device.index] = (partials, counters)
+    return partials, counters
 
 
 def _lengths(length, B: int, device: torch.device) -> tuple[Optional[torch.Tensor], int]:
@@ -56,6 +104,9 @@ def _lengths(length, B: int, device: torch.device) -> tuple[Optional[torch.Tenso
     if isinstance(length, torch.Tensor):
         if length.ndim == 0 and length.device.type == "cpu":
             return None, int(length)
+        if (length.dtype == torch.int32 and length.device == device and length.shape == (B,)
+                and length.stride() == (1,)):
+            return length, 0                 # the engine's own: nothing to convert
         per_lane = torch.broadcast_to(length.to(device=device, dtype=torch.int32), (B,))
         return per_lane.contiguous(), 0
     return None, int(length)
@@ -79,28 +130,30 @@ def _call(q, k, v, length, scale, normalize):
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     if D not in HEAD_DIMS:
         raise ValueError(f"decode_attention: head dim {D} not in {HEAD_DIMS}")
+    if H // KvH > MAX_GROUP:
+        raise ValueError(f"decode_attention: {H // KvH} query heads a KV head; the kernel "
+                         f"takes at most {MAX_GROUP}")
     if not (q.device == k.device == v.device):
         raise ValueError(f"operands on different devices: {q.device}, {k.device}, {v.device}")
     check_rows(q, k, v)
-    per_lane, scalar = _lengths(length, B, q.device)
-    n_chunks = -(-L // CHUNK)
-    f32 = dict(dtype=torch.float32, device=q.device)
-    pacc = torch.empty((n_chunks, B, H, D), **f32)
-    pm = torch.empty((n_chunks, B, H), **f32)
-    pl = torch.empty((n_chunks, B, H), **f32)
-    out = torch.empty((B, H, D), dtype=q.dtype, device=q.device)
-    m = torch.empty((B, H), **f32)
-    l = torch.empty((B, H), **f32)
-    strides = (ctypes.c_longlong * 8)(*q.stride()[:2], *k.stride()[:3], *v.stride()[:3])
+    dev = q.device
+    per_lane, scalar = _lengths(length, B, dev)
+    if dev.index not in _sms:
+        _sms[dev.index] = torch.cuda.get_device_properties(dev).multi_processor_count
+    chunk, n_chunks = split(L, B * KvH, D, _sms[dev.index])
+    partials, counters = _workspace(dev, B * KvH * n_chunks * ((H // KvH) * D + 32), B * KvH)
+    out = torch.empty((B, H, D), dtype=q.dtype, device=dev)
+    m = l = None
+    if not normalize:
+        m, l = torch.empty((2, B, H), dtype=torch.float32, device=dev)
+    args = _ARGS.pack(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      per_lane.data_ptr() if per_lane is not None else 0, out.data_ptr(),
+                      m.data_ptr() if m is not None else 0, l.data_ptr() if l is not None else 0,
+                      partials.data_ptr(), counters.data_ptr(), *q.stride()[:2], *k.stride()[:3],
+                      *v.stride()[:3], scalar, B, H, KvH, L, D, chunk, n_chunks, int(normalize), sc)
     global launches
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = _launcher(q.dtype)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            per_lane.data_ptr() if per_lane is not None else None, scalar,
-            B, H, KvH, L, D, strides, sc, CHUNK, pacc.data_ptr(), pm.data_ptr(), pl.data_ptr(),
-            out.data_ptr(), m.data_ptr(), l.data_ptr(), int(normalize), stream)
-    _build.check_launch(rc, _SYMBOL[q.dtype])
+    rc = _build.on_device(dev, _launcher(q.dtype), args)
+    _build.check_launch(rc, KERNEL[q.dtype])
     launches += 1
     return out if normalize else (out, m, l)
 

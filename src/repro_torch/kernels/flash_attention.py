@@ -2,13 +2,17 @@
 
 The Pallas kernel runs a grid (B, H, Sq/bq, Sk/bk) with the KV dim
 sequential and the online-softmax state in VMEM scratch.  On the card
-(``csrc/flash_attention.cu``) one block of four warps takes 64 query rows of
-one head and loops over tiles of 64 keys, each staged once in shared memory
-for all its rows; the state stays in registers.  Under a causal mask the
-loop stops at the block's diagonal.  The kernel reads any strided layout
-whose head dim is contiguous, so ``ops.mha`` hands it the model's (B,S,H,D)
-tensors as (B,H,S,D) views without copying, and it masks the ragged edges
-itself: Sq and Sk need not tile, and the caller never pads.  Skipping the
+(``csrc/flash_attention.cu``) one block takes a tile of query rows of one
+head and loops over tiles of keys; the state stays in registers.  Under a
+causal mask the loop stops at the block's diagonal.  The kernel depends on
+the dtype alone (``KERNEL``): bfloat16 runs ``flash_bf16_wgmma`` (both
+products on the tensor cores, K/V tiles by TMA into a ring of stages, P in
+registers; its one rounding beyond the Pallas body's is P to bf16 before
+P·V), float32 runs ``flash_f32`` on the CUDA cores (held to 2e-5, which
+TF32 could not meet).  Both read any strided layout whose head dim is
+contiguous, so ``ops.mha`` hands them the model's (B,S,H,D) tensors as
+(B,H,S,D) views without copying, and they mask the ragged edges
+themselves: Sq and Sk need not tile, and the caller never pads.  Skipping the
 tiles outside a block's causal and window bounds is exact only for a row
 that sees at least one key; a row that sees none (possible only under a
 window, from row ``kv_len + window - 1`` on) would average V over whatever
@@ -35,8 +39,11 @@ HEAD_DIMS = (16, 32, 64, 128, 256)
 #: its path, and reads it to show the path used the kernel)
 launches = 0
 
+#: the kernel each dtype runs (no other is tried: a call it refuses raises)
+KERNEL = {torch.float32: "flash_f32", torch.bfloat16: "flash_bf16_wgmma"}
+
 _SYMBOL = {torch.float32: "launch_flash_attention_f32",
-           torch.bfloat16: "launch_flash_attention_bf16"}
+           torch.bfloat16: "launch_flash_attention_bf16_wgmma"}
 _launchers: dict = {}
 
 
@@ -51,11 +58,15 @@ def _launcher(dtype: torch.dtype):
 
 
 def check_rows(*tensors: torch.Tensor) -> None:
-    """The kernels read rows of 4 elements at a time: the last dim must be
-    contiguous, every other stride a multiple of 4 elements, and the data
+    """The kernels read rows 16 bytes at a time: the last dim must be
+    contiguous, every other stride a whole number of 16 bytes, and the data
     16-byte aligned."""
     for t in tensors:
-        if t.stride(-1) != 1 or any(s % 4 for s in t.stride()[:-1]) or t.data_ptr() % 16:
+        *outer, last = t.stride()
+        bits = 0
+        for s in outer:                     # a power of two divides each iff it divides their OR
+            bits |= s
+        if last != 1 or bits % (16 // t.element_size()) or t.data_ptr() % 16:
             raise ValueError(f"rows of a {tuple(t.shape)} tensor with strides {t.stride()} "
                              "are not contiguous and 16-byte aligned")
 
@@ -85,7 +96,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         # row q sees keys (q - window, min(q, kv_len - 1)]: none once q >= kv_len + window - 1
         raise ValueError(f"flash_attention: with window={window} and kv_len={n_keys}, query "
                          f"rows {n_keys + window - 1}..{Sq - 1} see no key")
-    sc =scale if scale is not None else D ** -0.5
+    sc = scale if scale is not None else D ** -0.5
     if q.device.type != "cuda":
         return flash_attention_ref(q, k, v, causal=causal, window=window, scale=sc,
                                    kv_len=kv_len)
@@ -98,13 +109,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"operands on different devices: {q.device}, {k.device}, {v.device}")
     check_rows(q, k, v)
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device).transpose(1, 2)
-    strides = (ctypes.c_longlong * 12)(*[s for t in (q, k, v, out) for s in t.stride()[:3]])
+    strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                                       *out.stride()[:3])
     global launches
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = _launcher(q.dtype)(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                B, H, KvH, Sq, Sk, D, strides, sc, int(causal),
-                                window or 0, kv_len or Sk, stream)
-    _build.check_launch(rc, _SYMBOL[q.dtype])
+    rc = _build.on_device(q.device, _launcher(q.dtype), q.data_ptr(), k.data_ptr(),
+                          v.data_ptr(), out.data_ptr(), B, H, KvH, Sq, Sk, D, strides, sc,
+                          int(causal), window or 0, kv_len or Sk)
+    _build.check_launch(rc, KERNEL[q.dtype])
     launches += 1
     return out

@@ -171,10 +171,8 @@ def matmul(x: torch.Tensor, y: torch.Tensor, *, bm: int = 128, bn: int = 128,
     extra = (s["stages"], s["wgmma_n"]) if x.dtype == torch.bfloat16 else (s["micro"], s["slab"])
     x, y = x.contiguous(), y.contiguous()
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = _launcher(x.dtype)(x.data_ptr(), y.data_ptr(), out.data_ptr(),
-                                M, N, K, bm, bn, bk, *extra, stream)
+    rc = _build.on_device(x.device, _launcher(x.dtype), x.data_ptr(), y.data_ptr(),
+                          out.data_ptr(), M, N, K, bm, bn, bk, *extra)
     _build.check_launch(rc, _SYMBOL[x.dtype])
     launches += 1
     return out

@@ -54,9 +54,8 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     h = torch.empty((B, S, D), dtype=a.dtype, device=a.device)
     strides = (ctypes.c_longlong * 6)(*a.stride()[:2], *b.stride()[:2], *h.stride()[:2])
     global launches
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        rc = _launcher()(a.data_ptr(), b.data_ptr(), h.data_ptr(), B, S, D, strides, stream)
+    rc = _build.on_device(a.device, _launcher(), a.data_ptr(), b.data_ptr(), h.data_ptr(),
+                          B, S, D, strides)
     _build.check_launch(rc, _SYMBOL)
     launches += 1
     return h

@@ -70,10 +70,8 @@ def ssd_scan(x: torch.Tensor, dA: torch.Tensor, Bc: torch.Tensor, Cc: torch.Tens
     strides = (ctypes.c_longlong * 13)(*x.stride()[:3], *dA.stride(), *Bc.stride()[:2],
                                        *Cc.stride()[:2], *y.stride()[:3])
     global launches
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = _launcher()(x.data_ptr(), dA.data_ptr(), Bc.data_ptr(), Cc.data_ptr(),
-                         y.data_ptr(), B, H, S, P, N, chunk, strides, stream)
+    rc = _build.on_device(x.device, _launcher(), x.data_ptr(), dA.data_ptr(), Bc.data_ptr(),
+                          Cc.data_ptr(), y.data_ptr(), B, H, S, P, N, chunk, strides)
     _build.check_launch(rc, _SYMBOL)
     launches += 1
     return y

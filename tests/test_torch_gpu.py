@@ -603,3 +603,148 @@ def test_recurrent_model_on_card_equals_the_cpu(arch):
         if where == "card":
             assert dec.launches - before_dec == kinds.count("local_attn") * eng.decode_calls
     assert done["card"] == done["cpu"]
+
+
+# -- the Hopper designs of K3 (bf16 on wgmma) and K4 (one split-KV launch) ----------
+
+# (B, Sq, Sk, H, KvH, D, causal, window, kv_len): every head dim, Sq and Sk off
+# the tiles (128 query rows, 128 keys; 64 at D 256), GQA groups 1/2/8/16,
+# windows that start mid-tile, kv_len short of Sk
+FLASH_WGMMA_CASES = [
+    (2, 100, 100, 4, 4, 16, True, None, None),
+    (1, 64, 64, 2, 2, 16, False, None, 40),
+    (2, 130, 200, 4, 2, 32, True, 50, None),
+    (1, 300, 300, 8, 1, 64, True, 77, None),
+    (2, 1000, 1024, 32, 4, 64, True, None, 1000),
+    (2, 257, 257, 16, 1, 128, True, None, 200),
+    (1, 190, 190, 4, 2, 128, False, None, None),
+    (1, 300, 300, 16, 1, 256, True, 100, None),
+    (2, 129, 129, 8, 2, 256, True, None, None),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["model view", "contiguous"])
+@pytest.mark.parametrize("B,Sq,Sk,H,KvH,D,causal,window,kv_len", FLASH_WGMMA_CASES)
+def test_flash_bf16_wgmma_matches_plain_on_card(B, Sq, Sk, H, KvH, D, causal, window, kv_len,
+                                               layout):
+    """bf16 runs the wgmma kernel at every head dim, held to the reference
+    tests' tolerance; on (B,H,S,D) views of (B,S,H,D) tensors, as ops.mha
+    passes them, and on contiguous (B,H,S,D) tensors."""
+    dev = _cuda_or_skip()
+    q, k, v = _on(dev, "bfloat16", *attention_operands((B, Sq, H, D), (B, Sk, KvH, D),
+                                                       "bfloat16", seed=D + Sq))
+    q, k, v = (x.transpose(1, 2) for x in (q, k, v))
+    if layout == "contiguous":
+        q, k, v = (x.contiguous() for x in (q, k, v))
+    assert fa.KERNEL[torch.bfloat16] == "flash_bf16_wgmma"
+    before = fa.launches
+    got = fa.flash_attention(q, k, v, causal=causal, window=window, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1 and got.shape == q.shape and got.dtype == torch.bfloat16
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window, kv_len=kv_len)
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                               **tol("bfloat16"))
+
+
+@pytest.mark.gpu
+def test_flash_bf16_refuses_rows_tma_cannot_read_on_card():
+    """TMA reads whole 16 bytes: a bf16 row stride of 68 elements is refused
+    with a ValueError and nothing runs, neither the kernel nor the plain
+    version."""
+    dev = _cuda_or_skip()
+    wide = torch.zeros((1, 2, 64, 68), device=dev, dtype=torch.bfloat16)[..., :64]
+    before = fa.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_attention(wide, wide, wide)
+    assert fa.launches == before
+
+
+# (H, KvH, D): groups 1, 2, 8 and 16, every head dim
+DECODE_SPLIT_CASES = [(4, 4, 16), (8, 4, 32), (16, 2, 64), (32, 4, 64), (16, 1, 128),
+                      (16, 1, 256), (6, 3, 256)]
+
+
+def _split_lengths(L, chunk):
+    """One lane per length of interest: 0, 1, chunk - 1, chunk, chunk + 1, L."""
+    return torch.tensor([0, 1, chunk - 1, chunk, chunk + 1, L], dtype=torch.int32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("H,KvH,D", DECODE_SPLIT_CASES)
+def test_decode_one_launch_per_lane_lengths_on_card(H, KvH, D, dtype):
+    """One launch a call, normalised and not, against the plain version at
+    lengths around a chunk's edges (and 0, whose weights are uniform)."""
+    dev = _cuda_or_skip()
+    B, L = 6, 700
+    q, k, v = _on(dev, dtype, *attention_operands((B, H, D), (B, L, KvH, D), dtype, seed=D))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    chunk, n_chunks = dec.split(L, B * KvH, D, sms)
+    assert n_chunks > 1
+    n = _split_lengths(L, chunk).to(dev)
+    before = dec.launches
+    got = ops.decode(q, k, v, n)
+    acc, m, l = ops.decode_partial(q, k, v, n)
+    torch.cuda.synchronize()
+    assert dec.launches == before + 2
+    want = ref.decode_attention_ref(q, k, v, n)
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(), **tol(dtype))
+    for g, w in zip((acc, m, l), ref.decode_attention_ref(q, k, v, n, normalize=False)):
+        np.testing.assert_allclose(g.float().cpu().numpy(), w.float().cpu().numpy(), **tol(dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_decode_workspace_grows_and_stays_right_on_card(dtype):
+    """Calls of different shapes back to back: a small one, one that needs a
+    larger workspace (more lanes, KV heads and chunks), the small one again."""
+    dev = _cuda_or_skip()
+    shapes = [(2, 128, 8, 2, 64), (8, 4096, 16, 8, 64), (2, 128, 8, 2, 64), (3, 2000, 16, 1, 256)]
+    for i, (B, L, H, KvH, D) in enumerate(shapes):
+        q, k, v = _on(dev, dtype, *attention_operands((B, H, D), (B, L, KvH, D), dtype, seed=i))
+        n = torch.tensor([L // (b + 1) for b in range(B)], dtype=torch.int32, device=dev)
+        got = ops.decode(q, k, v, n)
+        want = ref.decode_attention_ref(q, k, v, n)
+        np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                                   **tol(dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_decode_attention_graph_replay_equals_eager_on_card(dtype):
+    """A K4 call captured in a CUDA graph and replayed three times gives the
+    eager result each time: the merging blocks leave their counters at 0."""
+    dev = _cuda_or_skip()
+    B, L, H, KvH, D = 4, 1024, 32, 4, 64
+    q, k, v = _on(dev, dtype, *attention_operands((B, H, D), (B, L, KvH, D), dtype, seed=9))
+    n = torch.tensor([1, 100, 513, 1024], dtype=torch.int32, device=dev)
+    eager = ops.decode(q, k, v, n).clone()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(stream):
+        ops.decode(q, k, v, n)                   # warm-up on the capturing stream
+        with torch.cuda.graph(graph, stream=stream):
+            out = ops.decode(q, k, v, n)
+    torch.cuda.current_stream().wait_stream(stream)
+    for _ in range(3):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+    _, counters = dec._workspaces[q.device.index]
+    assert int(counters.abs().sum()) == 0
+
+
+@pytest.mark.gpu
+def test_decode_refuses_more_heads_a_kv_head_than_a_tile_on_card():
+    """32 query heads over one KV head is more than the 16 rows of the mma
+    tile: a ValueError, and neither the kernel nor the plain version runs."""
+    dev = _cuda_or_skip()
+    q = torch.zeros((1, 32, 64), device=dev, dtype=torch.bfloat16)
+    kv = torch.zeros((1, 128, 1, 64), device=dev, dtype=torch.bfloat16)
+    before = dec.launches
+    with pytest.raises(ValueError, match="at most 16"):
+        ops.decode(q, kv, kv, 100)
+    assert dec.launches == before

@@ -33,7 +33,14 @@ carries that count, and the rows of further checks nested under it carry
 and carry ``device_ms`` and ``library_device_ms`` beside the CUDA-event
 ``ms``: one replay of a CUDA graph of 20 calls over 20, the device's time
 without the host's (``null`` with the reason where a call cannot be
-captured).  Output: one JSON object per line (``env``,
+captured).  The K5 rows (the SSD scan, several kernels a call) carry
+``device_ms`` alike, each kernel's device time and launches a call and
+their sum (``stage_device_ms``, ``stage_launches_per_call``,
+``cuda_launches_per_call``, counted in a ``torch.profiler`` trace), the error
+against the float64 recurrence over its limit (``worst_over_tolerance``) and
+a bound for products on the TF32 tensor cores in three passes; the prefill
+row adds each kernel's registers
+and spills (``tools/ptxas_usage.py``).  Output: one JSON object per line (``env``,
 ``build``, ``k1_without_staging``, ``main_path``, then ``serve``, ``prefill``,
 ``consistency`` and ``profile`` for each model, ``kernels``), the card's
 name and power limit as ``nvidia-smi`` gives them, and a last line
@@ -85,6 +92,8 @@ SAMPLED_LANES = (0, 1, LANES // 2, LANES - 1)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12,        # float32 outside the tensor cores
               torch.bfloat16: 989e12}      # bf16 tensor cores
+# K5's products run on the TF32 tensor cores (494.7 TFLOP/s) in three passes
+TF32X3_FLOPS = 494.7e12 / 3
 
 # design, keyword sizes: the gallery's default (paper) size, then a larger one
 DESIGNS = [
@@ -557,8 +566,10 @@ def check_close(what: str, got, want, dtype, tol=None) -> float:
     return float(diff.max())
 
 
-def bound(flops: float, nbytes: float, dtype) -> tuple[float, str]:
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / HBM_BYTES_PER_S
+def bound(flops: float, nbytes: float, dtype, rate=None) -> tuple[float, str]:
+    """(ms, what bounds it): the larger of the operations at ``rate`` (the
+    dtype's peak unless given) and the bytes at the memory's rate."""
+    t_ops, t_bytes = flops / (rate or PEAK_FLOPS[dtype]), nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -624,6 +635,7 @@ def phase_kernels_k3(device) -> list[dict]:
         k3_case("ragged", 4, 1000, 1024, H, KvH, D, BF16, device, g, kv_len=1000),
         k3_case("window", 4, 1024, 1024, H, 1, D, BF16, device, g, window=256),
         k3_case("float32", 2, 512, 512, H, KvH, 128, F32, device, g),
+        k3_case("C4: head dim 80, padded to 128", 2, 512, 512, H, KvH, 80, BF16, device, g),
     ]
     return rows
 
@@ -651,14 +663,15 @@ def k4_case(case: str, B, L, H, KvH, D, dtype, lengths, device, g) -> dict:
     bound_ms, bound_by = bound(4.0 * H * D * rows_read,
                                (2 * B * H * D + 2 * rows_read * KvH * D) * es, dtype)
     kernel = lambda: ops.decode(q, k, v, n)
-    chunk, n_chunks = dec.split(L, B * KvH, D, torch.cuda.get_device_properties(device)
+    groups = B * dec.groups(H, KvH)
+    chunk, n_chunks = dec.split(L, groups, D, torch.cuda.get_device_properties(device)
                                 .multi_processor_count)
     return {
         "name": name, "route": "cuda", "source": "src/repro_torch/csrc/decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention.py:73", "kernel": dec.KERNEL[dtype],
         "shape": {"B": B, "L": L, "H": H, "KvH": KvH, "D": D, "dtype": dtype_name(dtype),
                   "length": lengths},
-        "split": {"chunk": chunk, "chunks": n_chunks, "blocks": n_chunks * B * KvH},
+        "split": {"chunk": chunk, "chunks": n_chunks, "blocks": n_chunks * groups},
         "launches": None, "max_abs_err": err, "tolerance": f"{ATTN_TOL[dtype]} + {ATTN_TOL[dtype]}*|plain|",
         "ms": time_ms(kernel, 50),
         "plain_ms": time_ms(lambda: ref.decode_attention_ref(q, k, v, n), 20),
@@ -710,6 +723,8 @@ def phase_kernels_k4(device) -> list[dict]:
                     [CONSIST_S] * CONSIST_B, device, g)]
     rows[0]["checks"] = [k4_case("serve float32", SLOTS, MAX_LEN, H, KvH, D, F32, lanes, device, g),
                          k4_case("scalar length", SLOTS, MAX_LEN, H, KvH, D, BF16, 700, device, g),
+                         k4_case("C4: 32 query heads a KV head", SLOTS, MAX_LEN, 32, 1, D, BF16,
+                                 lanes, device, g),
                          partial_merge_check(device, g)]
     return rows
 
@@ -767,25 +782,77 @@ def k5_case(case: str, B, S, H, P, N, Q, device, g, rates=(0.01, 0.5)) -> dict:
     x = seeded((B, S, H, P), F32, device, g)
     dA = -(torch.rand((B, S, H), generator=g) * (hi - lo) + lo).to(device)
     Bc, Cc = (seeded((B, S, N), F32, device, g) for _ in range(2))
+    before = ssd_k.launches
     got = ops.ssd_scan(x, dA, Bc, Cc, chunk=Q)
     torch.cuda.synchronize()
+    if ssd_k.launches != before + 1:
+        fail(f"ssd_scan counted {ssd_k.launches - before} launches for one call")
     want, _ = ref.ssd_scan_ref(*(t.double() for t in (x, dA, Bc, Cc)))
     name = f"ssd_scan[{case} {B}x{S} H{H} P{P} N{N} Q{Q} float32]"
     err = check_close(name, got, want, F32, SCAN_TOL)
+    diff = (got.double() - want).abs()
     nbytes = (2 * B * S * H * P + B * S * H + 2 * B * S * N) * 4
-    bound_ms, bound_by = bound(ssd_flops(B, S, H, P, N, min(Q, S)), nbytes, F32)
+    flops = ssd_flops(B, S, H, P, N, min(Q, S))
+    bound_ms, bound_by = bound(flops, nbytes, F32, TF32X3_FLOPS)
+    kernel = lambda: ops.ssd_scan(x, dA, Bc, Cc, chunk=Q)
+    device_ms, why = graph_ms(kernel)
     return {
         "name": name, "route": "cuda", "source": "src/repro_torch/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:71",
         "shape": {"B": B, "S": S, "H": H, "P": P, "N": N, "chunk": Q, "dtype": "float32",
                   "decay_logs": [-hi, -lo]},
-        "launches": None, "max_abs_err": err, "max_abs_y": float(want.abs().max()),
-        "tolerance": f"{SCAN_TOL} + {SCAN_TOL}*|plain|",
-        "ms": time_ms(lambda: ops.ssd_scan(x, dA, Bc, Cc, chunk=Q), 10),
+        "launches": None,
+        "max_abs_err": err, "max_abs_y": float(want.abs().max()),
+        "worst_over_tolerance": float((diff / (SCAN_TOL + SCAN_TOL * want.abs())).max()),
+        "tolerance": f"{SCAN_TOL} + {SCAN_TOL}*|plain| (plain in float64)",
+        "ms": time_ms(kernel, 10),
+        "device_ms": device_ms, **({"device_ms_note": why} if why else {}),
+        **stage_profile(kernel),
         "plain_ms": time_ms(lambda: ref.ssd_scan_ref(x, dA, Bc, Cc), 2),
         "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None,                    # no one PyTorch call computes the scan
     }
+
+
+def stage_profile(fn, calls: int = 5) -> dict:
+    """K5's kernels as ``torch.profiler`` traces ``calls`` calls: each
+    kernel's device time and launches a call, and the launches a call in all
+    (``cuda_launches_per_call``).  The traced calls follow a step of as many
+    calls that the profiler runs and discards (its warm-up), since the first
+    kernels after tracing starts may be missed.  A kernel the calls did not
+    launch is left out of the times, and every number is ``not measured``
+    where the trace holds no device time."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for _ in range(2):
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    times = {stage: 0.0 for stage in ssd_k.STAGES}
+    counts = {stage: 0 for stage in ssd_k.STAGES}
+    for e in prof.key_averages():
+        for stage in ssd_k.STAGES:
+            if stage in e.key and e.self_device_time_total > 0:
+                times[stage] += e.self_device_time_total / calls / 1e3
+                counts[stage] += e.count
+    if not any(counts.values()):
+        return {"stage_device_ms": "not measured", "stage_launches_per_call": "not measured",
+                "cuda_launches_per_call": "not measured"}
+    return {"stage_device_ms": {k: v for k, v in times.items() if counts[k]},
+            "stage_launches_per_call": {k: n / calls for k, n in counts.items()},
+            "cuda_launches_per_call": sum(counts.values()) / calls}
+
+
+def ptxas_rows(source: str) -> list[dict]:
+    """Registers and spills of each kernel of a source (``tools/ptxas_usage.py``)."""
+    from tools.ptxas_usage import usage
+
+    return [{"kernel": r["kernel"].split("(")[0].split("::")[-1], "registers": r["registers"],
+             "spill_stores": r["spill_stores"], "spill_loads": r["spill_loads"]}
+            for r in usage(source)]
 
 
 def ssd_model_core_check(device, g) -> dict:
@@ -821,6 +888,11 @@ def phase_kernels_k5(device) -> list[dict]:
     Q = cfg.ssd.chunk
     rows = [k5_case("prefill", *PREFILL[MAMBA], H, P, N, Q, device, g),
             k5_case("consistency", *CONSIST[MAMBA], H, P, N, Q, device, g)]
+    per_call = rows[0]["cuda_launches_per_call"]
+    if per_call != "not measured" and per_call != ssd_k.CUDA_LAUNCHES_PER_CALL:
+        fail(f"{rows[0]['name']}: the trace counts {per_call} kernels a call, expected "
+             f"{ssd_k.CUDA_LAUNCHES_PER_CALL} ({', '.join(ssd_k.STAGES)})")
+    rows[0]["ptxas"] = ptxas_rows("ssd_scan.cu")
     slow = (0.001, 0.02)        # Mamba-2's dt of 1e-3..1e-1: every tile and the state count
     rows[0]["checks"] = [
         k5_case("ragged", PREFILL[MAMBA][0], 2000, H, P, N, Q, device, g),
@@ -829,7 +901,8 @@ def phase_kernels_k5(device) -> list[dict]:
                 rates=slow),
     ] + [
         k5_case("test_ssd_scan", 2, S, h, p, n, q, device, g)
-        for S, h, p, n, q in [(64, 2, 16, 16, 16), (100, 1, 32, 16, 32), (128, 3, 8, 8, 128)]
+        for S, h, p, n, q in [(64, 2, 16, 16, 16), (100, 1, 32, 16, 32), (128, 3, 8, 8, 128),
+                              (77, 3, 24, 20, 8), (300, 2, 72, 12, 64)]
     ] + [ssd_model_core_check(device, g)]
     return rows
 

@@ -15,22 +15,24 @@
 //
 // Design: one launch a call.  The cache is split into chunks of `chunk`
 // positions (a multiple of 64 the wrapper picks from L and the SM count, so
-// that the grid fills the card at a few lanes); one block per (chunk, KV head,
-// lane) reads the chunk's K and V rows once for all G = H/KvH query heads of
-// that KV head (never replicated) and forms a partial (acc, m, l) per head.
+// that the grid fills the card at a few lanes); one block per (chunk, group,
+// lane) reads the chunk's K and V rows once for the query heads of its group
+// (never replicated) and forms a partial (acc, m, l) per head.  A group is
+// the G = H/KvH query heads of one KV head, or, where G is above 16, a tile of
+// 16 of them (ceil(G/16) groups a KV head, each reading the rows again).
 // Chunks at or past a lane's length exit at once and rows past it are not
 // read (their weight exp(-1e30 - m) is 0).  A lane with length 0 masks every
 // position at -1e30, so its weights are uniform over the cache, as in the
 // Pallas body.  A chunk that is a lane's only one writes the output itself;
 // otherwise each block stores its partial in a float32 workspace, fences, and
-// counts itself in an atomic counter per (lane, KV head); the last block to
+// counts itself in an atomic counter per (lane, group); the last block to
 // arrive merges the partials by log-sum-exp (as `merge_partials` does),
 // writes the output, and sets the counter back to 0 for the next call (or
 // the next replay of a CUDA graph).
 //
 // bfloat16 (`decode_bf16_mma`): K and V arrive in shared memory as bf16 by
-// cp.async, 16 bytes a thread, never widened.  The G heads of a KV head are
-// the rows of an m16n8k16 `mma.sync` tile (padded to 16 rows with zeros):
+// cp.async, 16 bytes a thread, never widened.  The heads of a group are the
+// rows of an m16n8k16 `mma.sync` tile (padded to 16 rows with zeros):
 // each warp takes 16 positions at a time, S = Q K^T from ldmatrix fragments,
 // an online softmax over its positions with row statistics reduced over the
 // 4 threads of a row, P rounded to bf16 in registers as the A fragment of
@@ -47,7 +49,7 @@ namespace {
 
 constexpr int WARPS = 4;
 constexpr int THREADS = WARPS * 32;
-constexpr int MAX_G = 16;          // query heads a KV head: the rows of one mma tile
+constexpr int MAX_G = 16;          // query heads a group: the rows of one mma tile
 constexpr float MASKED = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 #define ABSENT __int_as_float(0xff800000u)  // -inf: a position past the cache, weight 0
@@ -63,8 +65,8 @@ struct DecodeArgs {
   void* out;                       // (B,H,D) contiguous, in the inputs' type
   float* m_out;                    // (B,H) with normalize = 0, else unused
   float* l_out;
-  float* partials;                 // workspace: (B*KvH, n_chunks, G*D + 32) float32
-  int* counters;                   // workspace: B*KvH int32, 0 between calls
+  float* partials;                 // workspace: (groups, n_chunks, min(G, 16)*D + 32) float32
+  int* counters;                   // workspace: one int32 a group, 0 between calls
   long long q_sb, q_sh;            // strides in elements; the head dim is contiguous
   long long k_sb, k_sl, k_sh;
   long long v_sb, v_sl, v_sh;
@@ -73,6 +75,17 @@ struct DecodeArgs {
 };
 
 namespace {
+
+// The query heads a block takes: a tile of at most MAX_G of the G = H/KvH heads
+// of one KV head (blockIdx.y = KV head * tiles + tile).
+struct Group {
+  int kvh, g0, n;                  // KV head, its first query head in the tile, heads in it
+};
+__device__ __forceinline__ Group group_of(const DecodeArgs& a) {
+  const int G = a.H / a.KvH, tiles = (G + MAX_G - 1) / MAX_G;
+  const int kvh = blockIdx.y / tiles, g0 = blockIdx.y % tiles * MAX_G;
+  return {kvh, g0, min(MAX_G, G - g0)};
+}
 
 __host__ __device__ __forceinline__ int active_chunks(int n, int L, int chunk, int n_chunks) {
   return n > 0 ? min((min(n, L) + chunk - 1) / chunk, n_chunks) : n_chunks;
@@ -105,17 +118,20 @@ __device__ __forceinline__ void write_out(const DecodeArgs& a, size_t bh, int d,
 }
 
 // The block's partial from NSUB partials in shared memory (sub_m, sub_l
-// (NSUB, 16); sub_acc (NSUB, 16, D)); then the output, directly when the
-// chunk is the lane's only one, else by the last block of the (lane, KV head)
-// from the workspace, where a chunk's partial is acc (G, D) then m and l, 16
-// slots each.  `wgt` has room for 2 * n_chunks * 16 + 32 floats.
+// (NSUB, 16); sub_acc (NSUB, 16, D)) of the G heads of its group; then the
+// output, directly when the chunk is the lane's only one, else by the last
+// block of the (lane, group) from the workspace, where a chunk's partial is
+// acc (min(H/KvH, 16), D) then m and l, 16 slots each.  `wgt` has room for
+// 2 * n_chunks * 16 + 32 floats.
 template <typename T, int D, int NSUB>
-__device__ void finish(const DecodeArgs& a, int G, int active, const float* sub_m,
+__device__ void finish(const DecodeArgs& a, const Group& grp, int active, const float* sub_m,
                        const float* sub_l, const float* sub_acc, float* wgt) {
   __shared__ int last;
-  const int c = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
-  const int pair = b * a.KvH + kvh;
-  const size_t PART = (size_t)G * D + 32, head0 = (size_t)b * a.H + (size_t)kvh * G;
+  const int c = blockIdx.x, b = blockIdx.z, tid = threadIdx.x, G = grp.n;
+  const int pair = b * gridDim.y + blockIdx.y;
+  const int heads = a.H / a.KvH;
+  const size_t PART = (size_t)min(heads, MAX_G) * D + 32;
+  const size_t head0 = (size_t)b * a.H + (size_t)grp.kvh * heads + grp.g0;
   float* const base = a.partials + (size_t)pair * a.n_chunks * PART;
   const bool alone = active == 1;
   for (int e = tid; e < G * D; e += THREADS) {
@@ -224,9 +240,10 @@ __global__ void __launch_bounds__(THREADS)
 decode_bf16_mma(const DecodeArgs a) {
   constexpr int DP = D + 8;                // padded row: ldmatrix reads free of conflicts
   extern __shared__ __align__(16) uint8_t dsm[];
-  const int C = a.chunk, c = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int C = a.chunk, c = blockIdx.x, b = blockIdx.z;
   const int tid = threadIdx.x, w = tid / 32, l = tid % 32;
-  const int G = a.H / a.KvH;
+  const Group grp = group_of(a);
+  const int G = grp.n, kvh = grp.kvh;
   const int n = a.lengths ? a.lengths[b] : a.length;
   const int active = active_chunks(n, a.L, C, a.n_chunks);
   if (c >= active) return;
@@ -234,7 +251,7 @@ decode_bf16_mma(const DecodeArgs a) {
   __nv_bfloat16* ks = qs + 16 * DP;
   __nv_bfloat16* vs = ks + C * DP;
   const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q) + b * a.q_sb +
-                           (long long)kvh * G * a.q_sh;
+                           (long long)(kvh * (a.H / a.KvH) + grp.g0) * a.q_sh;
   const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(a.k) + b * a.k_sb + kvh * a.k_sh;
   const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(a.v) + b * a.v_sb + kvh * a.v_sh;
 
@@ -348,7 +365,7 @@ decode_bf16_mma(const DecodeArgs a) {
   __syncthreads();
   const size_t kv = (size_t)2 * C * DP * 2, subs = (size_t)WARPS * 16 * (D + 2) * 4;
   float* wgt = reinterpret_cast<float*>(dsm + 16 * DP * 2 + (kv > subs ? kv : subs));
-  finish<__nv_bfloat16, D, WARPS>(a, G, active, sub_m, sub_l, sub_acc, wgt);
+  finish<__nv_bfloat16, D, WARPS>(a, grp, active, sub_m, sub_l, sub_acc, wgt);
 }
 
 // -- float32 on the CUDA cores ----------------------------------------------------
@@ -368,9 +385,10 @@ decode_f32(const DecodeArgs a) {
   constexpr int TEAM = D / 4 < 32 ? D / 4 : 32;    // lanes that share a score, 4 dims each
   constexpr int PER_WARP = 32 / TEAM;               // positions a warp scores at once
   extern __shared__ __align__(16) float fsm[];
-  const int C = a.chunk, c = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int C = a.chunk, c = blockIdx.x, b = blockIdx.z;
   const int tid = threadIdx.x, w = tid / 32, l = tid % 32;
-  const int G = a.H / a.KvH;
+  const Group grp = group_of(a);
+  const int G = grp.n, kvh = grp.kvh;
   const int n = a.lengths ? a.lengths[b] : a.length;
   const int active = active_chunks(n, a.L, C, a.n_chunks);
   if (c >= active) return;
@@ -382,7 +400,8 @@ decode_f32(const DecodeArgs a) {
   float* sub_l = sub_m + 16;
   float* sub_acc = sub_l + 16;
   float* wgt = sub_acc + 16 * D;
-  const float* q = static_cast<const float*>(a.q) + b * a.q_sb + (long long)kvh * G * a.q_sh;
+  const float* q = static_cast<const float*>(a.q) + b * a.q_sb +
+                   (long long)(kvh * (a.H / a.KvH) + grp.g0) * a.q_sh;
   const float* k = static_cast<const float*>(a.k) + b * a.k_sb + kvh * a.k_sh;
   const float* v = static_cast<const float*>(a.v) + b * a.v_sb + kvh * a.v_sh;
 
@@ -494,7 +513,7 @@ decode_f32(const DecodeArgs a) {
     }
   }
   __syncthreads();
-  finish<float, D, 1>(a, G, active, sub_m, sub_l, sub_acc, wgt);
+  finish<float, D, 1>(a, grp, active, sub_m, sub_l, sub_acc, wgt);
 }
 
 template <typename T, int D>
@@ -510,15 +529,15 @@ int launch_d(const DecodeArgs& a, cudaStream_t stream) {
     if (e != cudaSuccess) return (int)e;
     attribute = smem;
   }
-  kernel<<<dim3(a.n_chunks, a.KvH, a.B), THREADS, smem, stream>>>(a);
+  const int tiles = (a.H / a.KvH + MAX_G - 1) / MAX_G;
+  kernel<<<dim3(a.n_chunks, a.KvH * tiles, a.B), THREADS, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch(const DecodeArgs* a, void* stream) {
-  if (a->B <= 0 || a->H <= 0 || a->KvH <= 0 || a->H % a->KvH || a->H / a->KvH > MAX_G ||
-      a->L <= 0 || a->chunk <= 0 || a->chunk % 64 ||
-      a->n_chunks != (a->L + a->chunk - 1) / a->chunk)
+  if (a->B <= 0 || a->H <= 0 || a->KvH <= 0 || a->H % a->KvH || a->L <= 0 || a->chunk <= 0 ||
+      a->chunk % 64 || a->n_chunks != (a->L + a->chunk - 1) / a->chunk)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (a->D) {
@@ -535,8 +554,8 @@ int launch(const DecodeArgs* a, void* stream) {
 
 // Launchers: one kernel launch on `stream` for the call `a` describes (see
 // DecodeArgs): rows of q, k, v 16-byte aligned (strides of whole 16 bytes),
-// G = H/KvH at most 16, `chunk` a multiple of 64 with n_chunks = ceil(L /
-// chunk), the workspace sized for them and its counters 0.  They return
+// `chunk` a multiple of 64 with n_chunks = ceil(L / chunk), the workspace
+// sized for them (B * KvH * ceil(G / 16) groups, G = H/KvH) and its counters 0.  They return
 // cudaGetLastError() (cudaErrorInvalidValue for a call they do not take).
 extern "C" int launch_decode_attention_f32(const DecodeArgs* a, void* stream) {
   return launch<float>(a, stream);

@@ -1,50 +1,84 @@
-// Mamba-2 SSD chunked scan (state-space duality) in float32.
+// Mamba-2 SSD chunked scan (state-space duality) in float32, chunk-parallel,
+// its products on the tensor cores in 3xTF32.
 //
 // Replaces: repro/kernels/ssd_scan.py:71, the `pallas_call` of `_ssd_kernel`
 // (grid (B, H, nc), the chunk dimension innermost and sequential on the TPU,
 // the state h (N, P) carried in VMEM scratch from one chunk to the next).
 //
-// Per chunk of Q positions, with cum = cumsum(dA) inside the chunk:
-//   y = ((C B^T) o tril(exp(cum_q - cum_s))) x  +  (C o exp(cum)) h
-//   h <- exp(cum_last) h + (B o exp(cum_last - cum))^T x
+// Per chunk c of Q positions, with cum = cumsum(dA) inside the chunk:
+//   y = ((C B^T) o tril(exp(cum_q - cum_s))) x  +  (C o exp(cum)) h_c
+//   h_{c+1} = exp(cum_last) h_c + (B o exp(cum_last - cum))^T x
 // x (B,H,S,P) and dA (B,H,S) per head; B and C (B,S,N) shared by the heads.
 //
-// Bound on this card: operations. Counted as the TPU kernel does the work,
-// a chunk takes 2 Q^2 N (C B^T) + 2 Q^2 P + 2 Q N P + 2 Q N P operations; at the
-// Mamba-2 prefill (B 4, S 2048, H 48, P 64, N 128, Q 256) that is 51.5 GFLOP,
-// 0.77 ms at 67 TFLOP/s float32, against 211 MB of inputs and outputs, or
-// 0.063 ms at 3.35 TB/s.
+// Design: the chunk-parallel form of the SSD algorithm (Dao & Gu,
+// arXiv:2405.21060, section 6), four launches on the caller's stream, each
+// over blocks that run in any order:
+//   1. ssd_chunk_cb, one block per (causal 64x64 tile pair, chunk, lane):
+//      C B^T once for all heads into a (B, nc, QP, QP) scratch (QP: Q rounded
+//      up to 64); only tiles on or below the diagonal are formed and read.
+//   2. ssd_chunk_state, one block per (chunk but the last, tile of P, head,
+//      lane): cum in double, the chunk's state increment
+//      dH_c = (B o exp(last - cum))^T x as (N, P) f32 into slot c + 1 of a
+//      (B, H, nc, N, PS) scratch (PS: P rounded up to 4), and exp(last) into
+//      slot c + 1 of a (B, H, nc) scratch of decays.
+//   3. ssd_state_pass, one block per (slice of the N x PS state, head, lane):
+//      the only sequential part, element-wise: h_1 = dH_0 and
+//      h_c = exp(last_{c-1}) h_{c-1} + dH_{c-1}, written over dH_{c-1} in
+//      slot c, so slot c ends as h_c, the state entering chunk c (h_0 = 0 is
+//      never stored: chunk 0 has no inter-chunk term).
+//   4. ssd_chunk_scan, one block per (head, tile of P, 64-row query tile,
+//      chunk; lane), the head fastest, so that the heads that read one tile
+//      of C B^T meet it in L2: y_q = exp(cum_q) (C_q h_c) + sum over source
+//      tiles s <= q of (CB_qs o L_qs) x_s. On the diagonal tile L is formed
+//      in registers from differences of cum in double, exp only on and below
+//      the diagonal (above it the difference is positive and may overflow:
+//      those weights are 0); a tile before it takes L_qs as
+//      exp(cum_q - cum_r) exp(cum_r - cum_s), r the query tile's first row,
+//      both factors at most 1, from two tables the block forms once.
+// A launch of one chunk skips stages 2 and 3, of two chunks stage 3.
 //
-// Design: one block of 256 threads per (tile of up to 64 columns of P, head,
-// lane). The TPU's sequential chunk dimension is a loop inside the block;
-// h (N, 64) lives in shared memory from zero. A chunk is cut in tiles of 64
-// positions, and the (Q, Q) score matrix is never held whole: for each query
-// tile the block forms (C h) o exp(cum) first, then walks the source tiles up
-// to the diagonal, each time forming a (64, 64) score tile C_q B_s^T, weighting
-// it by exp(cum_q - cum_s) where s <= q (exp is never evaluated above the
-// diagonal, where it may overflow: those scores are 0), and adding the tile
-// times x_s. While it walks the last query tile, which meets every source tile,
-// it also sums (B_s o w_s)^T x_s for the state update into registers; the state
-// is replaced once every query tile has read it. Every product is a 4x4 (8x4
-// for the state) register tile per thread over operands in shared memory.
-// The cumulative decay logs are summed and differenced in double precision
-// before each exp: in float32, cum_q at Mamba-2's widths reaches some -64
-// within a chunk of 256, and its rounding (ulp 7.6e-6) becomes a relative
-// error of every decay, even between neighbouring positions, that alone puts
-// a float32 chunked scan outside 2e-4 of the step-by-step recurrence at that
-// shape; differences of doubles are exact to far below that. The products
-// stay float32. A ragged tail (S not a multiple of Q) is masked here:
-// positions at or past S are not read, count as zero inputs with dA = 0, and
-// are not stored, which is the function of the reference's zero padding. The
-// tensor cores (wgmma), sharing C B^T across heads, and TMA are later work.
-#include <cuda_runtime.h>
+// Every product is mma.sync m16n8k8 on TF32 in three passes: each operand a
+// splits into hi = a rounded to TF32 (to nearest, as cvt.rna.tf32.f32) and
+// lo = a - hi rounded alike; the f32 accumulators take lo.hi + hi.lo and
+// hi.hi. One TF32 pass keeps some 11 bits of each operand: emulated on the
+// CPU (tests/test_torch_ssd_hopper.py) at S 1024, P 64, N 128, Q 256 against
+// the float64 recurrence, the worst error over its limit 2e-4 + 2e-4 |y| is
+// 152x (decay logs in [-0.5, -0.01]) and 457x (Mamba-2's [-0.02, -0.001])
+// with one pass, 0.09x and 0.31x with three. So three passes. The tensor
+// cores also round each mma's sum toward zero: with every pass of a query
+// tile summed in one accumulator, the card missed that limit at the 4 x 2048
+// prefill with slow decays; with the sums kept apart (mma3) it stays within
+// a third of it (chip_smoke.py).
+// The decay logs are summed and differenced in double before each exp (in
+// float32, cum reaches some -64 within a chunk of 256 at Mamba-2's widths, and
+// its rounding alone puts a chunked scan outside 2e-4 of the recurrence).
+// Tiles arrive by cp.async into a ring of two stages, so that the next tile's
+// load overlaps the current tile's products. A ragged tail (S not a multiple
+// of Q), N and P off the tiles are masked here: rows and columns past them are
+// zero-filled on load and not stored, which is the function of the
+// reference's zero padding.
+//
+// Bound on this card: operations. Counting C B^T once per lane and chunk and
+// only the causal pairs, the prefill of Mamba-2 (B 4, S 2048, H 48, P 64,
+// N 128, Q 256) needs 18.07 GFLOP; at 3xTF32's effective 494.7 / 3 = 164.9
+// TFLOP/s that is 0.1096 ms, against 0.063 ms for its 211 MB of inputs and
+// outputs at 3.35 TB/s. (Before this design the products ran on the CUDA
+// cores and the bound was 0.2697 ms at 67 TFLOP/s f32.) The tiles waste work
+// the count leaves out: the diagonal tiles' upper halves, and the scratch
+// (8.4 MB of C B^T, 50 MB of states written and read twice) at the prefill.
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int T = 64;              // positions of a query or source tile; columns of a P tile
-constexpr int TS = T + 4;          // padded row stride of the (., 64) tiles, in floats
-constexpr int MAX_N = 128;         // state rows: 8 per thread row of the 16x16 thread grid
+constexpr int T = 64;              // rows and columns of a tile
+constexpr int SA = T + 4;          // row stride of a tile read as A[m][k] or as B[n][k]
+constexpr int SB = T + 8;          // row stride of a tile read as B[k][n]
+constexpr int KS = 32;             // positions a step of ssd_chunk_state
+constexpr int MAX_N = 128;         // state rows: 8 warps of 16 in ssd_chunk_state
+constexpr int SN = MAX_N + 8;      // row stride of ssd_chunk_state's B tile, [s][n]
+constexpr int THREADS = 128;       // ssd_chunk_cb and ssd_chunk_scan: 4 warps of 16 rows
+constexpr int STATE_THREADS = 256;
+constexpr int PASS_THREADS = 256;
 
 struct Str3 {
   long long b, h, s;               // (lane, head, position), in elements
@@ -53,203 +87,416 @@ struct Str2 {
   long long b, s;                  // (lane, position), in elements
 };
 
-// the padded stride of C's rows in shared memory: odd, so that the two rows a
-// warp reads at once fall in different banks
-__host__ __device__ inline int c_stride(int N) { return N + 1; }
+__host__ __device__ inline int round_up(int a, int m) { return (a + m - 1) / m * m; }
 
-__host__ __device__ inline size_t smem_floats(int N, int Q) {
-  return (size_t)N * TS + (size_t)N * TS + 2 * (size_t)T * TS + 2 * (size_t)Q +
-         (size_t)T * c_stride(N) + T;
+// -- loads --------------------------------------------------------------------------
+
+// cp.async of `bytes` (<= the size) from src, the rest of the 16 (or 4) bytes zero
+__device__ __forceinline__ void cp_async16_zfill(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" :: "r"(dst), "l"(src),
+               "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async4_zfill(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" :: "r"(dst), "l"(src),
+               "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// A ROWS x COLS tile of floats (COLS a multiple of 4) from `src` (row stride
+// `ld`) into shared memory at `dst` (row stride `sd`), rows at or past `rv`
+// and columns at or past `cv` as zeros. `vec`: every row of src starts on 16
+// bytes, so the copy goes 16 bytes at a time; else 4. Row 0 and column 0 of
+// src exist, so a copy that reads nothing points there.
+template <int ROWS, int COLS, int NT>
+__device__ __forceinline__ void load_tile(float* dst, int sd, const float* src, long long ld,
+                                          int rv, int cv, bool vec) {
+  if (vec) {
+    constexpr int PER = COLS / 4;
+    static_assert(ROWS * PER % NT == 0, "whole rounds of the block");
+#pragma unroll
+    for (int i = 0; i < ROWS * PER / NT; ++i) {
+      const int e = threadIdx.x + i * NT, r = e / PER, c = (e % PER) * 4;
+      const int bytes = r < rv ? 4 * max(0, min(4, cv - c)) : 0;
+      cp_async16_zfill(smem_u32(dst + r * sd + c), bytes ? src + r * ld + c : src, bytes);
+    }
+  } else {
+    for (int e = threadIdx.x; e < ROWS * COLS; e += NT) {
+      const int r = e / COLS, c = e % COLS;
+      const int bytes = r < rv && c < cv ? 4 : 0;
+      cp_async4_zfill(smem_u32(dst + r * sd + c), bytes ? src + r * ld + c : src, bytes);
+    }
+  }
+}
+
+// cum[i] for i < n: dA summed over positions 0..i of the chunk in double, the
+// positions at or past Qv (past S) counting 0. The block loads dA into cum
+// (strided loads, all in flight at once), then warp 0 sums it in place.
+__device__ void chunk_cumsum(double* cum, const float* dp, long long ds, int Qv, int n) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x)
+    cum[i] = i < Qv ? (double)dp[(long long)i * ds] : 0.0;
+  __syncthreads();
+  if (threadIdx.x >= 32) return;
+  const int lane = threadIdx.x;
+  double carry = 0.0;
+  for (int base = 0; base < n; base += 32) {
+    const int i = base + lane;
+    double v = i < n ? cum[i] : 0.0;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const double u = __shfl_up_sync(0xffffffffu, v, o);
+      if (lane >= o) v += u;
+    }
+    v += carry;
+    if (i < n) cum[i] = v;
+    carry = __shfl_sync(0xffffffffu, v, 31);
+  }
+}
+
+// -- 3xTF32 on mma.sync -------------------------------------------------------------
+
+// x rounded to TF32 (10 mantissa bits), to nearest, ties away from zero: what
+// cvt.rna.tf32.f32 gives for a finite x, in two integer instructions
+__device__ __forceinline__ uint32_t tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// x as hi + lo, both TF32 (x - hi is exact in f32)
+__device__ __forceinline__ uint2 split(float x) {
+  const uint32_t hi = tf32(x);
+  return make_uint2(hi, tf32(x - __uint_as_float(hi)));
+}
+
+
+// d (16 x 8) += a (16 x 8, row) b (8 x 8, col), TF32 in, f32 accumulator
+__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+template <int NJ>
+__device__ __forceinline__ void zero(float (&acc)[NJ][4]) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+}
+
+// total, a warp's 16 rows x 8 NJ columns (NJ m16n8 tiles; element e of tile j
+// at row g + 8 (e / 2), column 8 j + 2 t + e % 2, g = lane / 4, t = lane % 4),
+// += A (16 x K) B (K x 8 NJ) in 3xTF32. afetch(half, k): A at row g + 8 half,
+// column k; bfetch(k, j): B at row k, column 8 j + g. The tensor cores round
+// each mma's sum toward zero against its largest addend, so every mma into a
+// running sum biases it by up to an ulp of that sum: the step's hi.hi and its
+// small lo.hi + hi.lo go into fresh accumulators of their own, which are then
+// added to `total` in f32, to nearest, rows g and g + 8 weighted by r0 and r1.
+template <int K, int NJ, typename FA, typename FB>
+__device__ __forceinline__ void mma3(float (&total)[NJ][4], FA afetch, FB bfetch,
+                                     float r0 = 1.f, float r1 = 1.f) {
+  const int t = threadIdx.x & 3;
+  float big[NJ][4], small[NJ][4];
+  zero(big);
+  zero(small);
+  constexpr int UNROLL = K <= 32 ? K / 8 : 1;
+#pragma unroll (UNROLL)
+  for (int k0 = 0; k0 < K; k0 += 8) {
+    uint32_t ah[4], al[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {                  // rows g, g + 8; columns t, t + 4
+      const uint2 a = split(afetch(i & 1, k0 + t + 4 * (i >> 1)));
+      ah[i] = a.x;
+      al[i] = a.y;
+    }
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const uint2 b0 = split(bfetch(k0 + t, j)), b1 = split(bfetch(k0 + t + 4, j));
+      mma_tf32(small[j], al, b0.x, b1.x);
+      mma_tf32(small[j], ah, b0.y, b1.y);
+      mma_tf32(big[j], ah, b0.x, b1.x);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) total[j][e] = fmaf(e < 2 ? r0 : r1, big[j][e] + small[j][e],
+                                                   total[j][e]);
+}
+
+// -- 1. C B^T once for all heads ------------------------------------------------------
+
+constexpr size_t CB_SMEM = (size_t)2 * 2 * T * SA * sizeof(float);
+
+__global__ void __launch_bounds__(THREADS)
+ssd_chunk_cb(const float* __restrict__ Bm, const float* __restrict__ Cm, float* __restrict__ cb,
+             int S, int N, int Q, int QP, int nc, Str2 bs, Str2 cs, int bc_vec) {
+  extern __shared__ __align__(16) float smem[];   // 2 stages of a C tile then a B tile
+  const int ntq = QP / T, pairs = ntq * (ntq + 1) / 2;
+  const int pair = blockIdx.x % pairs, c = blockIdx.x / pairs, b = blockIdx.y;
+  int qt = 0;
+  while ((qt + 1) * (qt + 2) / 2 <= pair) ++qt;
+  const int st = pair - qt * (qt + 1) / 2;        // st <= qt: on or below the diagonal
+  const int c0 = c * Q, Qv = min(Q, S - c0);
+  if (qt * T >= Qv) return;                        // a tile past the end of the last chunk
+  const float* cp = Cm + b * cs.b + (long long)(c0 + qt * T) * cs.s;
+  const float* bp = Bm + b * bs.b + (long long)(c0 + st * T) * bs.s;
+  const int steps = (N + T - 1) / T;
+  auto load = [&](int j) {
+    float* at = smem + (j & 1) * 2 * T * SA;
+    load_tile<T, T, THREADS>(at, SA, cp + j * T, cs.s, Qv - qt * T, N - j * T, bc_vec);
+    load_tile<T, T, THREADS>(at + T * SA, SA, bp + j * T, bs.s, Qv - st * T, N - j * T, bc_vec);
+  };
+  const int w = threadIdx.x / 32, g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  float acc[8][4];
+  zero(acc);
+  load(0);
+  cp_commit();
+  for (int j = 0; j < steps; ++j) {
+    cp_wait_all();
+    __syncthreads();                               // tile j is in; step j - 1 is done
+    if (j + 1 < steps) load(j + 1);                // in flight while tile j is multiplied
+    cp_commit();
+    const float* at = smem + (j & 1) * 2 * T * SA + 16 * w * SA;
+    const float* bt = smem + (j & 1) * 2 * T * SA + T * SA;
+    mma3<T, 8>(acc, [&](int half, int k) { return at[(g + 8 * half) * SA + k]; },
+               [&](int k, int jj) { return bt[(8 * jj + g) * SA + k]; });
+  }
+  float* out = cb + (((long long)b * nc + c) * QP + qt * T + 16 * w) * QP + st * T;
+#pragma unroll
+  for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+    for (int half = 0; half < 2; ++half)
+      *reinterpret_cast<float2*>(out + (g + 8 * half) * QP + 8 * jj + 2 * t) =
+          make_float2(acc[jj][2 * half], acc[jj][2 * half + 1]);
+}
+
+// -- 2. each chunk's state increment and decay -----------------------------------------
+
+__host__ __device__ inline size_t state_smem(int QP) {
+  return (size_t)2 * (KS * SN + KS * SB) * sizeof(float) +
+         (size_t)QP * (sizeof(double) + sizeof(float));
+}
+
+__global__ void __launch_bounds__(STATE_THREADS, 1)
+ssd_chunk_state(const float* __restrict__ x, const float* __restrict__ dA,
+                const float* __restrict__ Bm, float* __restrict__ states,
+                float* __restrict__ decays, int P, int N, int Q, int QP, int PS, int nc,
+                Str3 xs, Str3 das, Str2 bs, int x_vec, int bc_vec) {
+  extern __shared__ __align__(16) float smem[];   // 2 stages of B [s][n] then x [s][p]
+  double* cum = reinterpret_cast<double*>(smem + 2 * (KS * SN + KS * SB));
+  float* wv = reinterpret_cast<float*>(cum + QP);  // exp(last - cum_s)
+  const int c = blockIdx.x % (nc - 1), pt = blockIdx.x / (nc - 1);
+  const int h = blockIdx.y, b = blockIdx.z, H = gridDim.y;
+  const int c0 = c * Q;                            // a chunk before the last: Q positions
+  const int PT = min(T, P - pt * T);
+  const float* xp = x + b * xs.b + h * xs.h + (long long)c0 * xs.s + pt * T;
+  const float* bp = Bm + b * bs.b + (long long)c0 * bs.s;
+  const int steps = (Q + KS - 1) / KS;
+  auto load = [&](int j) {
+    float* at = smem + (j & 1) * (KS * SN + KS * SB);
+    load_tile<KS, MAX_N, STATE_THREADS>(at, SN, bp + (long long)j * KS * bs.s, bs.s,
+                                        Q - j * KS, N, bc_vec);
+    load_tile<KS, T, STATE_THREADS>(at + KS * SN, SB, xp + (long long)j * KS * xs.s, xs.s,
+                                    Q - j * KS, PT, x_vec);
+  };
+  load(0);
+  cp_commit();
+  chunk_cumsum(cum, dA + b * das.b + h * das.h + (long long)c0 * das.s, das.s, Q, Q);
+  __syncthreads();
+  const double last = cum[Q - 1];
+  for (int s = threadIdx.x; s < steps * KS; s += STATE_THREADS)   // 0 past the chunk
+    wv[s] = s < Q ? (float)exp(last - cum[s]) : 0.f;
+  const size_t bh = (size_t)b * H + h;
+  if (pt == 0 && threadIdx.x == 0) decays[bh * nc + c + 1] = (float)exp(last);
+
+  const int w = threadIdx.x / 32, g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const bool active = 16 * w < N;                  // this warp's 16 state rows exist
+  float acc[8][4];
+  zero(acc);
+  for (int j = 0; j < steps; ++j) {
+    cp_wait_all();
+    __syncthreads();                               // tile j is in (and wv); step j - 1 is done
+    if (j + 1 < steps) load(j + 1);
+    cp_commit();
+    if (active) {
+      const float* at = smem + (j & 1) * (KS * SN + KS * SB) + 16 * w;
+      const float* bt = smem + (j & 1) * (KS * SN + KS * SB) + KS * SN;
+      const float* ws = wv + j * KS;
+      // A = (B o w)^T: row n of the state, column s of the step
+      mma3<KS, 8>(acc, [&](int half, int k) { return at[k * SN + g + 8 * half] * ws[k]; },
+               [&](int k, int jj) { return bt[k * SB + 8 * jj + g]; });
+    }
+  }
+  float* out = states + ((bh * nc + c + 1) * N) * PS;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int n = 16 * w + g + 8 * half;
+    if (n >= N) continue;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const int p = pt * T + 8 * jj + 2 * t;       // even, and PS a multiple of 4
+      if (p < PS)
+        *reinterpret_cast<float2*>(out + (size_t)n * PS + p) =
+            make_float2(acc[jj][2 * half], acc[jj][2 * half + 1]);
+    }
+  }
+}
+
+// -- 3. the states entering each chunk -------------------------------------------------
+
+__global__ void __launch_bounds__(PASS_THREADS)
+ssd_state_pass(float* __restrict__ states, const float* __restrict__ decays, int nc, int NPS) {
+  const int e = (blockIdx.x * PASS_THREADS + threadIdx.x) * 4;
+  if (e >= NPS) return;
+  const size_t bh = (size_t)blockIdx.z * gridDim.y + blockIdx.y;
+  float* base = states + bh * nc * NPS + e;
+  const float* dec = decays + bh * nc;
+  float4 hv = *reinterpret_cast<const float4*>(base + NPS);         // h_1 = dH_0
+  float4 next = *reinterpret_cast<const float4*>(base + 2 * (size_t)NPS);
+  for (int c = 2; c < nc; ++c) {
+    const float4 d = next;
+    if (c + 1 < nc) next = *reinterpret_cast<const float4*>(base + (size_t)(c + 1) * NPS);
+    const float a = dec[c];
+    hv = make_float4(fmaf(a, hv.x, d.x), fmaf(a, hv.y, d.y), fmaf(a, hv.z, d.z),
+                     fmaf(a, hv.w, d.w));
+    *reinterpret_cast<float4*>(base + (size_t)c * NPS) = hv;
+  }
+}
+
+// -- 4. the outputs --------------------------------------------------------------------
+
+__host__ __device__ inline size_t scan_smem(int QP) {
+  return (size_t)2 * (T * SA + T * SB) * sizeof(float) + (size_t)QP * sizeof(double) +
+         (size_t)(3 * T + QP) * sizeof(float);
 }
 
 __global__ void __launch_bounds__(THREADS)
-ssd_kernel(const float* __restrict__ x, const float* __restrict__ dA,
-           const float* __restrict__ Bm, const float* __restrict__ Cm, float* __restrict__ y,
-           int S, int P, int N, int Q, Str3 xs, Str3 das, Str2 bs, Str2 cs, Str3 ys) {
-  const int CN = c_stride(N);
-  extern __shared__ float4 smem4[];
-  float* hs = reinterpret_cast<float*>(smem4);   // (N, TS)  the state, this tile of P
-  float* bt = hs + N * TS;                       // (N, TS)  B of the source tile, transposed
-  float* xt = bt + N * TS;                       // (T, TS)  x of the source tile
-  float* st = xt + T * TS;                       // (T, TS)  decay-weighted scores
-  double* cum = reinterpret_cast<double*>(st + T * TS);  // (Q) cumsum of dA in the chunk
-  float* ct = reinterpret_cast<float*>(cum + Q); // (T, CN)  C of the query tile
-  float* wv = ct + T * CN;                       // (T)      exp(cum_last - cum_s)
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int ty = tid / 16, tx = tid % 16;        // 16 x 16 threads; rows ty + 16 i, cols 4 tx + j
-  const int p0 = blockIdx.x * T, PT = min(T, P - p0);
-  const int h = blockIdx.y, b = blockIdx.z;
-  const float* xp = x + b * xs.b + h * xs.h + p0;
-  const float* dp = dA + b * das.b + h * das.h;
-  const float* bp = Bm + b * bs.b;
-  const float* cp = Cm + b * cs.b;
-  float* yp = y + b * ys.b + h * ys.h + p0;
-
-  for (int e = tid; e < N * TS; e += THREADS) hs[e] = 0.f;
-
-  for (int c0 = 0; c0 < S; c0 += Q) {
-    const int Qv = min(Q, S - c0);               // positions of this chunk that exist
-    __syncthreads();                             // the previous chunk is done with cum and hs
-    if (warp == 0) {
-      double carry = 0.0;
-      for (int base = 0; base < Qv; base += 32) {
-        double v = base + lane < Qv ? (double)dp[(c0 + base + lane) * das.s] : 0.0;
-#pragma unroll
-        for (int o = 1; o < 32; o <<= 1) {
-          const double u = __shfl_up_sync(0xffffffffu, v, o);
-          if (lane >= o) v += u;
-        }
-        v += carry;
-        if (base + lane < Qv) cum[base + lane] = v;
-        carry = __shfl_sync(0xffffffffu, v, 31);
-      }
+ssd_chunk_scan(const float* __restrict__ x, const float* __restrict__ dA,
+               const float* __restrict__ Cm, const float* __restrict__ cb,
+               const float* __restrict__ states, float* __restrict__ y, int S, int H, int P,
+               int N, int Q, int QP, int PS, int nc, Str3 xs, Str3 das, Str2 cs, Str3 ys,
+               int x_vec, int bc_vec, int y_vec) {
+  extern __shared__ __align__(16) float smem[];   // 2 stages of A [q][k] then B [k][p]
+  // cum; then, with r the tile's first row: exp(cum_q) and exp(cum_q - cum_r) of
+  // the tile's rows, ones, and exp(cum_r - cum_s) of the positions s before r
+  double* cum = reinterpret_cast<double*>(smem + 2 * (T * SA + T * SB));
+  float* eq = reinterpret_cast<float*>(cum + QP);
+  float* eqr = eq + T;
+  float* ones = eqr + T;
+  float* esr = ones + T;
+  const int nP = (P + T - 1) / T, ntq = QP / T;
+  int idx = blockIdx.x;
+  const int h = idx % H;
+  idx /= H;
+  const int pt = idx % nP;
+  idx /= nP;
+  const int qt = idx % ntq, c = idx / ntq, b = blockIdx.y;
+  const int c0 = c * Q, Qv = min(Q, S - c0);
+  if (qt * T >= Qv) return;                        // a query tile past the end of the last chunk
+  const int PT = min(T, P - pt * T);
+  const int n_inter = c > 0 ? (N + T - 1) / T : 0; // C h: steps over N (h_0 = 0)
+  const int steps = n_inter + qt + 1;              // then the source tiles 0..qt
+  const float* cq = Cm + b * cs.b + (long long)(c0 + qt * T) * cs.s;
+  const float* hp = states + (((size_t)b * H + h) * nc + c) * N * PS + pt * T;
+  const float* xp = x + b * xs.b + h * xs.h + (long long)c0 * xs.s + pt * T;
+  const float* cbp = cb + (((size_t)b * nc + c) * QP + qt * T) * QP;
+  auto load = [&](int j) {
+    float* at = smem + (j & 1) * (T * SA + T * SB);
+    float* bt = at + T * SA;
+    if (j < n_inter) {
+      load_tile<T, T, THREADS>(at, SA, cq + j * T, cs.s, Qv - qt * T, N - j * T, bc_vec);
+      load_tile<T, T, THREADS>(bt, SB, hp + (size_t)j * T * PS, PS, N - j * T, PT, true);
+    } else {
+      const int st = j - n_inter;
+      load_tile<T, T, THREADS>(at, SA, cbp + st * T, QP, T, T, true);
+      load_tile<T, T, THREADS>(bt, SB, xp + (long long)st * T * xs.s, xs.s, Qv - st * T, PT,
+                               x_vec);
     }
-    __syncthreads();
-    const double last = cum[Qv - 1];
-    const int n_tiles = (Qv + T - 1) / T;
+  };
+  load(0);
+  cp_commit();
+  chunk_cumsum(cum, dA + b * das.b + h * das.h + (long long)c0 * das.s, das.s, Qv,
+               (qt + 1) * T);
+  __syncthreads();
+  const double cr = cum[qt * T];
+  if (threadIdx.x < T) {
+    eq[threadIdx.x] = (float)exp(cum[qt * T + threadIdx.x]);
+    eqr[threadIdx.x] = (float)exp(cum[qt * T + threadIdx.x] - cr);
+    ones[threadIdx.x] = 1.f;
+  }
+  for (int s = threadIdx.x; s < qt * T; s += THREADS) esr[s] = (float)exp(cr - cum[s]);
 
-    float dh[8][4];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) dh[i][j] = 0.f;
-
-    for (int qt = 0; qt < n_tiles; ++qt) {
-      const int q0 = qt * T;
-      const bool last_tile = qt == n_tiles - 1;
-      __syncthreads();                           // ct is free
-      for (int e = tid; e < T * N; e += THREADS) {
-        const int r = e / N, k = e % N;
-        ct[r * CN + k] = q0 + r < Qv ? cp[(c0 + q0 + r) * cs.s + k] : 0.f;
-      }
-      __syncthreads();
-
-      // inter-chunk part: (C_q h) o exp(cum_q)
-      float acc[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-      for (int k = 0; k < N; ++k) {
-        const float4 hv = *reinterpret_cast<const float4*>(hs + k * TS + 4 * tx);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float a = ct[(ty + 16 * i) * CN + k];
-          acc[i][0] = fmaf(a, hv.x, acc[i][0]);
-          acc[i][1] = fmaf(a, hv.y, acc[i][1]);
-          acc[i][2] = fmaf(a, hv.z, acc[i][2]);
-          acc[i][3] = fmaf(a, hv.w, acc[i][3]);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int q = q0 + ty + 16 * i;
-        const float g = q < Qv ? expf((float)cum[q]) : 0.f;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] *= g;
-      }
-
-      // intra-chunk part, source tiles up to the diagonal
-      for (int s_t = 0; s_t <= qt; ++s_t) {
-        const int s0 = s_t * T;
-        __syncthreads();                         // bt, xt, st and wv are free
-        for (int e = tid; e < T * N; e += THREADS) {
-          const int s = e / N, k = e % N;
-          bt[k * TS + s] = s0 + s < Qv ? bp[(c0 + s0 + s) * bs.s + k] : 0.f;
-        }
-        for (int e = tid; e < T * T; e += THREADS) {
-          const int s = e / T, c = e % T;
-          xt[s * TS + c] = (s0 + s < Qv && c < PT) ? xp[(c0 + s0 + s) * xs.s + c] : 0.f;
-        }
-        if (last_tile && tid < T)
-          wv[tid] = s0 + tid < Qv ? expf((float)(last - cum[s0 + tid])) : 0.f;
-        __syncthreads();
-
-        float sc[4][4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
-        for (int k = 0; k < N; ++k) {
-          const float4 bv = *reinterpret_cast<const float4*>(bt + k * TS + 4 * tx);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float a = ct[(ty + 16 * i) * CN + k];
-            sc[i][0] = fmaf(a, bv.x, sc[i][0]);
-            sc[i][1] = fmaf(a, bv.y, sc[i][1]);
-            sc[i][2] = fmaf(a, bv.z, sc[i][2]);
-            sc[i][3] = fmaf(a, bv.w, sc[i][3]);
-          }
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int r = ty + 16 * i, q = q0 + r;
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int s = s0 + 4 * tx + j;
-            // exp only on and below the diagonal, where cum_q - cum_s <= 0
-            sc[i][j] = (s <= q && q < Qv) ? sc[i][j] * expf((float)(cum[q] - cum[s])) : 0.f;
-          }
-          *reinterpret_cast<float4*>(st + r * TS + 4 * tx) =
-              make_float4(sc[i][0], sc[i][1], sc[i][2], sc[i][3]);
-        }
-        __syncthreads();
-
-        for (int s = 0; s < T; ++s) {
-          const float4 xv = *reinterpret_cast<const float4*>(xt + s * TS + 4 * tx);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float a = st[(ty + 16 * i) * TS + s];
-            acc[i][0] = fmaf(a, xv.x, acc[i][0]);
-            acc[i][1] = fmaf(a, xv.y, acc[i][1]);
-            acc[i][2] = fmaf(a, xv.z, acc[i][2]);
-            acc[i][3] = fmaf(a, xv.w, acc[i][3]);
-          }
-        }
-        if (last_tile) {
-          // the state update's (B_s o w_s)^T x_s, rows n = ty + 16 i of the state
-          for (int s = 0; s < T; ++s) {
-            const float4 xv = *reinterpret_cast<const float4*>(xt + s * TS + 4 * tx);
-            const float w = wv[s];
-#pragma unroll
-            for (int i = 0; i < 8; ++i) {
-              const int n = ty + 16 * i;
-              if (n < N) {
-                const float a = bt[n * TS + s] * w;
-                dh[i][0] = fmaf(a, xv.x, dh[i][0]);
-                dh[i][1] = fmaf(a, xv.y, dh[i][1]);
-                dh[i][2] = fmaf(a, xv.z, dh[i][2]);
-                dh[i][3] = fmaf(a, xv.w, dh[i][3]);
-              }
-            }
-          }
-        }
-      }
-
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int q = q0 + ty + 16 * i;
-        if (q < Qv) {
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            if (4 * tx + j < PT) yp[(c0 + q) * ys.s + 4 * tx + j] = acc[i][j];
-        }
-      }
+  const int w = threadIdx.x / 32, g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const int q0 = qt * T + 16 * w + g;              // this thread's rows q0 and q0 + 8
+  const double cq0 = cum[q0], cq1 = cum[q0 + 8];
+  float acc[8][4];
+  zero(acc);
+  for (int j = 0; j < steps; ++j) {
+    cp_wait_all();
+    __syncthreads();                               // tile j is in; step j - 1 is done
+    if (j + 1 < steps) load(j + 1);                // in flight while tile j is multiplied
+    cp_commit();
+    const float* at = smem + (j & 1) * (T * SA + T * SB) + 16 * w * SA;
+    const float* bt = smem + (j & 1) * (T * SA + T * SB) + T * SA;
+    auto bfetch = [&](int k, int jj) { return bt[k * SB + 8 * jj + g]; };
+    const int r = 16 * w + g;                      // the rows r and r + 8 of the tile
+    const int s0 = (j - n_inter) * T;
+    if (s0 < qt * T) {
+      // C h, its rows weighted by exp(cum_q); or a source tile before the
+      // diagonal, exp(cum_q - cum_s) as exp(cum_q - cum_r) exp(cum_r - cum_s),
+      // both at most 1: the columns' factor on A, the rows' on the sums
+      const bool inter = j < n_inter;
+      const float* cf = inter ? ones : esr + s0;
+      const float* rf = inter ? eq : eqr;
+      mma3<T, 8>(acc, [&](int half, int k) { return at[(g + 8 * half) * SA + k] * cf[k]; },
+                 bfetch, rf[r], rf[r + 8]);
+    } else {
+      mma3<T, 8>(acc, [&](int half, int k) {
+                const int s = s0 + k;
+                const double cqr = half ? cq1 : cq0;
+                const float v = at[(g + 8 * half) * SA + k];
+                // exp only on and below the diagonal, where cum_q - cum_s <= 0
+                return s <= q0 + 8 * half ? v * expf((float)(cqr - cum[s])) : 0.f;
+              }, bfetch);
     }
-
-    __syncthreads();                             // every query tile has read the old state
-    const float decay = expf((float)last);
+  }
+  float* yp = y + b * ys.b + h * ys.h + pt * T;
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int n = ty + 16 * i;
-      if (n < N) {
-        float* row = hs + n * TS + 4 * tx;
+  for (int half = 0; half < 2; ++half) {
+    const int q = q0 + 8 * half;
+    if (q >= Qv) continue;
+    float* row = yp + (long long)(c0 + q) * ys.s;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) row[j] = fmaf(decay, row[j], dh[i][j]);
+    for (int jj = 0; jj < 8; ++jj) {
+      const int p = 8 * jj + 2 * t;
+      if (y_vec && p + 1 < PT) {
+        *reinterpret_cast<float2*>(row + p) = make_float2(acc[jj][2 * half], acc[jj][2 * half + 1]);
+      } else {
+        if (p < PT) row[p] = acc[jj][2 * half];
+        if (p + 1 < PT) row[p + 1] = acc[jj][2 * half + 1];
       }
     }
   }
+}
+
+// -- host ----------------------------------------------------------------------------
+
+bool rows_of_16_bytes(const void* p, long long s0, long long s1, long long s2) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && (s0 | s1 | s2) % 4 == 0;
+}
+
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes, size_t& allowed) {
+  if (bytes <= allowed) return cudaSuccess;       // above 48 KB a kernel must ask
+  const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             (int)bytes);
+  if (e == cudaSuccess) allowed = bytes;
+  return e;
 }
 
 }  // namespace
@@ -257,26 +504,56 @@ ssd_kernel(const float* __restrict__ x, const float* __restrict__ dA,
 // Launcher: x (B,H,S,P) and y (B,H,S,P), each given by its pointer and its
 // strides over (lane, head, position); dA (B,H,S) likewise; B and C (B,S,N) by
 // their strides over (lane, position). The last dim of x, y, B and C is
-// contiguous. Chunks of Q positions; 1 <= N <= 128. `strides` holds 13 values:
-// x's three, dA's three, B's two, C's two, y's three. Launches on `stream`
-// and returns cudaGetLastError().
+// contiguous. Chunks of Q positions, nc = ceil(S / Q); 1 <= N <= 128.
+// `strides` holds 13 values: x's three, dA's three, B's two, C's two, y's
+// three. Scratch, float32, from the caller: cb (B, nc, QP, QP) with QP = Q
+// rounded up to 64; states (B, H, nc, N, PS) with PS = P rounded up to 4 and
+// decays (B, H, nc), both unused (may be null) when nc == 1; `sizes` holds
+// the element counts of cb, states and decays as allocated, and a scratch
+// smaller than this layout is refused with cudaErrorInvalidValue before any
+// launch. Launches the stages on `stream` (stage 2 only for nc > 1, stage 3
+// only for nc > 2) and returns the first cudaGetLastError() that is not success.
 extern "C" int launch_ssd_scan_f32(const float* x, const float* dA, const float* Bm,
-                                   const float* Cm, float* y, int Bn, int H, int S, int P,
-                                   int N, int Q, const long long* st, void* stream) {
+                                   const float* Cm, float* y, float* cb, float* states,
+                                   float* decays, int Bn, int H, int S, int P, int N, int Q,
+                                   const long long* st, const long long* sizes, void* stream) {
   if (Bn <= 0 || H <= 0 || S <= 0 || P <= 0 || N <= 0 || N > MAX_N || Q <= 0)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_floats(N, Q) * sizeof(float);
-  static size_t attribute = 48 * 1024;           // above 48 KB a kernel must ask
-  if (smem > attribute) {
-    cudaError_t e = cudaFuncSetAttribute(ssd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    attribute = smem;
-  }
   const Str3 xs{st[0], st[1], st[2]}, das{st[3], st[4], st[5]}, ys{st[10], st[11], st[12]};
   const Str2 bs{st[6], st[7]}, cs{st[8], st[9]};
-  dim3 grid((P + T - 1) / T, H, Bn);
-  ssd_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(x, dA, Bm, Cm, y, S, P, N, Q, xs,
-                                                             das, bs, cs, ys);
+  const int nc = (S + Q - 1) / Q, QP = round_up(Q, T), PS = round_up(P, 4);
+  const long long chunks = (long long)Bn * nc, heads = nc > 1 ? chunks * H : 0;
+  if (sizes[0] < chunks * QP * QP || sizes[1] < heads * N * PS || sizes[2] < heads)
+    return (int)cudaErrorInvalidValue;
+  const int ntq = QP / T, nP = (P + T - 1) / T;
+  const int x_vec = rows_of_16_bytes(x, xs.b, xs.h, xs.s);
+  const int bc_vec = rows_of_16_bytes(Bm, bs.b, bs.s, 0) && rows_of_16_bytes(Cm, cs.b, cs.s, 0);
+  const int y_vec = reinterpret_cast<uintptr_t>(y) % 8 == 0 && (ys.b | ys.h | ys.s) % 2 == 0;
+  const size_t s2 = state_smem(QP), s4 = scan_smem(QP);
+  if (s2 > (size_t)SMEM_LIMIT || s4 > (size_t)SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  static size_t allowed1 = 48 * 1024, allowed2 = 48 * 1024, allowed4 = 48 * 1024;
+  cudaError_t e;
+  if ((e = allow_smem(ssd_chunk_cb, CB_SMEM, allowed1)) != cudaSuccess) return (int)e;
+  if ((e = allow_smem(ssd_chunk_state, s2, allowed2)) != cudaSuccess) return (int)e;
+  if ((e = allow_smem(ssd_chunk_scan, s4, allowed4)) != cudaSuccess) return (int)e;
+  cudaStream_t s = (cudaStream_t)stream;
+
+  ssd_chunk_cb<<<dim3(ntq * (ntq + 1) / 2 * nc, Bn), THREADS, CB_SMEM, s>>>(
+      Bm, Cm, cb, S, N, Q, QP, nc, bs, cs, bc_vec);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  if (nc > 1) {
+    ssd_chunk_state<<<dim3((nc - 1) * nP, H, Bn), STATE_THREADS, s2, s>>>(
+        x, dA, Bm, states, decays, P, N, Q, QP, PS, nc, xs, das, bs, x_vec, bc_vec);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  }
+  if (nc > 2) {
+    const int NPS = N * PS;
+    ssd_state_pass<<<dim3((NPS / 4 + PASS_THREADS - 1) / PASS_THREADS, H, Bn), PASS_THREADS, 0,
+                     s>>>(states, decays, nc, NPS);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  }
+  ssd_chunk_scan<<<dim3(H * nP * ntq * nc, Bn), THREADS, s4, s>>>(
+      x, dA, Cm, cb, states, y, S, H, P, N, Q, QP, PS, nc, xs, das, cs, ys, x_vec, bc_vec,
+      y_vec);
   return (int)cudaGetLastError();
 }

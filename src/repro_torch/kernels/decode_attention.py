@@ -4,9 +4,12 @@ The Pallas kernel runs a grid (B, H, L/bk) with the cache length sequential
 and the online-softmax state in VMEM scratch, and takes one scalar
 ``length`` for the whole batch.  On the card (``csrc/decode_attention.cu``)
 one launch does the whole call: the cache is split into chunks (``split``),
-one block per (chunk, KV head, lane) reads its K/V rows once for all the
-query heads of that KV head and forms a partial (acc, m, l), and the last
-block of each (lane, KV head) merges the partials by log-sum-exp.
+one block per (chunk, group, lane) reads its K/V rows once for all the query
+heads of its group and forms a partial (acc, m, l), and the last block of
+each (lane, group) merges the partials by log-sum-exp.  A group is the
+G = H/KvH query heads of a KV head, or where G is above ``MAX_GROUP`` a tile
+of that many of them (``groups``): any G runs, larger ones reading each K/V
+row once a tile.
 ``length`` is a scalar or one int per lane — the serving engine refills
 lanes independently, so each lane has its own — and chunks past a lane's
 length are not read.  bfloat16 runs ``decode_bf16_mma`` (the query heads of
@@ -18,10 +21,20 @@ returning the unnormalised accumulator and (m, l), so that sequence shards
 merge with ``merge_partials``, which stays plain tensor math as in the
 reference.
 
-The float32 partials and the per-(lane, KV head) counters live in one
+Head dims other than those of ``flash_attention.HEAD_DIMS`` (a multiple of
+8 up to 256) run zero-padded, and rows the kernel cannot read 16 bytes at a
+time are copied first, as in ``flash_attention``.
+
+The float32 partials and the per-(lane, group) counters live in one
 workspace per device, made once and grown when a call needs more; the
 kernel leaves every counter at 0.  The workspace serves one stream at a
 time (all the port uses): two calls in flight on two streams would share it.
+A CUDA graph captures the workspace's pointers, so growth never frees them:
+the tensors a growth supersedes are kept alive (``_retired``; each growth at
+least doubles, so they hold less than the workspace itself), and a graph
+captured before it still writes into valid memory.  Inside a capture the
+workspace does not grow: a call that needs more raises ``RuntimeError``
+naming the size — run that call once eagerly before capturing.
 
 CUDA tensors launch the kernel or raise; CPU tensors take the plain version
 (``ref.decode_attention_ref``).
@@ -37,11 +50,11 @@ from typing import Optional, Union
 import torch
 
 from . import _build
-from .flash_attention import HEAD_DIMS, check_rows
+from .flash_attention import kernel_head_dim, kernel_operands
 from .ref import decode_attention_ref
 
 CHUNK = 64          # chunks are whole multiples of this many cache positions
-MAX_GROUP = 16      # query heads a KV head: the rows of one mma tile
+MAX_GROUP = 16      # query heads a group: the rows of one mma tile
 SMS = 132           # SMs of an H100 SXM; a call asks its own device
 
 #: kernel launches made by ``decode_attention`` and ``partial_decode_attention``
@@ -74,27 +87,50 @@ def _launcher(dtype: torch.dtype):
 @functools.lru_cache(maxsize=256)
 def split(L: int, pairs: int, D: int, sms: int = SMS) -> tuple[int, int]:
     """``(chunk, n_chunks)`` for a cache of L positions read by ``pairs``
-    (lane, KV head) pairs: the largest multiple of ``CHUNK`` that still gives
-    every SM a block, within the 64 KB of bfloat16 K and V a block stages
-    (16384 / D positions), and no longer than the cache needs."""
+    (lane, group) pairs (``B * groups(H, KvH)``): the largest multiple of
+    ``CHUNK`` that still gives every SM a block, within the 64 KB of bfloat16
+    K and V a block stages (16384 / D positions), and no longer than the
+    cache needs."""
     cap = max(CHUNK, 16384 // D // CHUNK * CHUNK)
     chunk = max(CHUNK, L * pairs // sms // CHUNK * CHUNK)
     chunk = min(chunk, cap, -(-L // CHUNK) * CHUNK)
     return chunk, -(-L // chunk)
 
 
+def groups(H: int, KvH: int) -> int:
+    """Groups of query heads a call forms: ceil(G / MAX_GROUP) a KV head."""
+    return KvH * -(-(H // KvH) // MAX_GROUP)
+
+
 _workspaces: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
+#: workspace tensors a growth superseded, kept alive for the graphs that hold them
+_retired: list[torch.Tensor] = []
 _sms: dict[int, int] = {}
 
 
 def _workspace(device: torch.device, n_partials: int, n_counters: int):
     """(float32 partials, int32 counters) of ``device``, at least this large.
-    Counters are zeroed once, when made; the kernel leaves them at 0."""
+    Counters are zeroed once, when made; the kernel leaves them at 0.  A
+    growth at least doubles, keeps the superseded tensor alive, and is
+    refused inside a CUDA-graph capture."""
     partials, counters = _workspaces.get(device.index, (None, None))
-    if partials is None or partials.numel() < n_partials:
-        partials = torch.empty(max(n_partials, 1 << 16), dtype=torch.float32, device=device)
-    if counters is None or counters.numel() < n_counters:
-        counters = torch.zeros(max(n_counters, 256), dtype=torch.int32, device=device)
+    small = [t is None or t.numel() < n for t, n in ((partials, n_partials),
+                                                      (counters, n_counters))]
+    if any(small) and device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(f"decode_attention: the workspace must grow to {n_partials} float32 "
+                           f"partials and {n_counters} counters inside a CUDA-graph capture; "
+                           "run this call once outside the capture first")
+
+    def grown(t, n, least, make, dtype):
+        if t is not None:
+            _retired.append(t)
+            least = max(least, 2 * t.numel())
+        return make(max(n, least), dtype=dtype, device=device)
+
+    if small[0]:
+        partials = grown(partials, n_partials, 1 << 16, torch.empty, torch.float32)
+    if small[1]:
+        counters = grown(counters, n_counters, 256, torch.zeros, torch.int32)
     _workspaces[device.index] = (partials, counters)
     return partials, counters
 
@@ -128,21 +164,19 @@ def _call(q, k, v, length, scale, normalize):
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _SYMBOL:
         raise TypeError(f"decode_attention takes float32 or bfloat16, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"decode_attention: head dim {D} not in {HEAD_DIMS}")
-    if H // KvH > MAX_GROUP:
-        raise ValueError(f"decode_attention: {H // KvH} query heads a KV head; the kernel "
-                         f"takes at most {MAX_GROUP}")
+    Dk = kernel_head_dim(D, "decode_attention")
     if not (q.device == k.device == v.device):
         raise ValueError(f"operands on different devices: {q.device}, {k.device}, {v.device}")
-    check_rows(q, k, v)
+    q, k, v = kernel_operands(Dk, q, k, v)
     dev = q.device
     per_lane, scalar = _lengths(length, B, dev)
     if dev.index not in _sms:
         _sms[dev.index] = torch.cuda.get_device_properties(dev).multi_processor_count
-    chunk, n_chunks = split(L, B * KvH, D, _sms[dev.index])
-    partials, counters = _workspace(dev, B * KvH * n_chunks * ((H // KvH) * D + 32), B * KvH)
-    out = torch.empty((B, H, D), dtype=q.dtype, device=dev)
+    n_groups = B * groups(H, KvH)
+    chunk, n_chunks = split(L, n_groups, Dk, _sms[dev.index])
+    partials, counters = _workspace(
+        dev, n_groups * n_chunks * (min(H // KvH, MAX_GROUP) * Dk + 32), n_groups)
+    out = torch.empty((B, H, Dk), dtype=q.dtype, device=dev)
     m = l = None
     if not normalize:
         m, l = torch.empty((2, B, H), dtype=torch.float32, device=dev)
@@ -150,11 +184,13 @@ def _call(q, k, v, length, scale, normalize):
                       per_lane.data_ptr() if per_lane is not None else 0, out.data_ptr(),
                       m.data_ptr() if m is not None else 0, l.data_ptr() if l is not None else 0,
                       partials.data_ptr(), counters.data_ptr(), *q.stride()[:2], *k.stride()[:3],
-                      *v.stride()[:3], scalar, B, H, KvH, L, D, chunk, n_chunks, int(normalize), sc)
+                      *v.stride()[:3], scalar, B, H, KvH, L, Dk, chunk, n_chunks, int(normalize),
+                      sc)
     global launches
     rc = _build.on_device(dev, _launcher(q.dtype), args)
     _build.check_launch(rc, KERNEL[q.dtype])
     launches += 1
+    out = out[..., :D]
     return out if normalize else (out, m, l)
 
 

@@ -12,7 +12,14 @@ P·V), float32 runs ``flash_f32`` on the CUDA cores (held to 2e-5, which
 TF32 could not meet).  Both read any strided layout whose head dim is
 contiguous, so ``ops.mha`` hands them the model's (B,S,H,D) tensors as
 (B,H,S,D) views without copying, and they mask the ragged edges
-themselves: Sq and Sk need not tile, and the caller never pads.  Skipping the
+themselves: Sq and Sk need not tile, and the caller never pads.  The kernels
+are built for the head dims of ``HEAD_DIMS``; any other D up to 256 that is a
+multiple of 8 is zero-padded to the next of them by ``kernel_operands`` (exact:
+zero columns add nothing to q·k, and V's are cut from the output, which is
+then a (B,H,Sq,D) slice of the padded result), under the scale of the true D.
+Rows the kernels cannot read 16 bytes at a time (a stride or an address off
+16 bytes, a last dim that is not contiguous) are copied to contiguous ones
+first.  Both copies cost time only for shapes no ported arch runs.  Skipping the
 tiles outside a block's causal and window bounds is exact only for a row
 that sees at least one key; a row that sees none (possible only under a
 window, from row ``kv_len + window - 1`` on) would average V over whatever
@@ -29,6 +36,7 @@ import ctypes
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from . import _build
 from .ref import flash_attention_ref
@@ -57,18 +65,36 @@ def _launcher(dtype: torch.dtype):
     return _launchers[dtype]
 
 
-def check_rows(*tensors: torch.Tensor) -> None:
-    """The kernels read rows 16 bytes at a time: the last dim must be
-    contiguous, every other stride a whole number of 16 bytes, and the data
-    16-byte aligned."""
+def kernel_head_dim(D: int, who: str) -> int:
+    """The member of ``HEAD_DIMS`` a head dim D runs at: the least one >= D.
+    D must be a multiple of 8, at most 256."""
+    if D % 8 or not 0 < D <= HEAD_DIMS[-1]:
+        raise ValueError(f"{who}: head dim {D} is not a multiple of 8 up to {HEAD_DIMS[-1]}")
+    return next(d for d in HEAD_DIMS if d >= D)
+
+
+def rows_readable(t: torch.Tensor) -> bool:
+    """The kernels read rows 16 bytes at a time: the last dim contiguous,
+    every other stride a whole number of 16 bytes, the data 16-byte aligned."""
+    *outer, last = t.stride()
+    bits = 0
+    for s in outer:                         # a power of two divides each iff it divides their OR
+        bits |= s
+    return last == 1 and bits % (16 // t.element_size()) == 0 and t.data_ptr() % 16 == 0
+
+
+def kernel_operands(Dk: int, *tensors: torch.Tensor) -> list[torch.Tensor]:
+    """Each tensor as the kernels read it: its last dim zero-padded to Dk (a
+    new contiguous tensor), else itself where its rows are readable, else a
+    contiguous copy."""
+    out = []
     for t in tensors:
-        *outer, last = t.stride()
-        bits = 0
-        for s in outer:                     # a power of two divides each iff it divides their OR
-            bits |= s
-        if last != 1 or bits % (16 // t.element_size()) or t.data_ptr() % 16:
-            raise ValueError(f"rows of a {tuple(t.shape)} tensor with strides {t.stride()} "
-                             "are not contiguous and 16-byte aligned")
+        if t.shape[-1] != Dk:
+            t = F.pad(t, (0, Dk - t.shape[-1]))
+        elif not rows_readable(t):
+            t = torch.empty_like(t, memory_format=torch.contiguous_format).copy_(t)
+        out.append(t)
+    return out
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -79,7 +105,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     positions >= ``kv_len`` (default Sk) are masked out of the softmax; every
     query row must see at least one key.
     Returns (B, H, Sq, D) in q's dtype — on the card a (B,H,Sq,D) view of a
-    contiguous (B,Sq,H,D) tensor, the model's layout."""
+    contiguous (B,Sq,H,D) tensor, the model's layout (of a (B,Sq,H,Dk) one
+    where D is padded to the kernel's Dk)."""
     B, H, Sq, D = q.shape
     _, KvH, Sk, _ = k.shape
     if H % KvH != 0:
@@ -103,18 +130,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _SYMBOL:
         raise TypeError(f"flash_attention takes float32 or bfloat16, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {D} not in {HEAD_DIMS}")
+    Dk = kernel_head_dim(D, "flash_attention")
     if not (q.device == k.device == v.device):
         raise ValueError(f"operands on different devices: {q.device}, {k.device}, {v.device}")
-    check_rows(q, k, v)
-    out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device).transpose(1, 2)
+    q, k, v = kernel_operands(Dk, q, k, v)
+    out = torch.empty((B, Sq, H, Dk), dtype=q.dtype, device=q.device).transpose(1, 2)
     strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                                        *out.stride()[:3])
     global launches
     rc = _build.on_device(q.device, _launcher(q.dtype), q.data_ptr(), k.data_ptr(),
-                          v.data_ptr(), out.data_ptr(), B, H, KvH, Sq, Sk, D, strides, sc,
+                          v.data_ptr(), out.data_ptr(), B, H, KvH, Sq, Sk, Dk, strides, sc,
                           int(causal), window or 0, kv_len or Sk)
     _build.check_launch(rc, KERNEL[q.dtype])
     launches += 1
-    return out
+    return out[..., :D]

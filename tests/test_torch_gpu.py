@@ -174,8 +174,12 @@ DECODE_CASES_CARD = DECODE_CASES + [(300, 8, 2, 16, 257), (96, 6, 3, 32, 96),
 # (S, H, P, N, chunk): the reference's test_ssd_scan cases (a ragged tail, one chunk)
 SSD_CASES = [(64, 2, 16, 16, 16), (100, 1, 32, 16, 32), (128, 3, 8, 8, 128)]
 # ... and on the card also the smoke config's head (P 24, chunk 8), Mamba-2's
-# widths with a ragged tail, and two tiles of P
-SSD_CASES_CARD = SSD_CASES + [(40, 8, 24, 16, 8), (600, 4, 64, 128, 256), (300, 2, 80, 32, 64)]
+# widths with a ragged tail, two tiles of P, N and P off the mma tiles (N 20
+# and 12, P 24 and 72, a chunk of 8 in a tile of 64), and rows off 16 bytes
+# (odd P and N, read 4 bytes at a time) in chunks of 100 and of 3
+SSD_CASES_CARD = SSD_CASES + [(40, 8, 24, 16, 8), (600, 4, 64, 128, 256), (300, 2, 80, 32, 64),
+                              (77, 3, 24, 20, 8), (300, 2, 72, 12, 64), (150, 2, 13, 7, 100),
+                              (5, 1, 1, 1, 3)]
 # (S, D): the reference's test_rglru_scan cases (ragged both dims, one block)
 RGLRU_CASES = [(64, 32), (100, 48), (128, 8)]
 # ... and on the card also several rounds of the kernel, ragged, and tiny
@@ -463,10 +467,21 @@ def test_decode_partials_merge_to_the_full_result_on_card():
 
 @pytest.mark.gpu
 def test_attention_kernels_refuse_what_they_do_not_take_on_card():
+    """Head dims that are not a multiple of 8 up to 256, and half precision,
+    are refused; head dim 48 and rows that are not contiguous run, padded or
+    copied, and agree with the plain version."""
     dev = _cuda_or_skip()
-    q = torch.zeros((1, 4, 8, 48), device=dev)           # head dim 48
-    with pytest.raises(ValueError, match="head dim"):
-        fa.flash_attention(q, q, q)
+    q = torch.as_tensor(normal((1, 4, 8, 48), "float32", 0), device=dev)   # head dim 48
+    before = fa.launches
+    np.testing.assert_allclose(fa.flash_attention(q, q, q).cpu().numpy(),
+                               ref.flash_attention_ref(q, q, q).cpu().numpy(), **tol("float32"))
+    assert fa.launches == before + 1
+    for D in (50, 264):
+        odd = torch.zeros((1, 4, 8, D), device=dev)
+        with pytest.raises(ValueError, match="head dim"):
+            fa.flash_attention(odd, odd, odd)
+        with pytest.raises(ValueError, match="head dim"):
+            dec.decode_attention(odd[:, :, 0], odd.transpose(1, 2), odd.transpose(1, 2), 8)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         fa.flash_attention(q.half(), q.half(), q.half())
     for Sq, Sk, window, kv_len in FLASH_NO_KEY_CASES:
@@ -476,10 +491,12 @@ def test_attention_kernels_refuse_what_they_do_not_take_on_card():
                                *[torch.zeros((1, 2, Sk, 64), device=dev)] * 2,
                                window=window, kv_len=kv_len)
         assert fa.launches == before
-    x = torch.zeros((1, 4, 64), device=dev)
-    with pytest.raises(ValueError, match="not contiguous"):
-        dec.decode_attention(x, torch.zeros((1, 8, 64, 4), device=dev).transpose(2, 3),
-                             torch.zeros((1, 8, 4, 64), device=dev), 8)
+    x = torch.as_tensor(normal((1, 4, 64), "float32", 1), device=dev)
+    k = torch.as_tensor(normal((1, 8, 64, 4), "float32", 2), device=dev).transpose(2, 3)
+    v = torch.as_tensor(normal((1, 8, 4, 64), "float32", 3), device=dev)
+    np.testing.assert_allclose(dec.decode_attention(x, k, v, 8).cpu().numpy(),
+                               ref.decode_attention_ref(x, k, v, 8).cpu().numpy(),
+                               **tol("float32"))
 
 
 @pytest.mark.gpu
@@ -648,16 +665,20 @@ def test_flash_bf16_wgmma_matches_plain_on_card(B, Sq, Sk, H, KvH, D, causal, wi
 
 
 @pytest.mark.gpu
-def test_flash_bf16_refuses_rows_tma_cannot_read_on_card():
-    """TMA reads whole 16 bytes: a bf16 row stride of 68 elements is refused
-    with a ValueError and nothing runs, neither the kernel nor the plain
-    version."""
+def test_flash_bf16_copies_rows_tma_cannot_read_on_card():
+    """TMA reads whole 16 bytes: a bf16 row stride of 68 elements cannot be
+    read in place, so the wrapper copies the rows to contiguous ones and the
+    kernel runs once on the copy, in agreement with the plain version."""
     dev = _cuda_or_skip()
-    wide = torch.zeros((1, 2, 64, 68), device=dev, dtype=torch.bfloat16)[..., :64]
+    wide = torch.as_tensor(normal((1, 2, 64, 68), "bfloat16", 4), device=dev,
+                           dtype=torch.bfloat16)[..., :64]
+    assert not fa.rows_readable(wide)
     before = fa.launches
-    with pytest.raises(ValueError, match="16-byte"):
-        fa.flash_attention(wide, wide, wide)
-    assert fa.launches == before
+    got = fa.flash_attention(wide, wide, wide)
+    assert fa.launches == before + 1
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               ref.flash_attention_ref(wide, wide, wide).float().cpu().numpy(),
+                               **tol("bfloat16"))
 
 
 # (H, KvH, D): groups 1, 2, 8 and 16, every head dim
@@ -737,14 +758,196 @@ def test_decode_attention_graph_replay_equals_eager_on_card(dtype):
     assert int(counters.abs().sum()) == 0
 
 
+# -- C4: what the reference takes, the card takes ------------------------------------
+
+# (H, KvH): 32 and 64 query heads a KV head, and 20 (a group of 16 and one of 4)
+DECODE_WIDE_GROUPS = [(32, 1), (128, 2), (20, 1)]
+
+
 @pytest.mark.gpu
-def test_decode_refuses_more_heads_a_kv_head_than_a_tile_on_card():
-    """32 query heads over one KV head is more than the 16 rows of the mma
-    tile: a ValueError, and neither the kernel nor the plain version runs."""
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("H,KvH", DECODE_WIDE_GROUPS)
+def test_decode_takes_any_group_on_card(H, KvH, dtype):
+    """More query heads a KV head than the 16 rows of an mma tile: groups of
+    16, one launch, the output and the normalize=False partials (acc, m, l)
+    as the plain version gives them, at lengths around a chunk's edges."""
     dev = _cuda_or_skip()
-    q = torch.zeros((1, 32, 64), device=dev, dtype=torch.bfloat16)
-    kv = torch.zeros((1, 128, 1, 64), device=dev, dtype=torch.bfloat16)
+    B, L, D = 6, 700, 64
+    q, k, v = _on(dev, dtype, *attention_operands((B, H, D), (B, L, KvH, D), dtype, seed=H))
+    chunk, _ = dec.split(L, B * dec.groups(H, KvH), D,
+                         torch.cuda.get_device_properties(dev).multi_processor_count)
+    n = _split_lengths(L, chunk).to(dev)
     before = dec.launches
-    with pytest.raises(ValueError, match="at most 16"):
-        ops.decode(q, kv, kv, 100)
+    got = ops.decode(q, k, v, n)
+    parts = ops.decode_partial(q, k, v, n)
+    torch.cuda.synchronize()
+    assert dec.launches == before + 2
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               ref.decode_attention_ref(q, k, v, n).float().cpu().numpy(),
+                               **tol(dtype))
+    for g, w in zip(parts, ref.decode_attention_ref(q, k, v, n, normalize=False)):
+        np.testing.assert_allclose(g.float().cpu().numpy(), w.float().cpu().numpy(), **tol(dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("D", [48, 80])
+def test_attention_kernels_take_head_dims_between_theirs_on_card(D, dtype):
+    """D 48 and 80 run zero-padded to 64 and 128 under the scale of the true
+    D, and come back cut to D: K3 (causal, GQA, a window) and K4 (normalised
+    and partial) against their plain versions."""
+    dev = _cuda_or_skip()
+    q, k, v = _on(dev, dtype, *attention_operands((2, 100, 8, D), (2, 100, 2, D), dtype, seed=D))
+    for window in (None, 30):
+        got = ops.mha(q, k, v, causal=True, window=window)
+        assert got.shape == q.shape
+        want = ref.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                       causal=True, window=window).transpose(1, 2)
+        np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                                   **tol(dtype))
+    qd = q[:, -1]
+    n = torch.tensor([1, 77], dtype=torch.int32, device=dev)
+    got = ops.decode(qd, k, v, n)
+    assert got.shape == qd.shape
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               ref.decode_attention_ref(qd, k, v, n).float().cpu().numpy(),
+                               **tol(dtype))
+    for g, w in zip(ops.decode_partial(qd, k, v, n),
+                    ref.decode_attention_ref(qd, k, v, n, normalize=False)):
+        np.testing.assert_allclose(g.float().cpu().numpy(), w.float().cpu().numpy(), **tol(dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_attention_kernels_copy_unaligned_rows_on_card(dtype):
+    """Tensors whose data starts off 16 bytes: K3 and K4 copy them to
+    contiguous rows and agree with the plain version."""
+    dev = _cuda_or_skip()
+    B, S, H, KvH, D = 2, 70, 4, 2, 64
+
+    def off_by_one(shape, seed):
+        x = torch.as_tensor(normal((int(np.prod(shape)) + 1,), dtype, seed), device=dev)
+        return x.to(DTYPES[dtype])[1:].view(shape)
+
+    q, k, v = off_by_one((B, H, S, D), 20), off_by_one((B, KvH, S, D), 21), \
+        off_by_one((B, KvH, S, D), 22)
+    assert not any(fa.rows_readable(t) for t in (q, k, v))
+    np.testing.assert_allclose(fa.flash_attention(q, k, v).float().cpu().numpy(),
+                               ref.flash_attention_ref(q, k, v).float().cpu().numpy(),
+                               **tol(dtype))
+    qd, kc = off_by_one((B, H, D), 23), off_by_one((B, S, KvH, D), 24)
+    np.testing.assert_allclose(ops.decode(qd, kc, kc, 50).float().cpu().numpy(),
+                               ref.decode_attention_ref(qd, kc, kc, 50).float().cpu().numpy(),
+                               **tol(dtype))
+
+
+# -- C5: a captured graph never sees K4's workspace freed ----------------------------
+
+
+def _fresh_workspace(dev):
+    """Start from no workspace; what a test before this one held stays alive."""
+    held = dec._workspaces.pop(torch.cuda.current_device(), None)
+    if held is not None:
+        dec._retired.extend(held)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_decode_graph_replays_right_after_the_workspace_grows_on_card(dtype):
+    """Capture a K4 call on a small workspace, grow the workspace by a larger
+    eager call, then replay: the graph still writes into the memory it
+    captured (kept alive), and gives the eager result."""
+    dev = _cuda_or_skip()
+    _fresh_workspace(dev)
+    B, L, H, KvH, D = 4, 1024, 32, 4, 64
+    q, k, v = _on(dev, dtype, *attention_operands((B, H, D), (B, L, KvH, D), dtype, seed=12))
+    n = torch.tensor([1, 100, 513, 1024], dtype=torch.int32, device=dev)
+    eager = ops.decode(q, k, v, n).clone()
+    small, _ = dec._workspaces[q.device.index]
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(stream):
+        with torch.cuda.graph(graph, stream=stream):
+            out = ops.decode(q, k, v, n)
+    torch.cuda.current_stream().wait_stream(stream)
+    big = _on(dev, dtype, *attention_operands((16, 64, 64), (16, 8192, 4, 64), dtype, seed=13))
+    ops.decode(*big, 8192)
+    grown, _ = dec._workspaces[q.device.index]
+    assert grown.numel() > small.numel() and any(t is small for t in dec._retired)
+    for _ in range(3):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+    np.testing.assert_allclose(ops.decode(q, k, v, n).float().cpu().numpy(),
+                               eager.float().cpu().numpy(), **tol(dtype))
+
+
+@pytest.mark.gpu
+def test_decode_workspace_does_not_grow_inside_a_capture_on_card():
+    """A call that needs a larger workspace inside a capture raises a
+    RuntimeError that names the size, and launches nothing."""
+    dev = _cuda_or_skip()
+    _fresh_workspace(dev)
+    q, k, v = _on(dev, "bfloat16", *attention_operands((2, 8, 64), (2, 256, 2, 64), "bfloat16", 14))
+    ops.decode(q, k, v, 256)
+    big = _on(dev, "bfloat16", *attention_operands((16, 64, 64), (16, 8192, 4, 64), "bfloat16",
+                                                   15))
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    before = dec.launches
+    with pytest.raises(RuntimeError, match="must grow to .* inside a CUDA-graph capture"):
+        with torch.cuda.stream(stream):
+            with torch.cuda.graph(graph, stream=stream):
+                ops.decode(*big, 8192)
+    torch.cuda.synchronize()
     assert dec.launches == before
+
+
+# -- K5 on Hopper: several launches a call, scratch from the caching allocator ----------
+
+
+@pytest.mark.gpu
+def test_ssd_scan_graph_replay_equals_eager_on_card():
+    """A K5 call (four kernels, its scratch allocated inside the capture)
+    captured in a CUDA graph and replayed three times gives the eager result
+    each time."""
+    dev = _cuda_or_skip()
+    x, dA, Bc, Cc = _on(dev, "float32", *ssd_operands(2, 600, 4, 64, 128, lo=0.001, hi=0.02))
+    eager = ops.ssd_scan(x, dA, Bc, Cc, chunk=256).clone()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(stream):
+        ops.ssd_scan(x, dA, Bc, Cc, chunk=256)         # warm-up on the capturing stream
+        with torch.cuda.graph(graph, stream=stream):
+            out = ops.ssd_scan(x, dA, Bc, Cc, chunk=256)
+    torch.cuda.current_stream().wait_stream(stream)
+    for _ in range(3):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+
+
+@pytest.mark.gpu
+def test_ssd_scan_launcher_refuses_scratch_smaller_than_its_layout_on_card():
+    """The launcher holds the scratch it is given to its own layout: each of
+    C Bᵀ, the states and the decays one element short of ``scratch_shapes``
+    is refused before any kernel runs; the scratch as the wrapper allocates
+    it runs, and gives the wrapper's result."""
+    dev = _cuda_or_skip()
+    xs, dAs, Bc, Cc = _on(dev, "float32", *ssd_operands(1, 600, 2, 24, 20))
+    x, dA = xs.transpose(1, 2), dAs.transpose(1, 2)
+    y = torch.empty_like(x)
+    full = [torch.empty(shape, device=dev)
+            for shape in ssd_k.scratch_shapes(1, 2, 600, 24, 20, 256).values()]
+    for i in range(3):
+        short = list(full)
+        short[i] = full[i].flatten()[1:]
+        with pytest.raises(RuntimeError, match="cudaError"):
+            ssd_k._launch(x, dA, Bc, Cc, y, *short, 256)
+    ssd_k._launch(x, dA, Bc, Cc, y, *full, 256)
+    assert torch.equal(y, ssd_k.ssd_scan(x, dA, Bc, Cc, chunk=256))

@@ -24,7 +24,14 @@ PyTorch version on the card, then drives:
   RecurrentGemma;
 * the reference's decode-consistency invariant: teacher-forced decode steps
   against the forward pass over the same tokens, at full width (RecurrentGemma
-  cut to one group of its pattern, its window cut to 64).
+  cut to one group of its pattern, its window cut to 64);
+* the designer's differential check (``differential``): the design lowered
+  to RTL (``generate_verilog``) and run on the cycle-accurate simulator's
+  kernel generated per design, on 4096 stimulus vectors — the reference's
+  own matrix (nine designs at the sizes of its test x {inline, modules})
+  through ``run_differential`` (event-driven simulator on sample lanes, the
+  design's oracle on every lane, every RTL pass), cold and warm, and the
+  five loop nests at both sizes held to ``lower_to_cuda`` on every lane.
 
 Each path runs with every kernel's launch count set to 0 just before it and
 read just after; a row of the ``kernels`` line that names a main-path shape
@@ -40,9 +47,15 @@ their sum (``stage_device_ms``, ``stage_launches_per_call``,
 against the float64 recurrence over its limit (``worst_over_tolerance``) and
 a bound for products on the TF32 tensor cores in three passes; the prefill
 row adds each kernel's registers
-and spills (``tools/ptxas_usage.py``).  Output: one JSON object per line (``env``,
-``build``, ``k1_without_staging``, ``main_path``, then ``serve``, ``prefill``,
-``consistency`` and ``profile`` for each model, ``kernels``), the card's
+and spills (``tools/ptxas_usage.py``).  The simulator rows (``rtl_sim[...]``)
+carry ``cycles``, ``ns_per_cycle``, ``run_ms`` (a whole ``sim.run``, the
+stimulus copied to the card and laid out there, the results copied back)
+and the state words a lane their byte bound counts; a loop nest's large
+size is nested under its paper row, held to its plain version on 16 lanes
+spread over the batch, on the CPU (``plain_on``).  Output: one JSON object per line (``env``,
+``build``, ``k1_without_staging``, ``main_path``, ``differential``, then
+``serve``, ``prefill``, ``consistency`` and ``profile`` for each model,
+``kernels``), the card's
 name and power limit as ``nvidia-smi`` gives them, and a last line
 ``{"ok": true, "device": {...}}``.  Any mismatch or failure exits non-zero
 before that line.
@@ -50,7 +63,9 @@ before that line.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
+import functools
 import json
 import subprocess
 import sys
@@ -66,8 +81,11 @@ if not torch.cuda.is_available():
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-from repro_torch.core.gallery import (array_add, conv2d, gemm, histogram,  # noqa: E402
-                                      stencil1d, transpose)
+from repro_torch.core.codegen import sim as rtl_sim  # noqa: E402
+from repro_torch.core.codegen import sim_cuda  # noqa: E402
+from repro_torch.core.gallery import (array_add, conv2d, fifo, gemm,  # noqa: E402
+                                      gemm_shared, histogram, mac, stencil1d,
+                                      transpose)
 from repro_torch.core.lower import lower_to_cuda, lower_to_torch, simulate  # noqa: E402
 from repro_torch.core.lower import to_cuda  # noqa: E402
 from repro_torch.core.passes import DEFAULT_PIPELINE_SPEC, PassManager  # noqa: E402
@@ -87,6 +105,9 @@ from repro_torch.train.steps import make_prefill_step  # noqa: E402
 SEED = 0
 LANES = 4096
 SAMPLED_LANES = (0, 1, LANES // 2, LANES - 1)
+# the lanes a large loop nest's simulator kernel is held to its plain version
+# on, on the CPU: 16 spread over the batch, every block's warp a different one
+PLAIN_LANES = np.linspace(0, LANES - 1, 16).astype(np.int64)
 
 # published peaks of one H100 SXM (NVIDIA data sheet, dense)
 HBM_BYTES_PER_S = 3.35e12
@@ -110,6 +131,24 @@ DESIGN_LIBRARY = {
     "array_add": lambda a, b: torch.add(a, b),                  # int32 wraps alike
     "transpose": lambda a: a.transpose(-1, -2).contiguous(),
 }
+
+# the reference's own matrix of the RTL simulator, at the sizes of its test
+# (tests/core/test_rtl_sim.py): design -> (gallery module, build kwargs,
+# make_inputs kwargs, oracle); mac takes three scalars and returns one
+RTL_MATRIX = {
+    "array_add": (array_add, {"n": 8}, {"n": 8}, (array_add.oracle, 2)),
+    "transpose": (transpose, {"n": 4}, {"n": 4}, (transpose.oracle, 1)),
+    "gemm": (gemm, {"n": 4}, {"n": 4}, (gemm.oracle, 2)),
+    "gemm_shared": (gemm_shared, {"n": 4}, {"n": 4}, (gemm_shared.oracle, 2)),
+    "stencil1d": (stencil1d, {"n": 8}, {"n": 8}, (stencil1d.oracle, 1)),
+    "conv2d": (conv2d, {"h": 6, "w": 6}, {"h": 6, "w": 6}, (conv2d.oracle, 1)),
+    "histogram": (histogram, {"n": 8, "bins": 4}, {"n": 8, "bins": 4},
+                  (functools.partial(histogram.oracle, bins=4), 1)),
+    "fifo": (fifo, {"depth": 16, "n": 8}, {"n": 8}, (fifo.oracle, 1)),
+    "mac": (mac, {}, None, (None, 0)),
+}
+RTL_HIERARCHIES = ("inline", "modules")
+RTL_SEED = 7                       # stack_stimulus's base seed in the reference test
 
 # (M, K, N, tiles) of the matmul: the gallery GEMM's own binding, the ragged
 # shapes the tests use, and full-width products, square and ragged (padded by
@@ -296,9 +335,10 @@ def phase_env() -> str:
     return smi
 
 
-def phase_build(device) -> dict:
-    """Generate every design's kernel and start one nvcc per source, all at
-    once; then wait for them."""
+def phase_build(device) -> tuple[dict, list[dict]]:
+    """Generate every design's kernels — K1 of each loop nest, S1 of each
+    simulated design — and start one nvcc per source, all at once; then wait
+    for them.  Returns the compiled loop nests and the simulator cases."""
     t0 = time.perf_counter()
     compiled = {}
     pending = [_build.start_build(*_build.csrc_source(src))
@@ -309,12 +349,17 @@ def phase_build(device) -> dict:
             module, name, fn = compile_design(gal, size, device)
             compiled[(dname, tag)] = (module, name, fn, size)
             pending.append(_build.start_build(fn.stem, fn.source))
+    cases = rtl_cases(compiled, device)
+    for case in cases:
+        kernel = case["sim"].cuda_kernel()
+        pending.append(_build.start_build(kernel.stem, kernel.source))
+        case["stem"] = pending[-1].name
     for p in pending:
         _build.finish_build(p)
     secs = dict(_build.build_seconds)
     secs["_wall"] = time.perf_counter() - t0
     emit("build", secs)
-    return compiled
+    return compiled, cases
 
 
 def element_steps(module, name) -> int:
@@ -543,6 +588,225 @@ def phase_main_path(device) -> dict:
     torch.cuda.synchronize()
     emit("main_path", {"designs": report, "gemm_binding": "exact",
                        "matmul_shapes": [[M, K, N] for M, K, N, _ in MATMUL_SHAPES]})
+    return launches
+
+
+# -- the RTL simulator's kernel (S1) ----------------------------------------------
+
+
+def rtl_stimulus(dname: str, lanes: int) -> list[np.ndarray]:
+    """The reference test's stimulus: ``stack_stimulus`` of the design's
+    inputs from seed 7; mac's three scalar columns as its mac test draws
+    them."""
+    gal, _, ikw, _ = RTL_MATRIX[dname]
+    if ikw is None:
+        rng = np.random.default_rng(11)
+        return [rng.integers(0, 1 << 15, size=lanes).astype(np.int64) for _ in range(3)]
+    return rtl_sim.stack_stimulus(gal.make_inputs, lanes, base_seed=RTL_SEED, **ikw)
+
+
+def rtl_cases(compiled, device) -> list[dict]:
+    """Every design the simulator runs on the card, with its simulator and
+    stimulus: the reference's matrix (nine designs at the sizes of its test
+    x {inline, modules}, unoptimized as the test builds them) and the five
+    loop nests at both sizes (inline, after the optimizer, as K1 runs them)."""
+    cases = []
+    for dname, (gal, bkw, _, _) in RTL_MATRIX.items():
+        batch = rtl_stimulus(dname, LANES)
+        for hierarchy in RTL_HIERARCHIES:
+            module, entry = gal.build(**bkw)
+            sim, prepared = rtl_sim.simulator_for(module, entry, hierarchy=hierarchy,
+                                                  device=device)
+            cases.append({"name": f"rtl_sim[{dname},{hierarchy},{LANES} lanes]",
+                          "design": dname, "hierarchy": hierarchy, "tag": "matrix",
+                          "module": module, "entry": entry, "sim": sim, "batch": batch,
+                          "cycles": rtl_sim.probe_cycles(prepared, entry,
+                                                         [c[0] for c in batch])})
+    for (dname, tag), (module, name, fn, size) in compiled.items():
+        gal = next(g for d, g, _, _ in DESIGNS if d == dname)
+        batch = stimulus(gal, size, LANES)
+        sim, prepared = rtl_sim.simulator_for(module, name, device=device)
+        cases.append({"name": f"rtl_sim[{dname},{tag},inline,{LANES} lanes]",
+                      "design": dname, "hierarchy": "inline", "tag": tag, "size": size,
+                      "module": module, "entry": name, "sim": sim, "batch": batch, "k1": fn,
+                      "cycles": drained_cycles(prepared, name, [c[0] for c in batch])})
+    return cases
+
+
+def drained_cycles(prepared, entry, lane0) -> int:
+    """Cycles a loop nest runs until its last write has landed: the
+    event-driven simulator's count, plus ``probe_cycles``' margin of 16, plus
+    a quarter of the count.  The RTL of a sequential loop nest finishes one
+    cycle per outer iteration later than the event-driven simulator says
+    (ROADMAP R9: transpose n x n, n cycles; conv2d h x w, 2h - 1), which the
+    margin of 16 covers only at the reference test's sizes.  Cycles past the
+    end leave a finished design's state as it is."""
+    event = rtl_sim.probe_cycles(prepared, entry, lane0, margin=0)
+    return event + 16 + event // 4
+
+
+def plain_twin(sim, device=None):
+    """The same compiled tape on the plain backend (``_TorchOps``), on the
+    same device or on ``device``."""
+    twin = copy.copy(sim)
+    twin.backend, twin._kernel = "torch", None
+    if device is not None:
+        twin.device = device
+    return twin
+
+
+def lanes_of(res, idx):
+    """The lanes ``idx`` of a simulator result."""
+    return dataclasses.replace(
+        res, batch=len(idx), arrays={i: a[idx] for i, a in res.arrays.items()},
+        returns=[r[idx] for r in res.returns], returns_valid=[v[idx] for v in res.returns_valid],
+        conflicts=res.conflicts[idx],
+        trace=None if res.trace is None else {n: y[:, idx] for n, y in res.trace.items()})
+
+
+def s1_words(sim, lay) -> int:
+    """Words a lane the run must move at least: each ``st`` word and each
+    shift-register ring word read once and written once, each memory word
+    read once and written once more where the tape writes that memory."""
+    written = {ent[1] for ent in sim.clocked if ent[0] == "memwr"}
+    return (2 * (len(lay.slots) + lay.ring_rows)
+            + sum(d * (1 + (key in written)) for key, _, d in lay.mems))
+
+
+def same_sim_result(a, b) -> bool:
+    return (sorted(a.arrays) == sorted(b.arrays)
+            and all(np.array_equal(a.arrays[i], b.arrays[i]) for i in a.arrays)
+            and all(np.array_equal(x, y) for x, y in zip(a.returns, b.returns))
+            and all(np.array_equal(x, y) for x, y in zip(a.returns_valid, b.returns_valid))
+            and np.array_equal(a.conflicts, b.conflicts)
+            and (a.trace is None) == (b.trace is None)
+            and (a.trace is None or (list(a.trace) == list(b.trace) and all(
+                np.array_equal(a.trace[n], b.trace[n]) for n in a.trace))))
+
+
+def s1_case(case, device) -> dict:
+    """One simulator kernel, timed at its main-path shape, against the plain
+    version (arrays, returns, valid flags, conflict counts and traces): on
+    the same card and the same lanes for the matrix and the paper sizes; at
+    the large sizes, where the eager plain version on the card would take
+    some 10^6 launches, on the CPU on ``PLAIN_LANES``, held to those lanes
+    of the kernel's run over the whole batch and to the kernel run on them
+    alone with its trace."""
+    sim, batch, cycles = case["sim"], case["batch"], case["cycles"]
+    kernel = sim.cuda_kernel()
+    row = {"name": case["name"], "route": "cuda",
+           "source": "src/repro_torch/core/codegen/sim_cuda.py",
+           "replaces": "src/repro/core/codegen/sim.py:797 (jit(scan(vmap(step))), "
+                       "no TPU kernel)",
+           "shape": {"design": case["design"], "hierarchy": case["hierarchy"],
+                     "size": case.get("size") or ("test" if case["tag"] == "matrix"
+                                                  else "default"),
+                     "lanes": LANES},
+           "launches": 0, "tolerance": 0}
+    kernel.build()                              # the library loaded before any timing
+    full = {}
+    row["run_ms"] = wall_ms(lambda: full.update(res=sim.run(
+        batch, cycles, batched=True, check_conflicts=False)))
+    if case["tag"] != "large":
+        got = sim.run(batch, cycles, batched=True, trace=True, check_conflicts=False)
+        plain = {}
+        row["plain_ms"] = wall_ms(lambda: plain.update(res=plain_twin(sim).run(
+            batch, cycles, batched=True, trace=True, check_conflicts=False)))
+        same = same_sim_result(got, plain["res"])
+    else:
+        part = [c[PLAIN_LANES] for c in batch]
+        got = sim.run(part, cycles, batched=True, trace=True, check_conflicts=False)
+        t0 = time.perf_counter()
+        plain = plain_twin(sim, torch.device("cpu")).run(
+            part, cycles, batched=True, trace=True, check_conflicts=False)
+        row["plain_ms"] = (time.perf_counter() - t0) * 1e3
+        row["plain_on"] = f"cpu, {len(PLAIN_LANES)} of {LANES} lanes"
+        same = (same_sim_result(got, plain) and same_sim_result(
+            lanes_of(full["res"], PLAIN_LANES), dataclasses.replace(plain, trace=None)))
+    if not same:
+        fail(f"{case['name']}: the simulator kernel differs from its plain version")
+    row["max_abs_err"] = 0
+    bufs = kernel.buffers(sim, batch, LANES, device)
+    iters = 3 if cycles > 1000 else 10
+    row["ms"] = time_ms(lambda: kernel.launch(bufs, LANES, cycles, None, device), iters)
+    words = s1_words(sim, kernel.layout)
+    row.update({"state_words_moved_per_lane": words,
+                "bound_ms": words * LANES * 8 / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+                "library_ms": None, "cycles": cycles, "ns_per_cycle": row["ms"] * 1e6 / cycles})
+    del bufs, full
+    return row
+
+
+def phase_kernels_s1(cases, device) -> list[dict]:
+    """Every simulator kernel at its main-path shape; a loop nest's large
+    size is nested under its paper row (``large``)."""
+    rows, by_name = [], {}
+    for case in cases:
+        row = s1_case(case, device)
+        by_name[(case["design"], case["tag"])] = row
+        if case["tag"] == "large":
+            by_name[(case["design"], "paper")]["large"] = row
+        else:
+            rows.append(row)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_differential(cases, device) -> dict:
+    """The designer's check on the card, through the public entry points:
+    ``run_differential`` on 4096 vectors for the reference's matrix (the
+    kernel over the whole batch, the event-driven simulator on sample lanes,
+    the design's oracle on every lane, every RTL pass on 16 lanes), cold and
+    warm; then each loop nest at both sizes through ``simulator_for`` with
+    its final arrays held to ``lower_to_cuda`` on every lane.  Returns the
+    launches of each case."""
+    launches: dict[str, int] = {}
+    matrix, nests = [], []
+    for case in cases:
+        dname, entry, module, batch = case["design"], case["entry"], case["module"], case["batch"]
+        before = sim_cuda.launches
+        if case["tag"] == "matrix":
+            oracle, nargs = RTL_MATRIX[dname][3]
+            seconds = []
+            for _ in ("cold", "warm"):
+                t0 = time.perf_counter()
+                rep = rtl_sim.run_differential(module, entry, batch, kernel=dname,
+                                               hierarchy=case["hierarchy"], oracle=oracle,
+                                               oracle_nargs=nargs, device=device)
+                seconds.append(time.perf_counter() - t0)
+                if not rep.ok or rep.backend != "cuda" or rep.n_vectors != LANES:
+                    fail(f"{case['name']}: run_differential {rep.backend}: {rep.mismatches[:4]}")
+            if dname == "mac":          # the oracle leg of the reference's mac test
+                sim, prepared = rtl_sim.simulator_for(module, entry,
+                                                      hierarchy=case["hierarchy"], device=device)
+                res = sim.run(batch, case["cycles"], batched=True)
+                want = np.array([mac.oracle(int(a), int(b), int(c)) for a, b, c in zip(*batch)])
+                if not (np.all(res.returns_valid[0] == 1) and np.array_equal(res.returns[0], want)):
+                    fail(f"{case['name']}: returns differ from mac.oracle")
+            matrix.append({"design": dname, "hierarchy": case["hierarchy"], "ok": rep.ok,
+                           "vectors": rep.n_vectors, "cycles": rep.cycles,
+                           "event_lanes": rep.event_lanes_checked, "oracle_ok": rep.oracle_ok,
+                           "passes_ok": rep.passes_ok,
+                           "seconds_to_result_cold": seconds[0],
+                           "nvcc_s": _build.build_seconds.get(case["stem"], 0.0),
+                           "seconds_to_result_warm": seconds[1]})
+        else:
+            t0 = time.perf_counter()
+            sim, prepared = rtl_sim.simulator_for(module, entry, device=device)
+            cycles = drained_cycles(prepared, entry, [c[0] for c in batch])
+            res = sim.run(batch, cycles, batched=True)
+            out = module.get(entry).args[-1].name
+            k1 = as_i64(case["k1"](*batch[:n_read_ports(module, entry)])[out])
+            secs = time.perf_counter() - t0
+            lanes_equal = int(sum(np.array_equal(res.arrays[len(batch) - 1][s], k1[s])
+                                  for s in range(LANES)))
+            if lanes_equal != LANES:
+                fail(f"{case['name']}: {LANES - lanes_equal} lanes differ from lower_to_cuda")
+            nests.append({"design": dname, "size": case["size"] or "default", "lanes": LANES,
+                          "cycles": cycles, "lanes_equal_to_lower_to_cuda": lanes_equal,
+                          "seconds_to_result": secs})
+        launches[case["name"]] = sim_cuda.launches - before
+    emit("differential", {"matrix": matrix, "loop_nests": nests})
     return launches
 
 
@@ -946,7 +1210,7 @@ def phase_kernels_k6(device) -> list[dict]:
 # -- serving ------------------------------------------------------------------------
 
 KERNELS = {"lower_to_cuda": to_cuda, "matmul": mm, "flash_attention": fa,
-           "decode_attention": dec, "ssd_scan": ssd_k, "rglru_scan": rg}
+           "decode_attention": dec, "ssd_scan": ssd_k, "rglru_scan": rg, "rtl_sim": sim_cuda}
 
 
 def zero_counts() -> None:
@@ -1169,8 +1433,9 @@ def main() -> None:
     device = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False     # the library yardstick is float32 too
     smi = phase_env()
-    compiled = phase_build(device)
+    compiled, cases = phase_build(device)
     rows = phase_kernels_k1(compiled, device) + phase_kernels_k2(device)
+    s1_rows = phase_kernels_s1(cases, device)
     phase_k1_without_staging(device)
     k3_rows, k4_rows = phase_kernels_k3(device), phase_kernels_k4(device)
     k5_rows, k6_rows = phase_kernels_k5(device), phase_kernels_k6(device)
@@ -1188,6 +1453,18 @@ def main() -> None:
             fail(f"{kernel}: launches per case do not add up to the wrapper's count {n}")
     for row in rows:
         row["launches"] = per_case.get(row["name"], 0)
+
+    # the designer's differential check, the counts at 0 just before it
+    zero_counts()
+    per_case = phase_differential(cases, device)
+    if sim_cuda.launches != sum(per_case.values()):
+        fail(f"rtl_sim: launches per case do not add up to the wrapper's count")
+    for row in s1_rows:
+        row["launches"] = per_case.get(row["name"], 0)
+        if "large" in row:
+            row["large"]["launches"] = per_case.get(row["large"]["name"], 0)
+            if row["large"]["launches"] <= 0:
+                fail(f"the main path never launched {row['large']['name']}")
 
     # the serving paths, each phase with the counts at 0 just before it
     dense = serve_model(ARCH, device)
@@ -1207,7 +1484,7 @@ def main() -> None:
     k3_256[1]["launches"] = rgemma["consistency"]["f32"]["flash_attention"]
     k4_256[0]["launches"] = rgemma["serve"]["decode_attention"]
     k4_256[1]["launches"] = rgemma["consistency"]["f32"]["decode_attention"]
-    rows += k3_rows + k4_rows + k5_rows + k6_rows + k3_256 + k4_256
+    rows += k3_rows + k4_rows + k5_rows + k6_rows + k3_256 + k4_256 + s1_rows
     for row in rows:
         if row["launches"] <= 0:
             fail(f"the main path never launched {row['name']}")

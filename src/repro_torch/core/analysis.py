@@ -625,3 +625,241 @@ class DependenceAnalysis(FunctionAnalysis):
 
         visit(func, func.body)
         return DependenceInfo(edges, touches)
+
+
+# ---------------------------------------------------------------------------
+# Activation intervals (RTL-level pulse schedules)
+# ---------------------------------------------------------------------------
+
+#: Lattice top: "may be nonzero at any cycle" (unknown pulse schedule).
+PULSES_TOP = None
+
+#: Finite pulse sets larger than this collapse to ``PULSES_TOP`` so the
+#: fixpoint stays bounded on pathological schedules.
+PULSE_SET_CAP = 4096
+
+
+def _pulse_join(a, b):
+    """Join of two pulse sets (``frozenset`` of cycle offsets, or TOP)."""
+    if a is PULSES_TOP or b is PULSES_TOP:
+        return PULSES_TOP
+    u = a | b
+    return PULSES_TOP if len(u) > PULSE_SET_CAP else u
+
+
+def _pulse_shift(s, d):
+    if s is PULSES_TOP:
+        return PULSES_TOP
+    return frozenset(t + d for t in s)
+
+
+_EMPTY_PULSES = frozenset()
+
+
+@dataclass
+class ActivationIntervals:
+    """Result of the ``activation-intervals`` analysis over one RTL module.
+
+    ``pulses[net]`` is the *sound superset* of cycle offsets — relative to
+    the module's ``t_start`` pulse — at which ``net`` can be nonzero, or
+    ``PULSES_TOP`` (``None``) when unknown.  Only single-bit pulse networks
+    get finite sets (activation pulses derived from ``t_start`` through
+    ``ShiftReg`` delay taps, ``LoopController`` iteration pulses with
+    constant bounds, and the boolean algebra over them); datapath nets are
+    TOP.  ``rtl-share-instances`` proves two instances may share one body by
+    showing their ``t_start`` pulse sets are finite and disjoint."""
+
+    pulses: "dict[str, Optional[frozenset]]" = field(default_factory=dict)
+
+    def of_net(self, name: str):
+        return self.pulses.get(name, PULSES_TOP)
+
+    def of_expr(self, e):
+        """Pulse set of an arbitrary RTL expression under this solution."""
+        return _pulses_of_expr(e, self.pulses)
+
+
+#: expr operators through which a pulse on either operand propagates
+#: (output can only be nonzero when some operand is)
+_PULSE_UNION_OPS = frozenset({"|", "||", "^", "+", "-"})
+#: operators whose output is zero whenever *either* operand is zero
+_PULSE_MEET_OPS = frozenset({"&", "&&", "*"})
+
+
+def _pulses_of_expr(e, env):
+    """Evaluate the pulse set of expression ``e`` under net solution ``env``
+    (missing nets are TOP — reads of undriven nets stay unknown).  Iterative
+    post-order so ~256-deep bus-mux chains don't recurse."""
+    from .codegen import rtl
+
+    memo: dict[int, object] = {}
+    stack = [e]
+    while stack:
+        cur = stack[-1]
+        if id(cur) in memo:
+            stack.pop()
+            continue
+        if isinstance(cur, rtl.Const):
+            memo[id(cur)] = _EMPTY_PULSES if cur.value == 0 else PULSES_TOP
+            stack.pop()
+            continue
+        if isinstance(cur, rtl.Ref):
+            memo[id(cur)] = env.get(cur.name, PULSES_TOP)
+            stack.pop()
+            continue
+        kids = cur._children()
+        pending = [c for c in kids if id(c) not in memo]
+        if pending:
+            stack.extend(pending)
+            continue
+        stack.pop()
+        if isinstance(cur, rtl.Binop):
+            a, b = memo[id(cur.a)], memo[id(cur.b)]
+            if cur.op in _PULSE_UNION_OPS:
+                r = _pulse_join(a, b)
+            elif cur.op in _PULSE_MEET_OPS:
+                if a == _EMPTY_PULSES or b == _EMPTY_PULSES:
+                    r = _EMPTY_PULSES
+                elif a is PULSES_TOP:
+                    r = b
+                elif b is PULSES_TOP:
+                    r = a
+                else:
+                    r = a & b
+            elif cur.op in ("<<", ">>", ">>>"):
+                # a shifted by zero/any amount is zero iff a is zero
+                r = memo[id(cur.a)]
+            else:  # comparisons etc. can be nonzero when operands are zero
+                r = PULSES_TOP
+        elif isinstance(cur, rtl.Mux):
+            # cond only *selects*; output nonzero => a or b nonzero
+            r = _pulse_join(memo[id(cur.a)], memo[id(cur.b)])
+        elif isinstance(cur, (rtl.Signed, rtl.Repeat)):
+            r = memo[id(cur.a)]
+        elif isinstance(cur, rtl.Unop):
+            r = memo[id(cur.a)] if cur.op == "-" else PULSES_TOP
+        else:
+            r = PULSES_TOP
+        memo[id(cur)] = r
+    return memo[id(e)]
+
+
+def _controller_pulses(it, env):
+    """(iter_pulses, endp_pulses) for one ``LoopController`` under ``env``.
+
+    For a pipelined controller started at cycle ``s`` with constant bounds,
+    the iteration pulse fires at ``{s + m*ii : 0 <= m < trip}`` with
+    ``trip = max(1, ceil((ub-lb)/step))`` and the completion pulse at
+    ``s + trip*ii + 1`` (registered).  Sequential controllers advance on the
+    inner loop's completion pulse instead.  Everything non-constant is TOP."""
+    from .codegen import rtl
+
+    start = _pulses_of_expr(it.start, env)
+    if it.ii is None:  # sequential: advances on inner_end
+        inner = (_pulses_of_expr(it.inner_end, env)
+                 if it.inner_end is not None else PULSES_TOP)
+        return _pulse_join(start, inner), _pulse_shift(inner, 1)
+    if start is PULSES_TOP:
+        return PULSES_TOP, PULSES_TOP
+    consts = []
+    for b in (it.lb, it.ub, it.step):
+        if not isinstance(b, rtl.Const) or not isinstance(b.value, int):
+            return PULSES_TOP, PULSES_TOP
+        consts.append(b.value)
+    lb, ub, step = consts
+    if step <= 0 or ub > (1 << it.ivw):  # iv wrap would extend the trip
+        return PULSES_TOP, PULSES_TOP
+    trip = max(1, -((lb - ub) // step)) if ub > lb else 1
+    if trip * max(1, len(start)) > PULSE_SET_CAP:
+        return PULSES_TOP, PULSES_TOP
+    iters = frozenset(s + m * it.ii for s in start for m in range(trip))
+    endp = frozenset(s + trip * it.ii + 1 for s in start)
+    return iters, endp
+
+
+@register_analysis
+class ActivationIntervalsAnalysis(FunctionAnalysis):
+    """Per-net activation pulse schedules of one ``RTLModule`` (keyed on the
+    module object, like ``net-fanout``).  Worklist fixpoint from bottom
+    (``frozenset()``); every transfer is monotone w.r.t. the
+    join-semilattice ``∅ ⊑ finite ⊑ TOP``, and finite sets are capped, so
+    the fixpoint terminates.  Nets driven by data-dependent state
+    (registers, memories, instance results, loop induction variables) are
+    TOP; the interesting finite sets are the ``t_start``-derived pulse
+    networks the lowering builds for operand/result timing."""
+
+    name = "activation-intervals"
+
+    @staticmethod
+    def run(func, am: AnalysisManager) -> ActivationIntervals:
+        from .codegen import rtl
+
+        m = func  # an RTLModule
+        env: dict[str, object] = {}
+        readers: dict[str, list] = {}
+        for it in m.items:
+            for r in it.reads():
+                readers.setdefault(r, []).append(it)
+        for p in m.ports:
+            if p.dir == "input":
+                env[p.name] = _EMPTY_PULSES if p.name == "t_start" else PULSES_TOP
+        # nets written by clocked/data items are TOP from the start; pulse
+        # networks (CombAssign / 1-bit reset_zero ShiftReg / controller
+        # iter+endp) start at bottom and grow monotonically
+        pulse_driven: set = set()
+        for it in m.items:
+            if isinstance(it, rtl.CombAssign):
+                pulse_driven.add(it.dest)
+            elif isinstance(it, rtl.ShiftReg):
+                if it.width == 1 and it.reset_zero:
+                    pulse_driven.add(it.dest)
+                else:
+                    env[it.dest] = PULSES_TOP
+            elif isinstance(it, rtl.LoopController):
+                pulse_driven.add(it.iter_net)
+                if it.endp:
+                    pulse_driven.add(it.endp)
+                for n in (it.iv, it.active, it.iicnt):
+                    if n:
+                        env[n] = PULSES_TOP
+            else:
+                for w in it.writes():
+                    env[w] = PULSES_TOP
+        # t_start seeds the input-port entry {0}; multi-driven pulse nets
+        # join all driver contributions (env entries above win as TOP)
+        if "t_start" in env and env["t_start"] is not PULSES_TOP:
+            env["t_start"] = frozenset((0,))
+        for n in pulse_driven:
+            env.setdefault(n, _EMPTY_PULSES)
+
+        def contribution(it):
+            if isinstance(it, rtl.CombAssign):
+                return ((it.dest, _pulses_of_expr(it.expr, env)),)
+            if isinstance(it, rtl.ShiftReg):
+                return ((it.dest, _pulse_shift(_pulses_of_expr(it.src, env),
+                                               it.depth)),)
+            if isinstance(it, rtl.LoopController):
+                iters, endp = _controller_pulses(it, env)
+                out = [(it.iter_net, iters)]
+                if it.endp:
+                    out.append((it.endp, endp))
+                return out
+            return ()
+
+        work = list(m.items)
+        seen = set(map(id, work))
+        while work:
+            it = work.pop()
+            seen.discard(id(it))
+            for dest, val in contribution(it):
+                if dest not in pulse_driven:
+                    continue  # also written by a TOP item: stays TOP
+                old = env.get(dest, _EMPTY_PULSES)
+                new = _pulse_join(old, val)
+                if new != old:
+                    env[dest] = new
+                    for rd in readers.get(dest, ()):
+                        if id(rd) not in seen:
+                            seen.add(id(rd))
+                            work.append(rd)
+        return ActivationIntervals(pulses=env)

@@ -63,6 +63,10 @@ from .unroll import Unroll, unroll_loops
 from .schedule_transforms import PipelineLoop, Retime, pipeline_loops, retime
 from .loop_transforms import (Interchange, Tile, interchange_loops,
                               tile_innermost)
+# RTL-level passes (they run on an RTLDesign, not an HIR Module, but share
+# the registry/PassManager infrastructure and spec naming)
+from ..codegen.rtl import (RTL_PIPELINE_SPEC, CombShare, ControllerMerge,
+                           DeadNetElim, MemReadShare, ShiftRegMerge)
 
 #: Legacy list-of-callables form of the default pipeline (kept for direct
 #: imports; the declarative form is ``DEFAULT_PIPELINE_SPEC``).
@@ -96,6 +100,7 @@ __all__ = [
     "DEFAULT_PIPELINE_SPEC",
     "CODEGEN_PIPELINE_SPEC",
     "SCHEDULE_PIPELINE_SPEC",
+    "RTL_PIPELINE_SPEC",
     "AnalysisManager",
     "FunctionAnalysis",
     "register_analysis",
@@ -132,4 +137,9 @@ __all__ = [
     "Unroll",
     "PipelineLoop",
     "Retime",
+    "DeadNetElim",
+    "ShiftRegMerge",
+    "CombShare",
+    "ControllerMerge",
+    "MemReadShare",
 ]

@@ -19,6 +19,8 @@ import torch
 from repro_torch.core import gallery as port_gallery
 from repro_torch.core import ir as port_ir
 from repro_torch.core.builder import Builder as PortBuilder
+from repro_torch.core.codegen import sim as port_sim
+from repro_torch.core.codegen.rtl import Binop, Const, PortConflictAssert, Ref
 from repro_torch.core.gallery import gemm
 from repro_torch.configs.registry import get_smoke_config
 from repro_torch.core.lower import lower_to_cuda
@@ -143,6 +145,83 @@ def normal(shape, name, seed):
 
 def matmul_operands(M, K, N, name):
     return normal((M, K), name, 0), normal((K, N), name, 1)
+
+
+# -- the RTL simulator's matrix: tests/core/test_rtl_sim.py's designs and sizes ---
+
+# kernel -> (build kwargs, make_inputs kwargs, oracle arguments, oracle kwargs);
+# mac takes three scalars (make_inputs None) and returns one
+RTL_KERNELS = {
+    "array_add": ({"n": 8}, {"n": 8}, 2, {}),
+    "transpose": ({"n": 4}, {"n": 4}, 1, {}),
+    "gemm": ({"n": 4}, {"n": 4}, 2, {}),
+    "gemm_shared": ({"n": 4}, {"n": 4}, 2, {}),
+    "stencil1d": ({"n": 8}, {"n": 8}, 1, {}),
+    "conv2d": ({"h": 6, "w": 6}, {"h": 6, "w": 6}, 1, {}),
+    "histogram": ({"n": 8, "bins": 4}, {"n": 8, "bins": 4}, 1, {"bins": 4}),
+    "fifo": ({"depth": 16, "n": 8}, {"n": 8}, 1, {}),
+    "mac": ({}, None, 3, {}),
+}
+HIERARCHIES = ["inline", "modules"]
+
+
+def rtl_design(kernel):
+    """(module, entry) of one design of the matrix at its test size."""
+    return port_gallery.GALLERY[kernel].build(**RTL_KERNELS[kernel][0])
+
+
+def rtl_stimulus(kernel, lanes, base_seed=7):
+    """Batch-first stimulus: ``stack_stimulus`` of the design's inputs, or
+    for mac three scalar columns drawn as the reference's mac test draws
+    them."""
+    ikw = RTL_KERNELS[kernel][1]
+    if ikw is None:
+        rng = np.random.default_rng(11)
+        return [rng.integers(0, 1 << 15, size=lanes).astype(np.int64) for _ in range(3)]
+    return port_sim.stack_stimulus(port_gallery.GALLERY[kernel].make_inputs, lanes,
+                                   base_seed=base_seed, **ikw)
+
+
+def rtl_oracle(kernel):
+    """(oracle, its argument count) as ``run_differential`` takes them."""
+    _, _, nargs, okw = RTL_KERNELS[kernel]
+    fn = port_gallery.GALLERY[kernel].oracle
+    return (lambda *a: fn(*a, **okw)), nargs
+
+
+def conflict_probe(backend, device):
+    """mac's simulator with one more §4.5 assert, over ``a & 1`` and
+    ``t_start``: it fires at cycle 0 in the lanes where ``a`` is odd, so the
+    conflict count differs from lane to lane.  Returns (sim, cycles)."""
+    from repro_torch.core.codegen import generate_verilog
+
+    module, entry = rtl_design("mac")
+    prepared = module.clone()
+    design = port_sim.design_of(generate_verilog(prepared, entry), entry)
+    top = design.modules[entry]
+    a_port = top.arg_ports[0][0][0]
+    top.items.append(PortConflictAssert("probe", [Binop("&", Ref(a_port), Const(1, 1)),
+                                                  Ref("t_start")]))
+    sim = port_sim.RTLSimulator(design, prepared.funcs[entry], entry, backend=backend,
+                                device=device)
+    return sim, port_sim.probe_cycles(prepared, entry, [0, 0, 0])
+
+
+def assert_same_sim_result(got, want):
+    """Arrays, returns, valid flags, conflict counts and traces all equal."""
+    assert got.cycles == want.cycles and got.batch == want.batch
+    assert sorted(got.arrays) == sorted(want.arrays)
+    for i in want.arrays:
+        np.testing.assert_array_equal(got.arrays[i], want.arrays[i], err_msg=f"arg {i}")
+    for j, (r, v) in enumerate(zip(want.returns, want.returns_valid)):
+        np.testing.assert_array_equal(got.returns[j], r, err_msg=f"result {j}")
+        np.testing.assert_array_equal(got.returns_valid[j], v, err_msg=f"valid {j}")
+    np.testing.assert_array_equal(got.conflicts, want.conflicts)
+    assert (got.trace is None) == (want.trace is None)
+    if want.trace is not None:
+        assert list(got.trace) == list(want.trace)
+        for name in want.trace:
+            np.testing.assert_array_equal(got.trace[name], want.trace[name], err_msg=name)
 
 
 # (Sq, Sk, H, KvH, D, window): the reference's test_flash_attention cases
@@ -951,3 +1030,109 @@ def test_ssd_scan_launcher_refuses_scratch_smaller_than_its_layout_on_card():
             ssd_k._launch(x, dA, Bc, Cc, y, *short, 256)
     ssd_k._launch(x, dA, Bc, Cc, y, *full, 256)
     assert torch.equal(y, ssd_k.ssd_scan(x, dA, Bc, Cc, chunk=256))
+
+
+# -- the RTL simulator's kernel ---------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hierarchy", HIERARCHIES)
+@pytest.mark.parametrize("kernel", sorted(RTL_KERNELS))
+def test_rtl_sim_kernel_matches_plain_on_card(kernel, hierarchy):
+    """S1 against ``_TorchOps`` on the card, every design of the matrix:
+    arrays, returns, valid flags, conflict counts and per-cycle traces."""
+    dev = _cuda_or_skip()
+    module, entry = rtl_design(kernel)
+    batch = rtl_stimulus(kernel, 300)
+    sim, prepared = port_sim.simulator_for(module, entry, hierarchy=hierarchy, device=dev)
+    plain, _ = port_sim.simulator_for(module, entry, hierarchy=hierarchy, backend="torch",
+                                      device=dev)
+    assert sim.backend == "cuda" and plain.backend == "torch"
+    cycles = port_sim.probe_cycles(prepared, entry, [c[0] for c in batch])
+    before = sim.cuda_kernel().launches
+    got = sim.run(batch, cycles, batched=True, trace=True)
+    assert sim.cuda_kernel().launches == before + 1
+    assert_same_sim_result(got, plain.run(batch, cycles, batched=True, trace=True))
+
+
+@pytest.mark.gpu
+def test_rtl_sim_kernel_counts_conflicts_per_lane_on_card():
+    """A §4.5 assert that fires in some lanes: the kernel counts it lane by
+    lane as the plain version does, and the run raises unless told not to
+    check."""
+    dev = _cuda_or_skip()
+    plain, cycles = conflict_probe("torch", dev)
+    kernel, _ = conflict_probe("cuda", dev)
+    batch = rtl_stimulus("mac", 300)
+    got = kernel.run(batch, cycles, batched=True, check_conflicts=False, trace=True)
+    want = plain.run(batch, cycles, batched=True, check_conflicts=False, trace=True)
+    assert_same_sim_result(got, want)
+    np.testing.assert_array_equal(got.conflicts, batch[0] & 1)
+    with pytest.raises(port_sim.RTLSimError, match="port conflict"):
+        kernel.run(batch, cycles, batched=True)
+
+
+@pytest.mark.gpu
+def test_rtl_sim_kernel_build_failure_raises_on_card():
+    """A source nvcc refuses raises at the run, and nothing runs in its place."""
+    from repro_torch.kernels import _build
+
+    dev = _cuda_or_skip()
+    module, entry = rtl_design("array_add")
+    sim, prepared = port_sim.simulator_for(module, entry, device=dev)
+    kernel = sim.cuda_kernel()
+    kernel.source += "\n#error refused on purpose\n"
+    batch = rtl_stimulus("array_add", 8)
+    with pytest.raises(_build.BuildError, match="refused on purpose"):
+        sim.run(batch, port_sim.probe_cycles(prepared, entry, [c[0] for c in batch]),
+                batched=True)
+    assert kernel.launches == 0 and sim.backend == "cuda"
+
+
+@pytest.mark.gpu
+def test_dse_front_verified_on_card():
+    """The DSE oracle and the front's batched verification on the card: the
+    oracle there gives what it gives on the CPU, and every front point is
+    verified on 64 vectors by the simulator's kernel."""
+    from repro_torch.core.codegen import sim_cuda
+    from repro_torch.core.hls import dse
+
+    dev = _cuda_or_skip()
+    dse.clear_oracle_cache()
+    module, entry = port_gallery.array_add.build(n=8)
+    inputs = port_gallery.array_add.make_inputs(n=8, seed=2)
+    np.testing.assert_array_equal(dse.oracle_expected(module, entry, inputs),
+                                  dse.oracle_expected(module, entry, inputs, device="cpu"))
+    res = dse.explore_design(module, dse.design_space(pipeline=(True, False)), entry=entry,
+                             inputs=inputs)
+    batch = port_sim.stack_stimulus(port_gallery.array_add.make_inputs, 64, base_seed=50, n=8)
+    before = sim_cuda.launches
+    n_ok = dse.sim_verify_front(module, res, entry=entry, args_batch=batch, device=dev)
+    assert n_ok == len(res.front) > 0
+    assert sim_cuda.launches == before + len(res.front)
+    assert all(p.batch_verified and p.batch_vectors == 64 for p in res.front)
+    dse.clear_oracle_cache()
+
+
+@pytest.mark.gpu
+def test_run_differential_on_card_at_4096_vectors():
+    """The designer's check on the card: every leg passes on the kernel."""
+    dev = _cuda_or_skip()
+    module, entry = rtl_design("gemm")
+    oracle, nargs = rtl_oracle("gemm")
+    rep = port_sim.run_differential(module, entry, rtl_stimulus("gemm", 4096), kernel="gemm",
+                                    oracle=oracle, oracle_nargs=nargs, device=dev)
+    assert rep.ok, rep.mismatches[:5]
+    assert rep.backend == "cuda" and rep.n_vectors == 4096 and rep.oracle_ok is True
+
+
+def test_simulator_for_without_a_device_raises_where_there_is_no_cuda():
+    """The simulator's entry points never pick the CPU on the caller's
+    behalf (the CPU side of the rule; skips on a machine with a card)."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device: the default device resolves")
+    module, entry = rtl_design("array_add")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port_sim.simulator_for(module, entry)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port_sim.run_differential(module, entry, rtl_stimulus("array_add", 4))

@@ -27,6 +27,7 @@ import repro_torch
 from repro_torch import compat, resolve_device
 from repro_torch.core import gallery as port_gallery
 from repro_torch.core import verifier
+from repro_torch.core.codegen import run_differential, simulator_for, stack_stimulus
 from repro_torch.core.lower import lower_to_cuda, lower_to_torch, simulate
 from repro_torch.core.passes import DEFAULT_PIPELINE_SPEC, PassManager
 from repro_torch.core.printer import print_module
@@ -41,11 +42,14 @@ LOOP_NESTS = ["array_add", "transpose", "stencil1d", "histogram", "conv2d"]
 # the compiler core the port keeps as its own copy, byte for byte
 VERBATIM = (
     [f"core/{m}.py" for m in ("ir", "rewrite", "passmgr", "verifier", "schedule",
-                              "builder", "printer", "parser")]
+                              "builder", "printer", "parser", "analysis", "pool")]
     + ["core/lower/to_sim.py"]
-    + [f"core/passes/{m}.py" for m in ("canonicalize", "cse", "delay_elim", "port_demotion",
-                                       "precision_opt", "strength_reduce", "inline", "unroll",
-                                       "schedule_transforms", "loop_transforms")]
+    + [f"core/passes/{m}.py" for m in ("__init__", "canonicalize", "cse", "delay_elim",
+                                       "port_demotion", "precision_opt", "strength_reduce",
+                                       "inline", "unroll", "schedule_transforms",
+                                       "loop_transforms", "legacy_sweep")]
+    + [f"core/codegen/{m}.py" for m in ("rtl", "backends", "verilog", "resources", "lint")]
+    + [f"core/hls/{m}.py" for m in ("__init__", "eraser", "scheduler")]
     + [f"core/gallery/{m}.py" for m in ("array_add", "transpose", "stencil1d", "histogram",
                                         "conv2d", "gemm", "gemm_shared", "mac", "fifo")]
     + [f"configs/{m}.py" for m in ("base", "tinyllama_1_1b", "smollm_360m", "qwen2_7b",
@@ -118,21 +122,105 @@ def test_core_file_is_a_verbatim_copy(rel):
 
 
 def test_passes_init_differs_only_by_the_rtl_reexports():
-    """``core/passes/__init__.py`` drops the import of the RTL-level passes
-    (Verilog codegen is not ported yet) and their names from ``__all__``."""
-    ref_lines = (REF / "core/passes/__init__.py").read_text().splitlines()
-    port_lines = (PORT / "core/passes/__init__.py").read_text().splitlines()
-    rtl_names = {"RTL_PIPELINE_SPEC", "DeadNetElim", "ShiftRegMerge", "CombShare",
-                 "ControllerMerge", "MemReadShare"}
-    start = next(i for i, ln in enumerate(ref_lines) if ln.startswith("# RTL-level passes"))
-    end = next(i for i, ln in enumerate(ref_lines) if "DeadNetElim, MemReadShare" in ln)
-    dropped = set(range(start, end + 1))
-    dropped |= {i for i, ln in enumerate(ref_lines) if ln.strip().strip('",') in rtl_names
-                and ln.strip().startswith('"')}
-    assert len(dropped) == 4 + len(rtl_names)
-    assert port_lines == [ln for i, ln in enumerate(ref_lines) if i not in dropped]
+    """``core/passes/__init__.py`` once left out the RTL-level passes; with
+    the codegen ported it is the reference's file whole (``VERBATIM``), and
+    it re-exports the RTL passes and their pipeline."""
+    assert (PORT / "core/passes/__init__.py").read_bytes() == \
+        (REF / "core/passes/__init__.py").read_bytes()
     import repro_torch.core.passes as port_passes
+    from repro_torch.core.codegen import rtl
     assert all(hasattr(port_passes, n) for n in port_passes.__all__)
+    assert port_passes.RTL_PIPELINE_SPEC == rtl.RTL_PIPELINE_SPEC
+    for name in ("DeadNetElim", "ShiftRegMerge", "CombShare", "ControllerMerge", "MemReadShare"):
+        assert getattr(port_passes, name) is getattr(rtl, name)
+
+
+def test_dse_differs_from_the_reference_only_in_its_oracle():
+    """``core/hls/dse.py`` is the reference's file but for its oracle:
+    ``_make_oracle_fn`` lowers with the port's ``lower_to_torch`` and has no
+    fallback (no ``try``, no ``except ImportError``, no second route), and
+    the functions that reach it (``oracle_expected``, ``explore_design``,
+    ``sim_verify_front``) differ from the reference's code only in lines
+    that carry the device (docstrings aside)."""
+    import ast
+    import difflib
+
+    threaded = ("oracle_expected", "explore_design", "sim_verify_front")
+
+    def split(text):
+        lines = text.splitlines()
+        fns = {n.name: n for n in ast.parse(text).body
+               if isinstance(n, ast.FunctionDef) and n.name in threaded + ("_make_oracle_fn",)}
+        cut = {i for n in fns.values() for i in range(n.lineno - 1, n.end_lineno)}
+        rest = [ln for i, ln in enumerate(lines) if i not in cut]
+        return rest, fns, lines
+
+    def code(fn):
+        fn = ast.parse(ast.unparse(fn)).body[0]
+        if ast.get_docstring(fn) is not None:
+            fn.body = fn.body[1:]
+        return ast.unparse(fn).splitlines()
+
+    ref_rest, ref_fns, _ = split((REF / "core/hls/dse.py").read_text())
+    port_rest, port_fns, port_lines = split((PORT / "core/hls/dse.py").read_text())
+    assert port_rest == ref_rest
+    for name in threaded:
+        ref_code, port_code = code(ref_fns[name]), code(port_fns[name])
+        ops = difflib.SequenceMatcher(a=ref_code, b=port_code, autojunk=False).get_opcodes()
+        changed = [port_code[j] for tag, _, _, j1, j2 in ops if tag != "equal"
+                   for j in range(j1, j2)]
+        assert changed, name
+        assert all(tag in ("replace", "insert") for tag, *_ in ops if tag != "equal"), name
+        assert all("device" in ln for ln in changed), (name, changed)
+    fn = port_fns["_make_oracle_fn"]
+    body = "\n".join(port_lines[fn.lineno - 1:fn.end_lineno])
+    assert "lower_to_torch(module.clone(), entry, device=device)" in body
+    assert "lower_to_jax" not in body and '"cpu"' not in body
+    assert not any(isinstance(n, ast.Try) for n in ast.walk(ast.parse(body)))
+    assert "except" not in body and "simulate" not in body
+
+
+def test_codegen_init_differs_only_by_the_jax_flag():
+    ref_text = (REF / "core/codegen/__init__.py").read_text()
+    port_text = (PORT / "core/codegen/__init__.py").read_text()
+    assert port_text == ref_text.replace("from .sim import (HAVE_JAX, DiffReport",
+                                         "from .sim import (DiffReport")
+    assert port_text != ref_text
+
+
+def test_sim_keeps_the_reference_apart_from_its_backends():
+    """``core/codegen/sim.py`` is the reference's file outside what touches
+    JAX: every other top-level function, class and ``RTLSimulator`` method
+    is the reference's text; ``_NumpyOps`` is kept as it is."""
+    import ast
+
+    def defs(text):
+        out = {}
+        lines = text.splitlines()
+        for node in ast.parse(text).body:
+            if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+                out[node.name] = "\n".join(lines[node.lineno - 1:node.end_lineno])
+                if node.name == "RTLSimulator":
+                    for m in node.body:
+                        if isinstance(m, ast.FunctionDef):
+                            out[f"RTLSimulator.{m.name}"] = "\n".join(
+                                lines[m.lineno - 1:m.end_lineno])
+        return out
+
+    ref = defs((REF / "core/codegen/sim.py").read_text())
+    port = defs((PORT / "core/codegen/sim.py").read_text())
+    changed = {"_JaxOps", "_TorchOps", "RTLSimulator", "RTLSimulator.__init__",
+               "RTLSimulator._resolve_backend", "RTLSimulator.run", "RTLSimulator._run_jax",
+               "RTLSimulator._run_torch", "RTLSimulator._run_cuda",
+               "RTLSimulator.cuda_kernel", "RTLSimulator._make_step", "simulator_for",
+               "fold_in_stimulus", "run_differential"}
+    assert set(ref) - changed == set(port) - changed
+    for name in set(ref) - changed:
+        assert port[name] == ref[name], name
+    # _make_step differs in the one line that stacks the conflict counts
+    diff = [(a, b) for a, b in zip(ref["RTLSimulator._make_step"].splitlines(),
+                                   port["RTLSimulator._make_step"].splitlines()) if a != b]
+    assert len(diff) == 2 and all("stack" in a and "stack" in b for a, b in diff)
 
 
 def test_registry_differs_only_by_the_archs_not_ported():
@@ -156,15 +244,14 @@ def test_registry_differs_only_by_the_archs_not_ported():
 
 
 def test_analysis_copy_leaves_out_only_the_rtl_level_analyses():
-    """``core/analysis.py`` is the reference up to its RTL-level section
-    (activation intervals), which needs the netlist IR of the codegen."""
-    ref_text = (REF / "core/analysis.py").read_text()
-    port_text = (PORT / "core/analysis.py").read_text()
-    cut = ref_text.index("# -----------------------------------------------------------"
-                         "----------------\n# Activation intervals")
-    assert port_text.rstrip("\n") == ref_text[:cut].rstrip("\n")
-    assert "from .codegen import rtl" in ref_text[cut:]
-    assert "codegen import" not in port_text
+    """``core/analysis.py`` once stopped before its RTL-level section
+    (activation intervals), which needs the netlist IR of the codegen; with
+    the codegen ported it is the reference's file whole (``VERBATIM``), and
+    the RTL passes find the analysis they import."""
+    assert (PORT / "core/analysis.py").read_bytes() == (REF / "core/analysis.py").read_bytes()
+    from repro_torch.core import analysis
+    assert "from .codegen import rtl" in (PORT / "core/analysis.py").read_text()
+    assert analysis.ActivationIntervalsAnalysis.name == "activation-intervals"
 
 
 def test_gallery_lists_the_nine_hand_written_designs():
@@ -218,7 +305,7 @@ def _no_cuda_or_skip():
 
 
 @pytest.mark.parametrize("entry", ["resolve_device", "lower_to_cuda", "lower_to_torch",
-                                   "to_tensor"])
+                                   "to_tensor", "simulator_for", "run_differential"])
 def test_entry_point_without_device_raises_where_there_is_no_cuda(entry):
     """No entry point picks the CPU on the caller's behalf."""
     _no_cuda_or_skip()
@@ -228,6 +315,9 @@ def test_entry_point_without_device_raises_where_there_is_no_cuda(entry):
         "lower_to_cuda": lambda: lower_to_cuda(module, name),
         "lower_to_torch": lambda: lower_to_torch(module, name),
         "to_tensor": lambda: compat.to_tensor(np.zeros(8), module.get(name).args[0].type.elem),
+        "simulator_for": lambda: simulator_for(module, name),
+        "run_differential": lambda: run_differential(
+            module, name, stack_stimulus(port_gallery.array_add.make_inputs, 4, n=8)),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
@@ -280,7 +370,18 @@ def test_quickstart_runs_on_the_cpu_when_asked():
         env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"})
     assert out.returncode == 0, out.stderr
     assert "mismatched delay (0 vs 1)" in out.stdout         # the Fig. 1 diagnostic
+    assert "RTL differential check on 4 vectors" in out.stdout
     assert out.stdout.rstrip().endswith("quickstart OK")
+
+
+def test_hir_to_cuda_example_runs_on_the_cpu_when_asked():
+    out = subprocess.run(
+        [sys.executable, str(ROOT / "examples" / "hir_to_cuda.py"), "--device", "cpu"],
+        capture_output=True, text=True, cwd=ROOT,
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"})
+    assert out.returncode == 0, out.stderr
+    assert "match the oracle" in out.stdout and "mismatched delay (2 vs 3)" in out.stdout
+    assert out.stdout.rstrip().endswith("hir_to_cuda OK")
 
 
 def test_package_states_its_contract():

@@ -7,7 +7,12 @@ one JSON line per kernel:
 ``{"source", "kernel", "registers", "spill_stores", "spill_loads", "stack",
 "shared"}``.
 
+A name is a source in ``csrc/``; a path to an existing file is taken as it
+is, such as a generated source the build left in ``build/repro_torch/``
+(``rtlsim_*.cu``, ``hir_*.cu``).
+
 Run:  PYTHONPATH=src python tools/ptxas_usage.py [flash_attention.cu ...]
+      PYTHONPATH=src python tools/ptxas_usage.py build/repro_torch/rtlsim_gemm_*.cu
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ import re
 import shutil
 import subprocess
 import sys
+from pathlib import Path
 
 from repro_torch.kernels import _build
 
@@ -32,7 +38,8 @@ def demangle(names: list[str]) -> list[str]:
 
 
 def usage(filename: str) -> list[dict]:
-    stem, text = _build.csrc_source(filename)
+    path = Path(filename)
+    stem, text = (path.stem, path.read_text()) if path.is_file() else _build.csrc_source(filename)
     out = _build.build_dir() / "ptxas"
     out.mkdir(parents=True, exist_ok=True)
     cu = out / f"{stem}.cu"

@@ -7,28 +7,35 @@ Needs one CUDA device and ``nvcc``; exits non-zero without them.  It builds
 every kernel from the sources in this checkout, holds each against its plain
 PyTorch version on the card, then drives:
 
-* the flow a user of the compiler runs — build an HIR design, verify it,
-  optimize it, lower it to a generated CUDA kernel, run it on one stimulus
-  vector and on 4096 of them, and check the results against the NumPy
-  oracle, the cycle-accurate simulator and the functional lowering — and the
+* the flow a user of the compiler runs — build an HIR design (hand-written,
+  or traced by the frontend from a PyTorch program: frontend_matmul,
+  frontend_softmax_row, frontend_scan, whose build is the trace and the HLS
+  schedule), verify it, optimize it, lower it to a generated CUDA kernel,
+  run it on one stimulus vector and on 4096 of them, and check the results
+  against the NumPy oracle, the cycle-accurate simulator and the functional
+  lowering — and the
   GEMM binding through the hand-written matmul, whose bfloat16 kernel runs on
   wgmma and whose float32 kernel stays exact on integer operands (every
   shape, 4096^3 and a ragged 4000x3992x4104 included);
-* serving three models at full width (random weights from a seed) — the
-  dense tinyllama-1.1b, the attention-free mamba2-780m and the hybrid
-  recurrentgemma-9b: the continuous-batching ``Engine`` answers 8 requests
+* serving four models at full width (random weights from a seed) — the
+  dense tinyllama-1.1b, the attention-free mamba2-780m, the hybrid
+  recurrentgemma-9b and the MoE qwen2-moe-a2.7b (60 routed experts, top-4,
+  head dim 128 with a KV head a query head), one after another, each freed
+  before the next: the continuous-batching ``Engine`` answers 8 requests
   over 4 slots (the recurrent two refill in waves), every decode step through
   the decode-attention kernel where the model has attention;
-* each model's prefill step: flash attention for tinyllama, the SSD scan for
-  Mamba-2, the RG-LRU scan and windowed flash attention (head dim 256) for
-  RecurrentGemma;
+* each model's prefill step: flash attention for tinyllama and qwen2-moe,
+  the SSD scan for Mamba-2, the RG-LRU scan and windowed flash attention
+  (head dim 256) for RecurrentGemma;
 * the reference's decode-consistency invariant: teacher-forced decode steps
   against the forward pass over the same tokens, at full width (RecurrentGemma
-  cut to one group of its pattern, its window cut to 64);
+  cut to one group of its pattern, its window cut to 64; qwen2-moe cut to 8
+  layers, at capacity factor 64);
 * the designer's differential check (``differential``): the design lowered
   to RTL (``generate_verilog``) and run on the cycle-accurate simulator's
   kernel generated per design, on 4096 stimulus vectors — the reference's
-  own matrix (nine designs at the sizes of its test x {inline, modules})
+  own matrix (nine designs at the sizes of its test, and the three traced
+  designs at the sizes of the frontend's test, x {inline, modules})
   through ``run_differential`` (event-driven simulator on sample lanes, the
   design's oracle on every lane, every RTL pass), cold and warm, and the
   five loop nests at both sizes held to ``lower_to_cuda`` on every lane.
@@ -58,15 +65,19 @@ spread over the batch, on the CPU (``plain_on``).  Output: one JSON object per l
 ``kernels``), the card's
 name and power limit as ``nvidia-smi`` gives them, and a last line
 ``{"ok": true, "device": {...}}``.  Any mismatch or failure exits non-zero
-before that line.
+before that line.  A ``phases`` line gives the host seconds of each group of
+phases.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import functools
+import inspect
 import json
+import os
 import subprocess
 import sys
 import time
@@ -83,9 +94,10 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.core.codegen import sim as rtl_sim  # noqa: E402
 from repro_torch.core.codegen import sim_cuda  # noqa: E402
-from repro_torch.core.gallery import (array_add, conv2d, fifo, gemm,  # noqa: E402
-                                      gemm_shared, histogram, mac, stencil1d,
-                                      transpose)
+from repro_torch.core.gallery import (array_add, conv2d, fifo,  # noqa: E402
+                                      frontend_matmul, frontend_scan,
+                                      frontend_softmax_row, gemm, gemm_shared,
+                                      histogram, mac, stencil1d, transpose)
 from repro_torch.core.lower import lower_to_cuda, lower_to_torch, simulate  # noqa: E402
 from repro_torch.core.lower import to_cuda  # noqa: E402
 from repro_torch.core.passes import DEFAULT_PIPELINE_SPEC, PassManager  # noqa: E402
@@ -124,12 +136,31 @@ DESIGNS = [
     ("histogram", histogram, {}, {"n": 4096, "bins": 256}),
     ("conv2d", conv2d, {}, {"h": 64, "w": 64}),
 ]
+# the designs the frontend traces from PyTorch programs: the workloads' own
+# (paper) sizes, then the gallery GEMM's 16^3 on a tile of 4 and 4096-element
+# rows like the loop nests above.  K1 and the main path run them with the
+# loop nests; the simulator runs them at their test sizes (RTL_MATRIX)
+TRACED = [
+    ("frontend_matmul", frontend_matmul, {}, {"m": 16, "k": 16, "n": 16, "tile": 4}),
+    ("frontend_softmax_row", frontend_softmax_row, {}, {"n": 4096}),
+    ("frontend_scan", frontend_scan, {}, {"n": 4096}),
+]
+ALL_DESIGNS = DESIGNS + TRACED
+TRACED_NAMES = {d for d, *_ in TRACED}
+# what the verifier says of a traced design after the HLS schedule, which
+# hls_compile also verifies without raising: the tiled matmul reads each A
+# element in its k loop and uses it in the inner ji loop, a use the verifier
+# cannot prove in time (ROADMAP R10).  Any other diagnostic fails the run.
+TRACED_VERIFY = {"frontend_matmul": "is defined under time variable"}
 
 # the one PyTorch call that computes a design's function on the lanes batch,
 # where there is one: timed as ``library_ms`` and used nowhere in the port
 DESIGN_LIBRARY = {
     "array_add": lambda a, b: torch.add(a, b),                  # int32 wraps alike
     "transpose": lambda a: a.transpose(-1, -2).contiguous(),
+    # an int32 batched matmul, where the build of the library takes int32
+    # on the card (the row says so in ``library_note`` where it does not)
+    "frontend_matmul": lambda a, b: torch.matmul(a, b),
 }
 
 # the reference's own matrix of the RTL simulator, at the sizes of its test
@@ -146,6 +177,10 @@ RTL_MATRIX = {
                   (functools.partial(histogram.oracle, bins=4), 1)),
     "fifo": (fifo, {"depth": 16, "n": 8}, {"n": 8}, (fifo.oracle, 1)),
     "mac": (mac, {}, None, (None, 0)),
+    # the traced designs at the sizes of tests/core/test_frontend.py
+    "frontend_matmul": (frontend_matmul, {}, {}, (frontend_matmul.oracle, 2)),
+    "frontend_softmax_row": (frontend_softmax_row, {}, {}, (frontend_softmax_row.oracle, 2)),
+    "frontend_scan": (frontend_scan, {}, {}, (frontend_scan.oracle, 2)),
 }
 RTL_HIERARCHIES = ("inline", "modules")
 RTL_SEED = 7                       # stack_stimulus's base seed in the reference test
@@ -174,10 +209,11 @@ MATMUL_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # relative to |plain|
 # the served models and their traffic: 8 requests of 64-token prompts and 32
 # new tokens over 4 slots of a 1024-position cache
 ARCH, MAMBA, RGEMMA = "tinyllama-1.1b", "mamba2-780m", "recurrentgemma-9b"
+MOE = "qwen2-moe-a2.7b"
 SLOTS, MAX_LEN, REQUESTS, PROMPT, NEW = 4, 1024, 8, 64, 32
 # (batch, tokens) of each model's prefill step and of its consistency check
-PREFILL = {ARCH: (4, 1024), MAMBA: (4, 2048), RGEMMA: (2, 4096)}
-CONSIST = {ARCH: (2, 128), MAMBA: (2, 300), RGEMMA: (2, 160)}
+PREFILL = {ARCH: (4, 1024), MAMBA: (4, 2048), RGEMMA: (2, 4096), MOE: (4, 1024)}
+CONSIST = {ARCH: (2, 128), MAMBA: (2, 300), RGEMMA: (2, 160), MOE: (2, 128)}
 PREFILL_B, PREFILL_S = PREFILL[ARCH]
 CONSIST_B, CONSIST_S = CONSIST[ARCH]
 # Mamba-2's 300 tokens cross a chunk boundary of 256 and end in a ragged
@@ -185,6 +221,11 @@ CONSIST_B, CONSIST_S = CONSIST[ARCH]
 # group with the window cut to 64, so that its 160 tokens wrap the decode's
 # ring and the forward's window masks; float32 only.
 RG_CUT_WINDOW = 64
+# qwen2-moe's check runs at capacity factor 64, as the reference test sets it
+# (capacity drops depend on the queue: no drops in either pass), cut to its
+# first 8 layers, so that a float32 copy of their weights fits on the card
+# beside the served bfloat16 model; bfloat16 and float32, as tinyllama's.
+MOE_CUT_LAYERS, MOE_CONSIST_CF = 8, 64.0
 # The invariant is held twice on the same weights.  In float32 it is held to
 # the reference test's own tolerance (2e-3 + 2e-3 |forward|): there both
 # paths compute the same numbers up to the order of their sums.  In bfloat16
@@ -287,15 +328,39 @@ def n_read_ports(module, name) -> int:
     return sum(1 for a in module.get(name).args if a.type.port == "r")
 
 
-def compile_design(gal, size: dict, device):
-    """The user's flow up to the callable: build -> verify -> optimize ->
-    lower.  Returns (module, entry, callable)."""
-    module, name = gal.build(**size)
-    diags = verify(module)
-    if diags:
-        fail(f"verifier rejected {name} {size}: {diags}")
+@contextlib.contextmanager
+def no_hls_cache():
+    """The HLS schedule caches off (``REPRO_HLS_CACHE=0``), so that a traced
+    design's build pays for its schedule as a first build does."""
+    old = os.environ.get("REPRO_HLS_CACHE")
+    os.environ["REPRO_HLS_CACHE"] = "0"
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["REPRO_HLS_CACHE"]
+        else:
+            os.environ["REPRO_HLS_CACHE"] = old
+
+
+def compile_design(gal, size: dict, device, *, cold: bool = False):
+    """The user's flow up to the callable: build (for a traced design:
+    trace + HLS schedule, cold: the schedule caches off) -> verify ->
+    optimize -> lower.  Returns (module, entry, callable, notes): the build's
+    seconds and the verifier's diagnostics, which fail the run unless they
+    are a traced design's known ones (``TRACED_VERIFY``)."""
+    t0 = time.perf_counter()
+    with no_hls_cache() if cold else contextlib.nullcontext():
+        module, name = gal.build(**size)
+    build_s = time.perf_counter() - t0
+    diags = verify(module, raise_on_error=False)
+    known = TRACED_VERIFY.get(name)
+    if diags and not (known and all(known in d.render() for d in diags)):
+        fail(f"verifier rejected {name} {size}: {[d.render() for d in diags]}")
     PassManager.from_spec(DEFAULT_PIPELINE_SPEC).run(module)
-    return module, name, lower_to_cuda(module, name, device=device)
+    notes = {"build_s": build_s,
+             "verifier": [" ".join(d.render().split())[:240] for d in diags]}
+    return module, name, lower_to_cuda(module, name, device=device), notes
 
 
 _stimulus_cache: dict = {}
@@ -306,7 +371,9 @@ def stimulus(gal, size: dict, lanes: int) -> list[np.ndarray]:
     (made once per design and size: the phases share them)."""
     key = (gal.__name__, tuple(sorted(size.items())), lanes)
     if key not in _stimulus_cache:
-        per_lane = [gal.make_inputs(**size, seed=SEED + s) for s in range(lanes)]
+        takes = inspect.signature(gal.make_inputs).parameters     # not build's tile
+        kw = {k: v for k, v in size.items() if k in takes}
+        per_lane = [gal.make_inputs(**kw, seed=SEED + s) for s in range(lanes)]
         _stimulus_cache[key] = [np.stack([lane[i] for lane in per_lane])
                                 for i in range(len(per_lane[0]))]
     return _stimulus_cache[key]
@@ -344,9 +411,9 @@ def phase_build(device) -> tuple[dict, list[dict]]:
     pending = [_build.start_build(*_build.csrc_source(src))
                for src in ("matmul.cu", "flash_attention.cu", "decode_attention.cu",
                            "ssd_scan.cu", "rglru_scan.cu")]
-    for dname, gal, paper, large in DESIGNS:
+    for dname, gal, paper, large in ALL_DESIGNS:
         for tag, size in (("paper", paper), ("large", large)):
-            module, name, fn = compile_design(gal, size, device)
+            module, name, fn, _ = compile_design(gal, size, device)
             compiled[(dname, tag)] = (module, name, fn, size)
             pending.append(_build.start_build(fn.stem, fn.source))
     cases = rtl_cases(compiled, device)
@@ -364,7 +431,8 @@ def phase_build(device) -> tuple[dict, list[dict]]:
 
 def element_steps(module, name) -> int:
     """Executions of the innermost bodies of the design's main loop (its
-    largest-trip top-level loop): the element steps one lane walks."""
+    largest-trip top-level loop): the element steps one lane walks.  (A
+    traced design chains several nests of equal trip; this counts one.)"""
     def steps(ops) -> int:
         loops = [op for op in ops if op.opname == "for"]
         return sum(op.trip_count() * max(1, steps(op.region(0).ops)) for op in loops)
@@ -387,13 +455,18 @@ def k1_case(dname, tag, module, name, fn, size, ins, lanes) -> dict:
     if err != 0:
         fail(f"K1 {dname}/{tag}/{lanes} lanes differs from its plain version by {err}")
     ms = time_ms(lambda: fn(*ins), 20)
-    library_ms = None
+    library_ms, library_note = None, None
     if dname in DESIGN_LIBRARY:
         lib_call = DESIGN_LIBRARY[dname]
         (kernel_out,) = got.values()
-        if not torch.equal(lib_call(*ins), kernel_out):
-            fail(f"K1 {dname}/{tag}/{lanes}: the library call computes another function")
-        library_ms = time_ms(lambda: lib_call(*ins), 20)
+        try:
+            lib_out = lib_call(*ins)
+        except RuntimeError as e:                  # the library refuses the dtype here
+            library_note = f"refused: {str(e).splitlines()[0][:160]}"
+        else:
+            if not torch.equal(lib_out, kernel_out):
+                fail(f"K1 {dname}/{tag}/{lanes}: the library call computes another function")
+            library_ms = time_ms(lambda: lib_call(*ins), 20)
     nbytes = lanes * 4 * sum(int(np.prod(a.type.shape)) for a in module.get(name).args)
     threads, pf = fn.launch_shape(lanes, ins[0].device)
     steps = element_steps(module, name)
@@ -408,7 +481,7 @@ def k1_case(dname, tag, module, name, fn, size, ins, lanes) -> dict:
         "launches": 0, "max_abs_err": err, "tolerance": 0,
         "ms": ms, "plain_ms": plain_ms, "element_steps": steps, "ns_per_step": ms * 1e6 / steps,
         "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-        "library_ms": library_ms,
+        "library_ms": library_ms, **({"library_note": library_note} if library_note else {}),
     }
 
 
@@ -419,7 +492,7 @@ def phase_kernels_k1(compiled, device) -> list[dict]:
     lanes, a last block of one lane."""
     rows = []
     for (dname, tag), (module, name, fn, size) in compiled.items():
-        gal = next(g for d, g, _, _ in DESIGNS if d == dname)
+        gal = next(g for d, g, _, _ in ALL_DESIGNS if d == dname)
         n_in = n_read_ports(module, name)
         batch = stimulus(gal, size, LANES)[:n_in]
         dev_batch = [torch.as_tensor(x).to(device=device, dtype=torch.int32) for x in batch]
@@ -493,7 +566,7 @@ def phase_k1_without_staging(device) -> None:
     budget = to_cuda.STAGE_BYTES_PER_PAIR
     to_cuda.STAGE_BYTES_PER_PAIR = 0
     try:
-        cases = [(dname, gal, large) + compile_design(gal, large, device)
+        cases = [(dname, gal, large) + compile_design(gal, large, device)[:3]
                  for dname, gal, _, large in DESIGNS]
     finally:
         to_cuda.STAGE_BYTES_PER_PAIR = budget
@@ -516,15 +589,47 @@ def phase_k1_without_staging(device) -> None:
     emit("k1_without_staging", out)
 
 
+def k2_binding_check(compiled, device) -> dict:
+    """The port's twin of ``test_gemm_binds_to_mxu_kernel`` for the traced
+    GEMM: ``frontend_matmul`` at 16^3 (tile 4) through ``lower_to_cuda``
+    (K1) equals K2's integer-exact float32 kernel on its 16x16x16 tile and
+    the oracle.  A check: no main path counts it."""
+    module, name, fn, size = compiled[("frontend_matmul", "large")]
+    m, k, n = size["m"], size["k"], size["n"]
+    a, b, _ = frontend_matmul.make_inputs(m=m, k=k, n=n, seed=SEED)
+    x, y = (torch.as_tensor(v).to(device=device, dtype=F32) for v in (a, b))
+    tiles = dict(bm=16, bn=16, bk=16)
+    got = ops.matmul(x, y, **tiles)
+    traced = fn(*(torch.as_tensor(v).to(device=device, dtype=torch.int32) for v in (a, b)))["out"]
+    torch.cuda.synchronize()
+    want = frontend_matmul.oracle(a, b)
+    if not (np.array_equal(as_i64(got), want) and np.array_equal(as_i64(traced), want)):
+        fail("frontend_matmul 16^3: the traced design and its matmul binding differ")
+    bound_ms, bound_by = bound(2.0 * m * n * k, (m * k + k * n + m * n) * 4, F32)
+    return {
+        "name": f"matmul[frontend_matmul binding {m}x{k}x{n},float32]", "route": "cuda",
+        "source": "src/repro_torch/csrc/matmul.cu", "replaces": "src/repro/kernels/matmul.py:71",
+        "shape": {"M": m, "K": k, "N": n, "dtype": "torch.float32", "design": "frontend_matmul",
+                  "tile": size["tile"]},
+        "launches": None, "max_abs_err": 0, "tolerance": 0,
+        "ms": time_ms(lambda: ops.matmul(x, y, **tiles), 50),
+        "traced_design_k1_ms": time_ms(lambda: fn(x.int(), y.int()), 50),
+        "plain_ms": time_ms(lambda: ref.matmul_ref(x, y), 50),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": time_ms(lambda: torch.matmul(x, y), 50),
+    }
+
+
 def phase_main_path(device) -> dict:
     """The flow a user runs, through the public entry points only.  Returns
     the launches each kernel case made, keyed like the ``kernels`` rows."""
     launches: dict[str, int] = {}
     report = []
-    for dname, gal, paper, large in DESIGNS:
+    for dname, gal, paper, large in ALL_DESIGNS:
+        traced = dname in TRACED_NAMES
         for tag, size in (("paper", paper), ("large", large)):
             t0 = time.perf_counter()
-            module, name, fn = compile_design(gal, size, device)
+            module, name, fn, notes = compile_design(gal, size, device, cold=traced)
             n_in = n_read_ports(module, name)
             batch = stimulus(gal, size, LANES)
             out_name = module.get(name).args[-1].name
@@ -559,9 +664,12 @@ def phase_main_path(device) -> dict:
                 *[x[idx] for x in batch])[out_name]
             if not np.array_equal(as_i64(functional), many_np[idx]):
                 fail(f"{dname}/{tag}: differs from lower_to_torch")
-            report.append({"design": dname, "size": size or "default", "lanes": [1, LANES],
-                           "oracle_lanes": LANES, "simulated_lanes": len(idx),
-                           "functional_lanes": len(idx), "seconds_to_result": run_s})
+            row = {"design": dname, "size": size or "default", "lanes": [1, LANES],
+                   "oracle_lanes": LANES, "simulated_lanes": len(idx),
+                   "functional_lanes": len(idx), "seconds_to_result": run_s}
+            if traced:
+                row.update({"trace_s": notes["build_s"], "verifier": notes["verifier"]})
+            report.append(row)
 
     # the GEMM binding: the systolic array of the paper is the matmul kernel
     module, name = gemm.build()
@@ -607,9 +715,12 @@ def rtl_stimulus(dname: str, lanes: int) -> list[np.ndarray]:
 
 def rtl_cases(compiled, device) -> list[dict]:
     """Every design the simulator runs on the card, with its simulator and
-    stimulus: the reference's matrix (nine designs at the sizes of its test
-    x {inline, modules}, unoptimized as the test builds them) and the five
-    loop nests at both sizes (inline, after the optimizer, as K1 runs them)."""
+    stimulus: the reference's matrix (the nine hand-written designs at the
+    sizes of its test and the three traced ones at the sizes of the
+    frontend's test, x {inline, modules}, unoptimized as the tests build
+    them) and the five loop nests at both sizes (inline, after the
+    optimizer, as K1 runs them).  The traced designs are sequential nests:
+    they run ``drained_cycles``."""
     cases = []
     for dname, (gal, bkw, _, _) in RTL_MATRIX.items():
         batch = rtl_stimulus(dname, LANES)
@@ -617,12 +728,14 @@ def rtl_cases(compiled, device) -> list[dict]:
             module, entry = gal.build(**bkw)
             sim, prepared = rtl_sim.simulator_for(module, entry, hierarchy=hierarchy,
                                                   device=device)
+            count = drained_cycles if dname in TRACED_NAMES else rtl_sim.probe_cycles
             cases.append({"name": f"rtl_sim[{dname},{hierarchy},{LANES} lanes]",
                           "design": dname, "hierarchy": hierarchy, "tag": "matrix",
                           "module": module, "entry": entry, "sim": sim, "batch": batch,
-                          "cycles": rtl_sim.probe_cycles(prepared, entry,
-                                                         [c[0] for c in batch])})
+                          "cycles": count(prepared, entry, [c[0] for c in batch])})
     for (dname, tag), (module, name, fn, size) in compiled.items():
+        if dname in TRACED_NAMES:
+            continue
         gal = next(g for d, g, _, _ in DESIGNS if d == dname)
         batch = stimulus(gal, size, LANES)
         sim, prepared = rtl_sim.simulator_for(module, name, device=device)
@@ -776,6 +889,9 @@ def phase_differential(cases, device) -> dict:
                 seconds.append(time.perf_counter() - t0)
                 if not rep.ok or rep.backend != "cuda" or rep.n_vectors != LANES:
                     fail(f"{case['name']}: run_differential {rep.backend}: {rep.mismatches[:4]}")
+                if (oracle is not None and rep.oracle_ok is not True) or not (
+                        rep.passes_ok and all(rep.passes_ok.values())):
+                    fail(f"{case['name']}: oracle_ok {rep.oracle_ok}, passes_ok {rep.passes_ok}")
             if dname == "mac":          # the oracle leg of the reference's mac test
                 sim, prepared = rtl_sim.simulator_for(module, entry,
                                                       hierarchy=case["hierarchy"], device=device)
@@ -1014,6 +1130,25 @@ def phase_kernels_d256(device) -> tuple[list[dict], list[dict]]:
     return k3, k4
 
 
+def phase_kernels_moe(device) -> tuple[list[dict], list[dict]]:
+    """K3 and K4 at qwen2-moe's head dim 128 with one query head a KV head
+    (16/16): K3 at its 4 x 1024 prefill and at the consistency check (2 x
+    128), K4 at its serving cache and at the consistency check; the prefill
+    and serving shapes in float32 as checks."""
+    g = torch.Generator(device="cpu").manual_seed(SEED + 7)
+    a = get_config(MOE).attn
+    H, KvH, D = a.n_heads, a.n_kv_heads, a.d_head
+    (B, S), (cb, cs) = PREFILL[MOE], CONSIST[MOE]
+    k3 = [k3_case("prefill", B, S, S, H, KvH, D, BF16, device, g),
+          k3_case("consistency", cb, cs, cs, H, KvH, D, BF16, device, g)]
+    k3[0]["checks"] = [k3_case("prefill float32", B, S, S, H, KvH, D, F32, device, g)]
+    lanes = [1, 100, 513, 1024]
+    k4 = [k4_case("serve", SLOTS, MAX_LEN, H, KvH, D, BF16, lanes, device, g),
+          k4_case("consistency", cb, cs, H, KvH, D, BF16, [cs] * cb, device, g)]
+    k4[0]["checks"] = [k4_case("serve float32", SLOTS, MAX_LEN, H, KvH, D, F32, lanes, device, g)]
+    return k3, k4
+
+
 def ssd_flops(B, S, H, P, N, Q) -> float:
     """Operations the SSD scan's result needs, chunk by chunk (q positions,
     p = q (q + 1) / 2 causal pairs): C B^T over the pairs once per (lane,
@@ -1248,10 +1383,14 @@ def phase_serve(arch: str, device):
     step, prefill's included, once per attention layer.  The recurrent
     models refill in waves: 2 waves of 64 prompt positions and 32 steps."""
     cfg = get_config(arch)
+    free, total = torch.cuda.mem_get_info(device)
+    outside = total - free - torch.cuda.memory_reserved(device)   # context, local memory
+    torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
     eng = Engine(cfg, SLOTS, MAX_LEN, device=device)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated(device)
     queue = make_requests(REQUESTS, PROMPT, NEW, cfg.vocab, seed=SEED)
     zero_counts()
     t0 = time.perf_counter()
@@ -1275,6 +1414,9 @@ def phase_serve(arch: str, device):
                    "tokens_per_s": tokens / secs,
                    "ms_per_decode_call": secs * 1e3 / eng.decode_calls,
                    "init_seconds": init_s, "launches": n,
+                   "param_bytes": param_bytes(eng.params),
+                   "peak_bytes_init": init_peak, "bytes_outside_the_allocator": outside,
+                   "peak_bytes_serving": torch.cuda.max_memory_allocated(device),
                    "first_outputs": [r.out[:8] for r in done[:2]]})
     return eng, n
 
@@ -1300,6 +1442,14 @@ def phase_prefill(eng, device):
                      "tokens_per_s": B * S / secs, "launches": n,
                      "max_abs_logit": float(logits.float().abs().max())})
     return n
+
+
+def param_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(param_bytes(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(param_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
 
 
 def as_float32(tree):
@@ -1332,11 +1482,21 @@ def phase_consistency(eng, device):
     cfg, params = eng.cfg, eng.params
     B, S = CONSIST[cfg.name]
     cuts = {}
-    if cfg.name == RGEMMA:
+    if cfg.name == MOE:
+        seg = cfg.segments[0]
+        cfg = cfg.scaled(segments=(Segment(seg.pattern, MOE_CUT_LAYERS, seg.ffn),),
+                         moe=dataclasses.replace(cfg.moe, capacity_factor=MOE_CONSIST_CF))
+        params = dict(params, segments=[[first_repeats(b, MOE_CUT_LAYERS)
+                                         for b in params["segments"][0]]])
+        cuts = {"pattern": list(seg.pattern), "repeats": MOE_CUT_LAYERS,
+                "weights": f"the first {MOE_CUT_LAYERS} layers'",
+                "capacity_factor": MOE_CONSIST_CF}
+        print(f"consistency {MOE}: cut to {cuts}", flush=True)
+    elif cfg.name == RGEMMA:
         first = cfg.segments[0]
         cfg = cfg.scaled(segments=(Segment(first.pattern, 1, first.ffn),),
                          attn=dataclasses.replace(cfg.attn, window=RG_CUT_WINDOW))
-        params = dict(params, segments=[[first_repeat(b) for b in params["segments"][0]]])
+        params = dict(params, segments=[[first_repeats(b, 1) for b in params["segments"][0]]])
         cuts = {"pattern": list(first.pattern), "repeats": 1, "weights": "the first repeat's",
                 "window": RG_CUT_WINDOW}
         print(f"consistency {RGEMMA}: cut to {cuts}", flush=True)
@@ -1344,7 +1504,7 @@ def phase_consistency(eng, device):
     tokens = torch.randint(1, cfg.vocab, (B, S), generator=g).to(device)
     out = {"arch": eng.cfg.name, "batch": B, "tokens": S, "cuts": cuts or None}
     n16 = None
-    if not cuts:
+    if cfg.name != RGEMMA:                        # RecurrentGemma's cut check: float32 only
         zero_counts()
         fwd16, dec16 = teacher_forced(params, cfg, tokens, device)
         n16 = counts()
@@ -1376,11 +1536,11 @@ def phase_consistency(eng, device):
     return {"bf16": n16, "f32": n32}
 
 
-def first_repeat(tree):
-    """A block's stacked parameters cut to their first repeat (views)."""
+def first_repeats(tree, n: int):
+    """A block's stacked parameters cut to their first ``n`` repeats (views)."""
     if isinstance(tree, dict):
-        return {k: first_repeat(v) for k, v in tree.items()}
-    return tree[:1]
+        return {k: first_repeats(v, n) for k, v in tree.items()}
+    return tree[:n]
 
 
 def phase_profile(eng) -> None:
@@ -1406,12 +1566,28 @@ def phase_profile(eng) -> None:
     by_kernel = sorted(((e.key, e.self_device_time_total / 8) for e in device_events),
                        key=lambda kv: -kv[1])
     busy_us = sum(t for _, t in by_kernel)
+    cfg = eng.cfg
+    # a step reads every weight once, bar the embedding table, of which it
+    # gathers one row a lane (a tied table is the head too, read whole)
+    embed = eng.params["embed"]
+    step_bytes = param_bytes(eng.params) - (0 if cfg.tie_embeddings else param_bytes(embed))
+    bounds = {"weights_read_per_step_bytes": step_bytes,
+              "weights_read_bound_ms": step_bytes / HBM_BYTES_PER_S * 1e3}
+    if cfg.moe is not None:
+        # the dispatch runs every expert's three products over its (E, cap, D)
+        # buffer, cap 1 included: each step reads all experts of all layers
+        m = cfg.moe
+        expert_bytes = (layers(cfg)["attn"] * m.n_routed * 3 * cfg.d_model * m.d_ff_expert
+                        * eng.params["segments"][0][0]["ffn"]["w_gate"].element_size())
+        bounds.update({"expert_bytes_per_step": expert_bytes,
+                       "expert_bound_ms": expert_bytes / HBM_BYTES_PER_S * 1e3})
     emit("profile", {
         "arch": eng.cfg.name,
         "what": f"lm_decode_step, {SLOTS} lanes at position {PROMPT + NEW}, 8 steps",
         "wall_ms_per_step": wall_us / 8e3,
         "device_ms_per_step": busy_us / 1e3 if busy_us else "not measured",
         "device_idle_share": 1 - busy_us * 8 / wall_us if busy_us else "not measured",
+        **bounds,
         "decode_attention_ms_per_step": sum(t for k, t in by_kernel
                                             if any(name in k for name in dec.KERNEL.values())) / 1e3,
         "top_kernels_ms_per_step": [[k[:80], t / 1e3] for k, t in by_kernel[:8]]})
@@ -1429,22 +1605,42 @@ def serve_model(arch: str, device) -> dict:
     return {"serve": served, "prefill": prefilled, "consistency": consistent}
 
 
+PHASE_SECONDS: dict[str, float] = {}
+
+
+@contextlib.contextmanager
+def timed(name: str):
+    """Host seconds of a group of phases (``phases`` line)."""
+    t0 = time.perf_counter()
+    yield
+    PHASE_SECONDS[name] = time.perf_counter() - t0
+
+
 def main() -> None:
     device = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False     # the library yardstick is float32 too
     smi = phase_env()
-    compiled, cases = phase_build(device)
-    rows = phase_kernels_k1(compiled, device) + phase_kernels_k2(device)
-    s1_rows = phase_kernels_s1(cases, device)
-    phase_k1_without_staging(device)
-    k3_rows, k4_rows = phase_kernels_k3(device), phase_kernels_k4(device)
-    k5_rows, k6_rows = phase_kernels_k5(device), phase_kernels_k6(device)
-    k3_256, k4_256 = phase_kernels_d256(device)
+    with timed("build"):
+        compiled, cases = phase_build(device)
+    with timed("kernels K1, K2"):
+        rows = phase_kernels_k1(compiled, device) + phase_kernels_k2(device)
+        k2_binding = next(r for r in rows if r["name"] == "matmul[16x16x16,float32]")
+        k2_binding["checks"] = [k2_binding_check(compiled, device)]
+    with timed("kernels S1"):
+        s1_rows = phase_kernels_s1(cases, device)
+    with timed("k1_without_staging"):
+        phase_k1_without_staging(device)
+    with timed("kernels K3-K6"):
+        k3_rows, k4_rows = phase_kernels_k3(device), phase_kernels_k4(device)
+        k5_rows, k6_rows = phase_kernels_k5(device), phase_kernels_k6(device)
+        k3_256, k4_256 = phase_kernels_d256(device)
+        k3_moe, k4_moe = phase_kernels_moe(device)
     torch.cuda.empty_cache()
 
     # every count to 0, then the compiler's main path, then read the counts
     zero_counts()
-    per_case = phase_main_path(device)
+    with timed("main_path"):
+        per_case = phase_main_path(device)
     totals = {"lower_to_cuda": to_cuda.launches, "matmul": mm.launches}
     for kernel, n in totals.items():
         if n <= 0:
@@ -1456,7 +1652,8 @@ def main() -> None:
 
     # the designer's differential check, the counts at 0 just before it
     zero_counts()
-    per_case = phase_differential(cases, device)
+    with timed("differential"):
+        per_case = phase_differential(cases, device)
     if sim_cuda.launches != sum(per_case.values()):
         fail(f"rtl_sim: launches per case do not add up to the wrapper's count")
     for row in s1_rows:
@@ -1467,9 +1664,14 @@ def main() -> None:
                 fail(f"the main path never launched {row['large']['name']}")
 
     # the serving paths, each phase with the counts at 0 just before it
-    dense = serve_model(ARCH, device)
-    mamba = serve_model(MAMBA, device)
-    rgemma = serve_model(RGEMMA, device)
+    with timed(ARCH):
+        dense = serve_model(ARCH, device)
+    with timed(MAMBA):
+        mamba = serve_model(MAMBA, device)
+    with timed(RGEMMA):
+        rgemma = serve_model(RGEMMA, device)
+    with timed(MOE):
+        moe = serve_model(MOE, device)
     k3_rows[0]["launches"] = dense["prefill"]["flash_attention"]
     # the consistency rows' cases: tinyllama's in bfloat16; Mamba-2's scan
     # runs in float32 under both of its passes; RecurrentGemma's cut check in float32
@@ -1484,10 +1686,17 @@ def main() -> None:
     k3_256[1]["launches"] = rgemma["consistency"]["f32"]["flash_attention"]
     k4_256[0]["launches"] = rgemma["serve"]["decode_attention"]
     k4_256[1]["launches"] = rgemma["consistency"]["f32"]["decode_attention"]
-    rows += k3_rows + k4_rows + k5_rows + k6_rows + k3_256 + k4_256 + s1_rows
+    # qwen2-moe's: its cut consistency check in bfloat16
+    k3_moe[0]["launches"] = moe["prefill"]["flash_attention"]
+    k3_moe[1]["launches"] = moe["consistency"]["bf16"]["flash_attention"]
+    k4_moe[0]["launches"] = moe["serve"]["decode_attention"]
+    k4_moe[1]["launches"] = moe["consistency"]["bf16"]["decode_attention"]
+    rows += (k3_rows + k4_rows + k5_rows + k6_rows + k3_256 + k4_256 + k3_moe + k4_moe
+             + s1_rows)
     for row in rows:
         if row["launches"] <= 0:
             fail(f"the main path never launched {row['name']}")
+    emit("phases", PHASE_SECONDS)
     emit("kernels", rows)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -11,6 +11,7 @@ import importlib
 from .base import ModelCfg, SHAPES, ShapeCfg
 
 ARCHS = (
+    "qwen2_moe_a2_7b",
     "recurrentgemma_9b",
     "tinyllama_1_1b",
     "qwen2_7b",
@@ -21,6 +22,7 @@ ARCHS = (
 
 # canonical assignment ids -> module names
 _ALIASES = {
+    "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
     "recurrentgemma-9b": "recurrentgemma_9b",
     "tinyllama-1.1b": "tinyllama_1_1b",
     "qwen2-7b": "qwen2_7b",

@@ -8,12 +8,17 @@
 Each module exposes ``build()`` -> (Module, entry_name) and ``oracle(...)``
 (NumPy reference).  ``GALLERY`` maps kernel name -> module.
 
-Only the nine hand-written designs are registered here; the traced
-``frontend_*`` entries of the reference arrive with the frontend.
+The ``frontend_*`` entries are not hand-written: they are PyTorch
+programs traced into HIR by ``core.frontend`` (matmul, masked fixed-point
+softmax row, gated cumulative sum) and registered here so every downstream
+harness — differential RTL sim, backend conformance, DSE — exercises the
+traced path alongside the hand-scheduled kernels.
 """
 
 from . import (array_add, conv2d, fifo, gemm, gemm_shared, histogram, mac,
                stencil1d, transpose)
+from ..frontend.workloads import (frontend_matmul, frontend_scan,
+                                  frontend_softmax_row)
 
 GALLERY = {
     "transpose": transpose,
@@ -25,6 +30,9 @@ GALLERY = {
     "fifo": fifo,
     "array_add": array_add,
     "mac": mac,
+    "frontend_matmul": frontend_matmul,
+    "frontend_softmax_row": frontend_softmax_row,
+    "frontend_scan": frontend_scan,
 }
 
 PAPER_BENCHMARKS = ["transpose", "stencil1d", "histogram", "gemm", "conv2d", "fifo"]

@@ -14,7 +14,11 @@ map onto a generated ``__global__`` function as:
   binding    -> memref arguments are global-memory arrays, one slice per
                 lane; ``hir.alloc`` buffers are zero-initialised per-thread
                 arrays (registers), or, where indexed at run time, a thread's
-                column of shared memory.
+                column of shared memory, or, past ``LOCAL_ALLOC_BYTES``, a
+                lane's column of a global scratch buffer the call allocates
+                (a per-thread array that large would live in local memory,
+                which CUDA reserves for every thread the card can hold
+                and keeps: 40 GB for a traced softmax row of 4096).
 
 What bounds it on the card: one design run is a few hundred *dependent*
 scalar operations over a few hundred bytes — nothing in it can be spread
@@ -87,6 +91,9 @@ MAX_THREADS_PER_BLOCK = 128
 PREFETCH_BYTES_PER_SM = 16384
 #: shared memory one block can use on Hopper (227 KB)
 SMEM_BYTES = 232_448
+#: largest ``hir.alloc`` buffer kept as a per-thread array; larger ones not
+#: in shared memory go to the call's global scratch, element-major
+LOCAL_ALLOC_BYTES = 256
 
 
 # ---------------------------------------------------------------------------
@@ -338,24 +345,32 @@ class _CVal:
 
 class _CMem:
     """A per-lane array visible in the kernel body: a lane's slice of a
-    global memref, a per-thread array, or a thread's column of a shared
-    buffer (``shared``: element ``i`` at ``name[i * hir_lanes]``)."""
+    global memref, a per-thread array, a thread's column of a shared buffer
+    (``shared``: element ``i`` at ``name[i * hir_lanes]``) or a lane's column
+    of the global scratch (``scratch``: element ``i`` at
+    ``name[i * hir_stride]``)."""
 
-    __slots__ = ("name", "shape", "ctype", "shared", "read_port", "window")
+    __slots__ = ("name", "shape", "ctype", "shared", "scratch", "read_port", "window")
 
     def __init__(self, name: str, shape: tuple, ctype: str, shared: bool = False,
-                 read_port: bool = False, window: Optional[tuple] = None):
+                 read_port: bool = False, window: Optional[tuple] = None,
+                 scratch: bool = False):
         self.name = name
         self.shape = tuple(shape)
         self.ctype = ctype
         self.shared = shared
+        self.scratch = scratch
         self.read_port = read_port
         # staged: (first row, first column, row pitch) of the warp's window,
         # the memref seen as (rows of every dim but the last, last dim)
         self.window = window
 
     def at(self, lin: str) -> str:
-        return f"{self.name}[({lin}) * hir_lanes]" if self.shared else f"{self.name}[{lin}]"
+        if self.shared:
+            return f"{self.name}[({lin}) * hir_lanes]"
+        if self.scratch:
+            return f"{self.name}[(size_t)({lin}) * hir_stride]"
+        return f"{self.name}[{lin}]"
 
 
 def _literal(value, ctype: str) -> str:
@@ -604,13 +619,15 @@ class _Kernel:
     main-loop iteration prefetches (0: none), the shared memory a lane's
     allocs take and a compute warp's pair takes for staging, the allocs
     placed in shared memory and the memrefs staged, with the chunk of
-    main-loop iterations one staging serves (0: none staged), and the
+    main-loop iterations one staging serves (0: none staged), the
     write-port memrefs the kernel writes whole (their outputs need no
-    zeros first)."""
+    zeros first), and the allocs in the global scratch with its bytes a
+    lane (the launcher then takes the scratch after the memrefs)."""
 
     def __init__(self, source: str, launcher: str, prefetch_bytes: int,
                  smem_per_thread: int, stage_per_pair: int, shared_allocs: list[str],
-                 staged: list[str], chunk: int, written_whole: list[str]):
+                 staged: list[str], chunk: int, written_whole: list[str],
+                 scratch_allocs: list[str], scratch_bytes: int):
         self.source = source
         self.launcher = launcher
         self.prefetch_bytes = prefetch_bytes
@@ -620,6 +637,8 @@ class _Kernel:
         self.staged = staged
         self.chunk = chunk
         self.written_whole = written_whole
+        self.scratch_allocs = scratch_allocs
+        self.scratch_bytes = scratch_bytes
 
     def smem_bytes(self, lanes_per_block: int) -> int:
         """Dynamic shared memory of a block that runs ``lanes_per_block`` lanes."""
@@ -804,10 +823,11 @@ def _window_start(name: str, starts: list[int]) -> str:
             f"__device__ __forceinline__ int32_t {name}(int32_t k) {{ return {name}_at[k]; }}")
 
 
-def _refs(plan: _Plan, allow_downcast: bool, shared: dict[int, int]) -> dict[Value, _CMem]:
+def _refs(plan: _Plan, allow_downcast: bool, shared: dict[int, int],
+          scratch: frozenset = frozenset()) -> dict[Value, _CMem]:
     """The arrays of the kernel body: a lane's slice of each memref
     argument, and the allocs (those indexed in ``shared`` in a thread's
-    shared column)."""
+    shared column, those in ``scratch`` in a lane's scratch column)."""
     refs: dict[Value, _CMem] = {}
     for a in plan.in_args + plan.out_args:
         ct = _CTYPE[_dtype(a.type.elem, allow_downcast)]
@@ -816,7 +836,7 @@ def _refs(plan: _Plan, allow_downcast: bool, shared: dict[int, int]) -> dict[Val
         base: MemrefType = al.attrs["base"]
         ct = _CTYPE[_dtype(base.elem, allow_downcast)]
         m = _CMem(f"a{k}_{_ident(al.results[0].name or 'buf')}", base.shape, ct,
-                  shared=k in shared)
+                  shared=k in shared, scratch=k in scratch)
         for res in al.results:          # every port aliases one buffer
             refs[res] = m
     return refs
@@ -865,13 +885,16 @@ def _helper(plan: _Plan, refs: dict, staging: _Staging) -> list[str]:
                "    return;", "  }"])
 
 
-def _emit(plan: _Plan, allow_downcast: bool, shared: dict[int, int], staging: _Staging):
+def _emit(plan: _Plan, allow_downcast: bool, shared: dict[int, int], staging: _Staging,
+          scratch: Optional[dict[int, int]] = None):
     """The kernel body for the planned function: the helper warp's part
-    (when memrefs are staged), then the compute warp's.  Returns (writer,
-    refs, file-scope declarations)."""
+    (when memrefs are staged), then the compute warp's.  ``scratch`` maps
+    allocs to their byte offset in a lane's part of the global scratch.
+    Returns (writer, refs, file-scope declarations)."""
     module = plan.module
     w = _Writer()
-    refs = _refs(plan, allow_downcast, shared)
+    scratch = scratch or {}
+    refs = _refs(plan, allow_downcast, shared, frozenset(scratch))
     staged = [(a, refs[a], staging.mems[refs[a].name]) for a in plan.in_args + plan.out_args
               if refs[a].name in staging.mems]
     decls = []
@@ -897,6 +920,10 @@ def _emit(plan: _Plan, allow_downcast: bool, shared: dict[int, int], staging: _S
         if m.shared:
             w.line(f"{m.ctype}* const {m.name} = reinterpret_cast<{m.ctype}*>("
                    f"hir_smem + {shared[k]} * hir_lanes) + hir_lane;")
+            w.line(f"for (int32_t i = 0; i < {n}; ++i) {m.at('i')} = {_literal(0, m.ctype)};")
+        elif m.scratch:
+            w.line(f"{m.ctype}* const {m.name} = reinterpret_cast<{m.ctype}*>("
+                   f"hir_scratch + (size_t){scratch[k]} * hir_stride) + lane;")
             w.line(f"for (int32_t i = 0; i < {n}; ++i) {m.at('i')} = {_literal(0, m.ctype)};")
         else:
             w.line(f"{m.ctype} {m.name}[{n}] = {{}};")
@@ -969,6 +996,21 @@ def _place_allocs(plan: _Plan, allow_downcast: bool, dynamic: set[str],
     return shared
 
 
+def _place_scratch(plan: _Plan, allow_downcast: bool,
+                   shared: dict[int, int]) -> dict[int, int]:
+    """Allocs that go to the global scratch, by index, with their byte offset
+    in a lane's part of it: those not in shared memory that are larger than
+    ``LOCAL_ALLOC_BYTES``, in order, each 16-byte aligned."""
+    refs = _refs(plan, allow_downcast, shared)
+    scratch, used = {}, 0
+    for k, m in enumerate(refs[al.results[0]] for al in plan.allocs):
+        nbytes = _size(m.shape) * _ELEM_BYTES[m.ctype]
+        if k not in shared and nbytes > LOCAL_ALLOC_BYTES:
+            scratch[k] = used
+            used += -(-nbytes // 16) * 16
+    return scratch
+
+
 def _generate(plan: _Plan, allow_downcast: bool) -> _Kernel:
     """The kernel for the planned function.
 
@@ -988,14 +1030,18 @@ def _generate(plan: _Plan, allow_downcast: bool) -> _Kernel:
     dynamic = _emit(plan, allow_downcast, {}, staging)[0].dynamic
     shared = _place_allocs(plan, allow_downcast, dynamic,
                            (SMEM_BYTES - staging.per_pair) // 32)
-    w, refs, decls = _emit(plan, allow_downcast, shared, staging)
+    scratch = _place_scratch(plan, allow_downcast, shared)
+    w, refs, decls = _emit(plan, allow_downcast, shared, staging, scratch)
     args = plan.in_args + plan.out_args
     uses_half = any(m.ctype == "__half" for m in refs.values())
     alloc_refs = [refs[al.results[0]] for al in plan.allocs]
     smem = sum(-(-_size(alloc_refs[k].shape) * _ELEM_BYTES[alloc_refs[k].ctype] // 16) * 16
                for k in shared)
     shared_names = [alloc_refs[k].name for k in sorted(shared)]
-    local_names = [m.name for k, m in enumerate(alloc_refs) if k not in shared]
+    scratch_names = [alloc_refs[k].name for k in sorted(scratch)]
+    scratch_bytes = sum(-(-_size(alloc_refs[k].shape) * _ELEM_BYTES[alloc_refs[k].ctype] // 16)
+                        * 16 for k in scratch)
+    local_names = [m.name for k, m in enumerate(alloc_refs) if k not in shared and k not in scratch]
     staged_names = [f"m_{_ident(a.name)}" for a in args if refs[a].name in staging.mems]
     per_block = 2 if staged_names else 1         # threads a block per lane it runs
 
@@ -1042,6 +1088,11 @@ def _generate(plan: _Plan, allow_downcast: bool) -> _Kernel:
                     "lane's buffer")
         head.append("// at [i * hir_lanes + hir_lane], one bank per thread): "
                     + ", ".join(shared_names) + ".")
+    if scratch_names:
+        head.append(f"// Global scratch, element-major ({scratch_bytes} bytes a lane; element i "
+                    "of a lane's buffer")
+        head.append("// at [i * hir_stride + lane] over the grid's lanes, each warp's 32 "
+                    "lanes adjacent): " + ", ".join(scratch_names) + ".")
     if local_names:
         head.append("// Per-thread arrays: " + ", ".join(local_names) + ".")
     head += ["#include <cstdint>", "#include <cuda_runtime.h>"]
@@ -1054,6 +1105,10 @@ def _generate(plan: _Plan, allow_downcast: bool) -> _Kernel:
                    for a in args]
     casts = [f"({'const ' if a in plan.in_args else ''}{refs[a].ctype}*)g_{_ident(a.name)}"
              for a in args]
+    if scratch_names:
+        params.append("unsigned char* __restrict__ hir_scratch")
+        void_params.append("void* scratch")
+        casts.append("(unsigned char*)scratch")
     launcher = f"launch_hir_{sym}"
     if staged_names:      # threads 64p..64p+31 compute, 64p+32..64p+63 help them
         entry = ["  const int pair = threadIdx.x / 64;",
@@ -1064,6 +1119,8 @@ def _generate(plan: _Plan, allow_downcast: bool) -> _Kernel:
         entry = ["  const int hir_lanes = blockDim.x, hir_lane = threadIdx.x;"]
     entry += ["  const int lane = blockIdx.x * hir_lanes + hir_lane;",
               "  const int in_lane = min(lane, lanes - 1);"]
+    if scratch_names:
+        entry.append("  const size_t hir_stride = (size_t)gridDim.x * hir_lanes;")
     if shared or staged_names:
         entry.append("  extern __shared__ __align__(16) unsigned char hir_smem[];")
     if staged_names:
@@ -1102,7 +1159,7 @@ def _generate(plan: _Plan, allow_downcast: bool) -> _Kernel:
     written_whole = [a.name for a in plan.out_args
                      if a.type.port == ir.PORT_W and refs[a].name in staging.whole]
     return _Kernel(text, launcher, w.prefetch_bytes, smem, staging.per_pair, shared_names,
-                   staged_names, staging.chunk, written_whole)
+                   staged_names, staging.chunk, written_whole, scratch_names, scratch_bytes)
 
 
 def block_threads(lanes: int, sm_count: int) -> int:
@@ -1176,7 +1233,8 @@ class CudaLowered:
             lib = _build.load_library(self.stem, self.source)
             self._launcher = _build.bind(
                 lib, self._launcher_name,
-                [ctypes.c_void_p] * (len(p.in_args) + len(p.out_args))
+                [ctypes.c_void_p] * (len(p.in_args) + len(p.out_args)
+                                     + bool(self.kernel.scratch_allocs))
                 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
         return self._launcher
 
@@ -1217,9 +1275,13 @@ class CudaLowered:
                     (rows,) + tuple(a.type.shape), device=dev,
                     dtype=_dtype(a.type.elem, self.allow_downcast))
                 for a in p.out_args]
+        # the scratch of the allocs past LOCAL_ALLOC_BYTES: a column a thread
+        scratch = ([torch.empty(self.kernel.scratch_bytes * rows, dtype=torch.uint8, device=dev)]
+                   if self.kernel.scratch_allocs else [])
         from ...kernels import _build
 
-        rc = _build.on_device(dev, launcher, *[t.data_ptr() for t in ins + outs], n, threads, pf)
+        rc = _build.on_device(dev, launcher, *[t.data_ptr() for t in ins + outs + scratch],
+                              n, threads, pf)
         _build.check_launch(rc, self._launcher_name)
         self.launches += 1
         launches += 1

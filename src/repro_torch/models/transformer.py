@@ -10,10 +10,11 @@ Block kinds ported:
     local_attn  sliding-window GQA (window = cfg.attn.window), ring-buffer cache
     rglru       RG-LRU recurrent block (Griffin)
     ssd         Mamba-2 SSD mixer
-each pre-norm residual, followed by an ``mlp`` ffn with its own pre-norm
-residual, or by none (``"none"``: no ``ln2``).  Every other kind (enc_attn,
-cross_attn, mla), the MoE ffn, encoders and modality frontends raise
-``NotImplementedError`` (ROADMAP.md queue A, item 6).
+each pre-norm residual, followed by an ``mlp`` or ``moe`` ffn with its own
+pre-norm residual, or by none (``"none"``: no ``ln2``).  A ``moe`` ffn adds
+its load-balancing loss to the forward's aux sum; a decode step drops it.
+Every other kind (enc_attn, cross_attn, mla), encoders and modality
+frontends raise ``NotImplementedError`` (ROADMAP.md queue A, item 6).
 """
 
 from __future__ import annotations
@@ -29,14 +30,15 @@ from . import attention, mlp, rglru, ssd
 from .common import dense, dtype_of, init_norm, ninit, rms_norm, softcap
 
 MIXER_KINDS = ("attn", "local_attn", "rglru", "ssd")
-FFN_KINDS = ("mlp", "none")
+FFN_KINDS = ("mlp", "moe", "none")
 
 
 def _check_kind(kind: str, ffn: str) -> None:
     if kind not in MIXER_KINDS or ffn not in FFN_KINDS:
         raise NotImplementedError(f"block kind {kind!r} with ffn {ffn!r} is not ported yet: "
                                   f"the port runs {MIXER_KINDS} blocks with an ffn of "
-                                  f"{FFN_KINDS} (ROADMAP.md queue A, item 6)")
+                                  f"{FFN_KINDS} (ROADMAP.md queue A, item 6: enc_attn, "
+                                  f"cross_attn and mla)")
 
 
 def _check_cfg(cfg: ModelCfg) -> None:
@@ -49,8 +51,11 @@ def _check_cfg(cfg: ModelCfg) -> None:
 
 
 def _stack(trees: list):
+    """One tree whose leaves stack the trees' leaves.  Each leaf leaves its
+    tree as it is stacked, so the layers' own copies are freed leaf by leaf
+    (peak memory: the model and one stacked leaf, not the model twice)."""
     if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+        return {k: _stack([t.pop(k) for t in trees]) for k in list(trees[0])}
     return torch.stack(trees)
 
 
@@ -85,14 +90,23 @@ def init_block(gen: torch.Generator, kind: str, ffn: str, cfg: ModelCfg):
     if ffn == "mlp":
         p["ln2"] = init_norm(cfg.d_model, gen.device)
         p["ffn"] = mlp.init_mlp(gen, cfg)
+    elif ffn == "moe":
+        p["ln2"] = init_norm(cfg.d_model, gen.device)
+        p["ffn"] = mlp.init_moe(gen, cfg)
     return p
 
 
 def _ffn(p, x, ffn: str, cfg: ModelCfg):
+    """The ffn's pre-norm residual.  Returns (x, aux_loss)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if ffn == "none":
-        return x
+        return x, aux
     h = rms_norm(x, p["ln2"]["scale"], cfg.norm_eps, plus_one=cfg.norm == "rmsnorm_p1")
-    return x + mlp.mlp_forward(p["ffn"], h, cfg)
+    if ffn == "mlp":
+        f = mlp.mlp_forward(p["ffn"], h, cfg)
+    else:
+        f, aux = mlp.moe_forward(p["ffn"], h, cfg)
+    return x + f, aux
 
 
 def block_forward(p, x, kind: str, ffn: str, cfg: ModelCfg, *, positions=None, causal=True):
@@ -106,8 +120,7 @@ def block_forward(p, x, kind: str, ffn: str, cfg: ModelCfg, *, positions=None, c
         m = rglru.rglru_forward(p["mixer"], h, cfg)
     else:
         m = ssd.ssd_forward(p["mixer"], h, cfg)
-    x = _ffn(p, x + m, ffn, cfg)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return _ffn(p, x + m, ffn, cfg)
 
 
 def init_block_cache(kind: str, batch: int, seq_len: int, cfg: ModelCfg, device=None):
@@ -129,7 +142,8 @@ def block_decode_step(p, x1, cache, index, kind: str, ffn: str, cfg: ModelCfg):
         m, cache = rglru.rglru_decode_step(p["mixer"], h, cache, cfg)
     else:
         m, cache = ssd.ssd_decode_step(p["mixer"], h, cache, cfg)
-    return _ffn(p, x1 + m, ffn, cfg), cache
+    x1, _ = _ffn(p, x1 + m, ffn, cfg)
+    return x1, cache
 
 
 # ---------------------------------------------------------------------------

@@ -22,8 +22,9 @@ from repro_torch.core.builder import Builder as PortBuilder
 from repro_torch.core.codegen import sim as port_sim
 from repro_torch.core.codegen.rtl import Binop, Const, PortConflictAssert, Ref
 from repro_torch.core.gallery import gemm
-from repro_torch.configs.registry import get_smoke_config
+from repro_torch.configs.registry import get_config, get_smoke_config
 from repro_torch.core.lower import lower_to_cuda
+from repro_torch.core.passes import DEFAULT_PIPELINE_SPEC, PassManager
 from repro_torch.kernels import decode_attention as dec
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import matmul as mm
@@ -31,7 +32,7 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels import rglru_scan as rg
 from repro_torch.kernels import ssd_scan as ssd_k
 from repro_torch.launch import serve
-from repro_torch.models import ssd, transformer
+from repro_torch.models import mlp, ssd, transformer
 
 LOOP_NESTS = ["array_add", "transpose", "stencil1d", "histogram", "conv2d"]
 
@@ -375,7 +376,9 @@ def test_matmul_refuses_an_unschedulable_tile_on_card():
 DESIGN_SIZES = [("array_add", {}), ("array_add", {"n": 4096}), ("transpose", {}),
                 ("transpose", {"n": 64}), ("stencil1d", {}), ("stencil1d", {"n": 4096}),
                 ("histogram", {}), ("histogram", {"n": 4096, "bins": 256}),
-                ("conv2d", {}), ("conv2d", {"h": 64, "w": 64})]
+                ("conv2d", {}), ("conv2d", {"h": 64, "w": 64}),
+                # bins too many for shared memory: the call's global scratch
+                ("histogram", {"n": 64, "bins": 4096})]
 
 
 @pytest.mark.gpu
@@ -1124,6 +1127,145 @@ def test_run_differential_on_card_at_4096_vectors():
                                     oracle=oracle, oracle_nargs=nargs, device=dev)
     assert rep.ok, rep.mismatches[:5]
     assert rep.backend == "cuda" and rep.n_vectors == 4096 and rep.oracle_ok is True
+
+
+# -- the traced designs of the frontend -------------------------------------------------
+
+TRACED = ["frontend_matmul", "frontend_scan", "frontend_softmax_row"]
+# the workloads' own sizes, and the larger ones chip_smoke.py runs
+TRACED_SIZES = [("frontend_matmul", {}), ("frontend_matmul", {"m": 16, "k": 16, "n": 16, "tile": 4}),
+                ("frontend_softmax_row", {}), ("frontend_softmax_row", {"n": 4096}),
+                ("frontend_scan", {}), ("frontend_scan", {"n": 4096})]
+
+
+def traced_stimulus(gal, size, lanes):
+    """``lanes`` seeded input vectors, batch first (``tile`` is build's alone)."""
+    kw = {k: v for k, v in size.items() if k != "tile"}
+    per_lane = [gal.make_inputs(**kw, seed=s) for s in range(lanes)]
+    return [np.stack([lane[i] for lane in per_lane]) for i in range(len(per_lane[0]))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gal_name,size", TRACED_SIZES)
+def test_traced_design_on_card_equals_its_oracle_on_every_lane(gal_name, size):
+    """A PyTorch program traced into HIR, optimized and lowered to the
+    generated kernel (K1): 4096 lanes at once, each lane the oracle's."""
+    dev = _cuda_or_skip()
+    gal = port_gallery.GALLERY[gal_name]
+    module, name = gal.build(**size)
+    PassManager.from_spec(DEFAULT_PIPELINE_SPEC).run(module)
+    fn = lower_to_cuda(module, name, device=dev)
+    batch = traced_stimulus(gal, size, 4096)
+    ins = [torch.as_tensor(x).to(dev, torch.int32) for x in batch[:2]]
+    got = fn(*ins)["out"]
+    assert torch.equal(got, fn.plain(*ins)["out"])
+    got = got.cpu().numpy().astype(np.int64)
+    for s in range(4096):
+        np.testing.assert_array_equal(got[s], gal.oracle(batch[0][s], batch[1][s]), err_msg=str(s))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hierarchy", HIERARCHIES)
+@pytest.mark.parametrize("gal_name", TRACED)
+def test_traced_design_run_differential_on_card(gal_name, hierarchy):
+    """The frontend test's differential matrix on the card's simulator kernel
+    at 4096 vectors: every leg, every RTL pass."""
+    dev = _cuda_or_skip()
+    gal = port_gallery.GALLERY[gal_name]
+    module, entry = gal.build()
+    batch = port_sim.stack_stimulus(gal.make_inputs, 4096, base_seed=7)
+    rep = port_sim.run_differential(module, entry, batch, kernel=gal_name, hierarchy=hierarchy,
+                                    oracle=gal.oracle, oracle_nargs=2, device=dev)
+    assert rep.ok, rep.mismatches[:5]
+    assert rep.backend == "cuda" and rep.n_vectors == 4096 and rep.oracle_ok is True
+    assert rep.passes_ok and all(rep.passes_ok.values()), rep.passes_ok
+
+
+# -- the MoE layer and head dim 128 at one query head a KV head (qwen2-moe) -------------
+
+MOE = "qwen2-moe-a2.7b"
+
+
+def moe_tokens(cfg, T, seed):
+    """T tokens drawn from 256 distinct vectors that share a direction
+    (routing skewed), in the config's dtype."""
+    rng = np.random.default_rng(seed)
+    base = rng.normal(size=(min(T, 256), cfg.d_model)) + 3 * rng.normal(size=cfg.d_model)
+    x = base[rng.permutation(np.arange(T) % len(base))]
+    return torch.as_tensor(x[None], dtype=torch.float32).to(
+        torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32)
+
+
+def top_k_margin(p, x, k):
+    """The smallest gap, in router logits computed in float64, between a
+    token's k-th and (k+1)-th expert: far above float32's rounding, no
+    token's routing can differ between two summation orders."""
+    logits = x[0].double() @ p["router"].double()
+    top = torch.sort(logits, dim=-1, descending=True).values
+    return float((top[:, k - 1] - top[:, k]).min())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case,T", [("smoke", 37), ("full width", 4), ("full width", 4096)])
+def test_moe_layer_on_card_equals_the_cpu(case, T):
+    """``moe_forward_local`` on the card (expert products as ``torch.bmm``,
+    the gate-weighted sum an atomic ``index_add_``) against its CPU run on
+    the same weights and tokens: the smoke config in float32 at 1e-5; one
+    full-width layer of qwen2-moe (60 experts of 1408, top-4, shared 5632)
+    in bfloat16 at 2e-2 |cpu| + 2e-2 max |cpu|, the reference kernel tests'
+    bf16 tolerance scaled by the result's magnitude, as chip_smoke.py holds
+    the matmul: the routed and the shared outputs are each rounded to bf16
+    before they are added, so where they cancel the sum keeps their
+    rounding (half an ulp of values near 10 is 0.03)."""
+    dev = _cuda_or_skip()
+    cfg = get_smoke_config(MOE) if case == "smoke" else get_config(MOE)
+    p = mlp.init_moe(torch.Generator().manual_seed(0), cfg)
+    x = moe_tokens(cfg, T, seed=1)
+    assert top_k_margin(p, x, cfg.moe.top_k) > 5e-5
+    want, want_aux = mlp.moe_forward_local(p, x, cfg)
+    got, aux = mlp.moe_forward_local(_to(p, dev), x.to(dev), cfg)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == want.dtype and got.device.type == "cuda"
+    want32 = want.float().numpy()
+    t, atol = (1e-5, 1e-5) if case == "smoke" else (2e-2, 2e-2 * np.abs(want32).max())
+    np.testing.assert_allclose(got.float().cpu().numpy(), want32, rtol=t, atol=atol)
+    np.testing.assert_allclose(float(aux), float(want_aux), rtol=1e-5)
+
+
+@pytest.mark.gpu
+def test_moe_model_on_card_equals_the_cpu():
+    """qwen2-moe's smoke model: the forward through K3 (one launch a layer)
+    and its aux loss equal the plain CPU forward."""
+    dev = _cuda_or_skip()
+    cfg = get_smoke_config(MOE)
+    params = transformer.init_lm(0, cfg, device="cpu")
+    toks = np.random.default_rng(0).integers(0, cfg.vocab, (2, 40))
+    before = fa.launches
+    got, aux = transformer.lm_forward(_to(params, dev), {"tokens": torch.as_tensor(toks)}, cfg)
+    torch.cuda.synchronize()
+    assert fa.launches - before == 2
+    want, want_aux = transformer.lm_forward(params, {"tokens": torch.as_tensor(toks)}, cfg)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(float(aux), float(want_aux), rtol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_attention_kernels_at_head_dim_128_group_1_on_card(dtype):
+    """K3 and K4 at qwen2-moe's heads (16 query heads, 16 KV heads of 128):
+    a prefill off the tiles and a cache of 1024 with a length per lane."""
+    dev = _cuda_or_skip()
+    q, k, v = _on(dev, dtype, *attention_operands((2, 300, 16, 128), (2, 300, 16, 128), dtype))
+    got = ops.mha(q, k, v, causal=True)
+    want = ref.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                   causal=True).transpose(1, 2)
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(), **tol(dtype))
+    q, k, v = _on(dev, dtype, *attention_operands((4, 16, 128), (4, 1024, 16, 128), dtype, seed=9))
+    n = torch.tensor([1, 100, 513, 1024], dtype=torch.int32, device=dev)
+    got = ops.decode(q, k, v, n)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               ref.decode_attention_ref(q, k, v, n).float().cpu().numpy(),
+                               **tol(dtype))
 
 
 def test_simulator_for_without_a_device_raises_where_there_is_no_cuda():

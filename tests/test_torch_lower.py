@@ -194,7 +194,7 @@ def _mac_top():
 @pytest.mark.parametrize("gal_name", sorted(port_gallery.GALLERY))
 def test_functional_lowering_matches_simulator(gal_name):
     """``lower_to_torch`` (schedule-free) against the port's cycle-accurate
-    ``simulate`` on all nine designs."""
+    ``simulate`` on all twelve designs, the three traced ones included."""
     if gal_name == "mac":
         module, name = _mac_top()
         inputs = [np.array([7, -3, 11], np.int64), np.zeros((1,), np.int64)]
@@ -516,18 +516,46 @@ def test_histogram_bins_get_no_prefetch_and_live_in_shared_memory():
 def test_allocs_placed_by_index_and_size():
     """conv2d's line buffers are indexed by the column and go to shared
     memory; its window, indexed by constants only, stays in registers; bins
-    too many for a block's shared memory stay per-thread arrays."""
+    too many for a block's shared memory go to the call's global scratch,
+    element-major (a per-thread array that large would be local memory,
+    which CUDA reserves for every thread the card holds)."""
     conv = _kernel("conv2d")
     assert conv.kernel.shared_allocs == ["a0_L0r", "a1_L1r"]
     assert "int32_t a2_Pr[6] = {};" in conv.source
+    assert conv.kernel.scratch_allocs == [] and "hir_scratch" not in conv.source
     big = _kernel("histogram", n=64, bins=4096)
     assert big.kernel.shared_allocs == [] and big.kernel.smem_per_thread == 0
-    assert "int32_t a0_Hr[4096] = {};" in big.source
+    assert big.kernel.scratch_allocs == ["a0_Hr"] and big.kernel.scratch_bytes == 4096 * 4
+    assert "a0_Hr = reinterpret_cast<int32_t*>(hir_scratch + (size_t)0 * hir_stride) + lane;" \
+        in big.source
+    assert re.search(r"a0_Hr\[\(size_t\)\(r\d+\) \* hir_stride\]", big.source)   # a data-indexed bin
+    assert "void* scratch, int lanes" in big.source and "[4096] = {}" not in big.source
     large = _kernel("histogram", n=4096, bins=256)
     assert large.kernel.shared_allocs == ["a0_Hr"]
     assert "cudaFuncSetAttribute(hir_histogram" in large.source
     assert large.source.count("static bool attr_set = false;") == 1
     assert large.kernel.smem_bytes(32) <= to_cuda.SMEM_BYTES
+
+
+def test_traced_buffers_past_the_local_limit_go_to_the_global_scratch():
+    """A traced softmax row of 4096 chains nine (4096,) buffers: each goes to
+    the scratch (16 KB a lane each, laid out one after another), the
+    rank-0 registers stay per-thread arrays, and the plain version agrees
+    with the oracle."""
+    from repro_torch.core.gallery import frontend_softmax_row
+
+    module, name = frontend_softmax_row.build(n=4096)
+    fn = lower_to_cuda(module, name, device="cpu")
+    assert len(fn.kernel.scratch_allocs) == 9 and fn.kernel.scratch_bytes == 9 * 4096 * 4
+    offsets = re.findall(r"hir_scratch \+ \(size_t\)(\d+) \* hir_stride", fn.source)
+    assert [int(o) for o in offsets] == [k * 4096 * 4 for k in range(9)]
+    assert re.findall(r"int32_t (a\d+_\w+)\[1\] = \{\};", fn.source) == [
+        "a2_red2r", "a8_red8r", "a9_b9r"]
+    assert all(int(n) <= to_cuda.LOCAL_ALLOC_BYTES // 4
+               for n in re.findall(r"int32_t a\d+_\w+\[(\d+)\] = \{\};", fn.source))
+    s, mask, _ = frontend_softmax_row.make_inputs(n=4096, seed=1)
+    got = fn(s, mask)["out"]
+    np.testing.assert_array_equal(got.numpy().astype(np.int64), frontend_softmax_row.oracle(s, mask))
 
 
 @pytest.mark.parametrize("lanes,threads", [(1, 32), (33, 32), (4096, 32), (4097, 32),

@@ -33,7 +33,7 @@ from repro_torch.train.steps import make_prefill_step, make_serve_step
 ROOT = Path(__file__).resolve().parent.parent
 ARCHS = ["tinyllama-1.1b", "qwen2-7b"]
 PORTED = ["tinyllama-1.1b", "qwen2-7b", "smollm-360m", "qwen2.5-14b", "mamba2-780m",
-          "recurrentgemma-9b"]
+          "recurrentgemma-9b", "qwen2-moe-a2.7b"]
 B, S = 2, 12
 
 _cache: dict = {}

@@ -363,7 +363,8 @@ def test_params_carry_over_the_recurrent_trees():
 
 def test_unported_kinds_still_raise():
     cfg = registry.get_smoke_config("mamba2-780m")
-    for pattern, ffn in ((("mla",), "none"), (("cross_attn",), "mlp"), (("ssd",), "moe")):
+    # (the MoE ffn, which this list once held, is ported: tests/test_torch_moe.py)
+    for pattern, ffn in ((("mla",), "none"), (("cross_attn",), "mlp"), (("enc_attn",), "mlp")):
         bad = cfg.scaled(segments=(Segment(pattern, 1, ffn),))
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             transformer.init_lm(0, bad, device="cpu")

@@ -16,7 +16,10 @@ from repro_torch.core import gallery as port_gallery
 from repro_torch.core.codegen import generate_verilog, report_design
 from repro_torch.core.passes import run_pipeline
 
-KERNELS = sorted(port_gallery.GALLERY)
+# the reference side is built too: its traced designs need the reference's
+# tracer, which does not run under the installed jax (ROADMAP R1); the port's
+# traced designs are held to the reference's report in test_torch_frontend.py
+KERNELS = sorted(k for k in port_gallery.GALLERY if not k.startswith("frontend_"))
 MODES = ("inline", "modules")
 
 

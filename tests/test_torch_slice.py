@@ -53,7 +53,8 @@ VERBATIM = (
     + [f"core/gallery/{m}.py" for m in ("array_add", "transpose", "stencil1d", "histogram",
                                         "conv2d", "gemm", "gemm_shared", "mac", "fifo")]
     + [f"configs/{m}.py" for m in ("base", "tinyllama_1_1b", "smollm_360m", "qwen2_7b",
-                                   "qwen2_5_14b", "mamba2_780m", "recurrentgemma_9b")]
+                                   "qwen2_5_14b", "mamba2_780m", "recurrentgemma_9b",
+                                   "qwen2_moe_a2_7b")]
 )
 
 
@@ -224,17 +225,17 @@ def test_sim_keeps_the_reference_apart_from_its_backends():
 
 
 def test_registry_differs_only_by_the_archs_not_ported():
-    """``configs/registry.py`` lists the six archs the port runs (four dense,
-    Mamba-2 and RecurrentGemma): the other archs' lines leave ``ARCHS`` and
-    ``_ALIASES``, and the ``KeyError`` says an arch may be unknown or not
-    ported yet."""
+    """``configs/registry.py`` lists the seven archs the port runs (four dense,
+    Mamba-2, RecurrentGemma and the MoE qwen2-moe): the other archs' lines
+    leave ``ARCHS`` and ``_ALIASES``, and the ``KeyError`` says an arch may
+    be unknown or not ported yet."""
     ref_lines = (REF / "configs/registry.py").read_text().splitlines()
     port_lines = (PORT / "configs/registry.py").read_text().splitlines()
     ported = {"tinyllama_1_1b", "qwen2_7b", "smollm_360m", "qwen2_5_14b", "mamba2_780m",
-              "recurrentgemma_9b"}
+              "recurrentgemma_9b", "qwen2_moe_a2_7b"}
     dropped = {i for i, ln in enumerate(ref_lines) if ln.startswith('    "') and ln.endswith(",")
                and ln.rstrip(",").split('"')[-2] not in ported}
-    assert len(dropped) == 2 * 4
+    assert len(dropped) == 2 * 3
     raise_line = next(i for i, ln in enumerate(ref_lines) if "raise KeyError" in ln)
     want = [ln for i, ln in enumerate(ref_lines) if i not in dropped]
     want[want.index(ref_lines[raise_line])] = (
@@ -255,10 +256,16 @@ def test_analysis_copy_leaves_out_only_the_rtl_level_analyses():
 
 
 def test_gallery_lists_the_nine_hand_written_designs():
-    assert sorted(port_gallery.GALLERY) == sorted(
-        k for k in ref_gallery.GALLERY if not k.startswith("frontend_"))
-    assert len(port_gallery.GALLERY) == 9
+    """The gallery has the reference's twelve entries: the nine hand-written
+    designs and the three the frontend traces from PyTorch programs; its
+    file is the reference's but for the docstring's word for the programs."""
+    assert list(port_gallery.GALLERY) == list(ref_gallery.GALLERY)
+    assert len(port_gallery.GALLERY) == 12
+    assert sum(not k.startswith("frontend_") for k in port_gallery.GALLERY) == 9
     assert port_gallery.PAPER_BENCHMARKS == ref_gallery.PAPER_BENCHMARKS
+    assert (PORT / "core/gallery/__init__.py").read_text() == (
+        REF / "core/gallery/__init__.py").read_text().replace(
+        "they are jax.numpy\nprograms traced", "they are PyTorch\nprograms traced")
 
 
 # -- ground rules -------------------------------------------------------------------

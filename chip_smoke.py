@@ -17,20 +17,30 @@ PyTorch version on the card, then drives:
   GEMM binding through the hand-written matmul, whose bfloat16 kernel runs on
   wgmma and whose float32 kernel stays exact on integer operands (every
   shape, 4096^3 and a ragged 4000x3992x4104 included);
-* serving four models at full width (random weights from a seed) — the
+* serving seven models at full width (random weights from a seed) — the
   dense tinyllama-1.1b, the attention-free mamba2-780m, the hybrid
-  recurrentgemma-9b and the MoE qwen2-moe-a2.7b (60 routed experts, top-4,
-  head dim 128 with a KV head a query head), one after another, each freed
-  before the next: the continuous-batching ``Engine`` answers 8 requests
-  over 4 slots (the recurrent two refill in waves), every decode step through
-  the decode-attention kernel where the model has attention;
+  recurrentgemma-9b, the MoE qwen2-moe-a2.7b (60 routed experts, top-4,
+  head dim 128 with a KV head a query head), deepseek-v2-lite-16b at full
+  depth (multi-head latent attention: queries and keys of 192 dims against
+  values of 128; 64 routed experts, top-6), the encoder-decoder
+  seamless-m4t-medium and llama-3.2-vision-90b cut to one group of its
+  pattern (four attn layers and one gated cross_attn layer over 1600
+  patches), one after another, each freed before the next: the
+  continuous-batching ``Engine`` answers 8 requests over 4 slots (the
+  recurrent two refill in waves), every decode step through the
+  decode-attention kernel where the model has self- or cross-attention (the
+  latent decode of MLA is eager torch, as the reference's is plain XLA);
+  the cross models' gates are drawn from a seed (a fresh model's are 0);
 * each model's prefill step: flash attention for tinyllama and qwen2-moe,
   the SSD scan for Mamba-2, the RG-LRU scan and windowed flash attention
-  (head dim 256) for RecurrentGemma;
+  (head dim 256) for RecurrentGemma, flash attention at head dims 192/128
+  for deepseek's MLA, non-causal flash attention for seamless' encoder and
+  the cross-attention of both cross models (seeded frontend embeddings);
 * the reference's decode-consistency invariant: teacher-forced decode steps
   against the forward pass over the same tokens, at full width (RecurrentGemma
-  cut to one group of its pattern, its window cut to 64; qwen2-moe cut to 8
-  layers, at capacity factor 64);
+  cut to one group of its pattern, its window cut to 64; qwen2-moe and
+  deepseek cut to their first 8 layers, at capacity factor 64; the cross
+  models with their caches filled from seeded embeddings);
 * the designer's differential check (``differential``): the design lowered
   to RTL (``generate_verilog``) and run on the cycle-accurate simulator's
   kernel generated per design, on 4096 stimulus vectors — the reference's
@@ -111,7 +121,7 @@ from repro_torch.kernels import matmul as mm  # noqa: E402
 from repro_torch.kernels import rglru_scan as rg  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd_k  # noqa: E402
 from repro_torch.launch.serve import Engine, make_requests, serve_requests  # noqa: E402
-from repro_torch.models import ssd, transformer  # noqa: E402
+from repro_torch.models import mla, ssd, transformer  # noqa: E402
 from repro_torch.train.steps import make_prefill_step  # noqa: E402
 
 SEED = 0
@@ -210,10 +220,23 @@ MATMUL_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # relative to |plain|
 # new tokens over 4 slots of a 1024-position cache
 ARCH, MAMBA, RGEMMA = "tinyllama-1.1b", "mamba2-780m", "recurrentgemma-9b"
 MOE = "qwen2-moe-a2.7b"
+DEEPSEEK, SEAMLESS, VISION = "deepseek-v2-lite-16b", "seamless-m4t-medium", "llama-3.2-vision-90b"
 SLOTS, MAX_LEN, REQUESTS, PROMPT, NEW = 4, 1024, 8, 64, 32
 # (batch, tokens) of each model's prefill step and of its consistency check
-PREFILL = {ARCH: (4, 1024), MAMBA: (4, 2048), RGEMMA: (2, 4096), MOE: (4, 1024)}
-CONSIST = {ARCH: (2, 128), MAMBA: (2, 300), RGEMMA: (2, 160), MOE: (2, 128)}
+PREFILL = {ARCH: (4, 1024), MAMBA: (4, 2048), RGEMMA: (2, 4096), MOE: (4, 1024),
+           DEEPSEEK: (4, 1024), SEAMLESS: (4, 1024), VISION: (4, 1024)}
+CONSIST = {ARCH: (2, 128), MAMBA: (2, 300), RGEMMA: (2, 160), MOE: (2, 128),
+           DEEPSEEK: (2, 128), SEAMLESS: (2, 128), VISION: (2, 128)}
+# llama-3.2-vision-90b (87.7 B parameters, 175 GB in bf16) does not fit one
+# card: it is served at full width cut in depth to one group of its pattern,
+# four attn layers and one cross_attn layer (about 6.4 B parameters)
+SERVE_CUT_REPEATS = {VISION: 1}
+# the models with cross-attention: a fresh model's tanh gates are 0, which
+# hides cross-attention and the cross block's ffn, so the served weights get
+# gates drawn from a seed; prefill and consistency feed seeded, non-zero
+# frontend embeddings (the Engine fills its cross caches from zero ones, as
+# the reference's demo engine does)
+CROSS_ARCHS = (SEAMLESS, VISION)
 PREFILL_B, PREFILL_S = PREFILL[ARCH]
 CONSIST_B, CONSIST_S = CONSIST[ARCH]
 # Mamba-2's 300 tokens cross a chunk boundary of 256 and end in a ragged
@@ -226,6 +249,9 @@ RG_CUT_WINDOW = 64
 # first 8 layers, so that a float32 copy of their weights fits on the card
 # beside the served bfloat16 model; bfloat16 and float32, as tinyllama's.
 MOE_CUT_LAYERS, MOE_CONSIST_CF = 8, 64.0
+# deepseek-v2-lite's check likewise: its dense first layer and the first 7
+# MoE layers (a float32 copy of all 27 would be 63 GB beside the 31.4 GB
+# served), at capacity factor 64
 # The invariant is held twice on the same weights.  In float32 it is held to
 # the reference test's own tolerance (2e-3 + 2e-3 |forward|): there both
 # paths compute the same numbers up to the order of their sums.  In bfloat16
@@ -242,6 +268,13 @@ CONSIST_NOISE = 3.0
 
 # the reference kernel tests' _tol: |kernel - plain| <= atol + rtol * |plain|
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# Queries drawn this many times larger on the MLA and cross-model rows,
+# which average over a thousand keys or more: with queries of unit scale the
+# softmax there is nearly flat, |o| is about 0.04 and the absolute term of
+# the bfloat16 tolerance is half of it.  Sharper, the softmax peaks on a few
+# keys and |o| is of order 1 (each row records its RMS), so a key tile
+# dropped or counted twice moves the rows that peak in it by about |v|.
+PEAKED_Q = 4.0
 # and test_ssd_scan's / test_rglru_scan's, against the step-by-step oracles
 SCAN_TOL = 2e-4
 
@@ -958,45 +991,66 @@ def seeded(shape, dtype, device, g) -> torch.Tensor:
 
 
 def k3_case(case: str, B, Sq, Sk, H, KvH, D, dtype, device, g, *, window=None,
-            kv_len=None) -> dict:
-    """The flash-attention kernel, causal, against its plain version and
-    against SDPA on the same (B,H,S,D) views of model-layout tensors."""
-    q = seeded((B, Sq, H, D), dtype, device, g).transpose(1, 2)
-    k, v = (seeded((B, Sk, KvH, D), dtype, device, g).transpose(1, 2) for _ in range(2))
-    kwargs = dict(causal=True, window=window, kv_len=kv_len)
+            kv_len=None, Dv=None, causal=True, scale=None, q_scale=1.0) -> dict:
+    """The flash-attention kernel (causal unless told otherwise; values of
+    ``Dv`` head dims where given, under ``scale``; queries ``q_scale`` times
+    normal) against its plain version and against SDPA on the same (B,H,S,D)
+    views of model-layout tensors.  Where SDPA refuses the call,
+    ``library_ms`` is null with the reason."""
+    Dv = Dv or D
+    q = (seeded((B, Sq, H, D), dtype, device, g) * q_scale).transpose(1, 2)
+    k = seeded((B, Sk, KvH, D), dtype, device, g).transpose(1, 2)
+    v = seeded((B, Sk, KvH, Dv), dtype, device, g).transpose(1, 2)
+    kwargs = dict(causal=causal, window=window, kv_len=kv_len, scale=scale)
     got = fa.flash_attention(q, k, v, **kwargs)
     torch.cuda.synchronize()
     want = ref.flash_attention_ref(q, k, v, **kwargs)
-    name = f"flash_attention[{case} {B}x{Sq}x{Sk} H{H}/{KvH} D{D} {dtype_name(dtype)}]"
+    dims = f"D{D}" if Dv == D else f"Dqk{D}/Dv{Dv}"
+    name = (f"flash_attention[{case} {B}x{Sq}x{Sk} H{H}/{KvH} {dims} {dtype_name(dtype)}"
+            f"{'' if causal else ' non-causal'}]")
     err = check_close(name, got, want, dtype)
     q_pos = torch.arange(Sq, device=device)[:, None]
     k_pos = torch.arange(Sk, device=device)[None, :]
-    valid = (k_pos <= q_pos) & (k_pos < (kv_len or Sk))
+    valid = (k_pos < (kv_len or Sk)) & (q_pos >= 0)      # (Sq, Sk)
+    if causal:
+        valid = valid & (k_pos <= q_pos)
     if window is not None:
         valid &= k_pos > q_pos - window
     if window is None and kv_len is None:
-        library = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+        library = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                                         enable_gqa=True, scale=scale)
     else:
-        library = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=valid, enable_gqa=True)
-    check_close(f"{name}: the library call", library(), want, dtype)
+        library = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=valid,
+                                                         enable_gqa=True, scale=scale)
+    try:
+        check_close(f"{name}: the library call", library(), want, dtype)
+        library_note = None
+    except RuntimeError as e:                     # no backend takes the call
+        library, library_note = None, f"refused: {str(e).splitlines()[0][:160]}"
     es = q.element_size()
     pairs = int(valid.sum())                      # (query, key) pairs this mask lets through
-    flops = 4.0 * B * H * pairs * D               # two products, a multiply and an add each
-    nbytes = (2 * B * H * Sq * D + 2 * B * KvH * (kv_len or Sk) * D) * es
+    flops = 2.0 * B * H * pairs * (D + Dv)        # Q K^T over D, P V over Dv: a multiply-add each
+    nbytes = (B * H * Sq * (D + Dv) + B * KvH * (kv_len or Sk) * (D + Dv)) * es
     bound_ms, bound_by = bound(flops, nbytes, dtype)
     kernel = lambda: fa.flash_attention(q, k, v, **kwargs)
-    return {
+    row = {
         "name": name, "route": "cuda", "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:96", "kernel": fa.KERNEL[dtype],
-        "shape": {"B": B, "Sq": Sq, "Sk": Sk, "H": H, "KvH": KvH, "D": D,
-                  "dtype": dtype_name(dtype), "causal": True, "window": window, "kv_len": kv_len},
+        "shape": {"B": B, "Sq": Sq, "Sk": Sk, "H": H, "KvH": KvH, "D": D, "Dv": Dv,
+                  "dtype": dtype_name(dtype), "causal": causal, "window": window,
+                  "kv_len": kv_len, "scale": scale, "q_scale": q_scale},
         "launches": None, "max_abs_err": err, "tolerance": f"{ATTN_TOL[dtype]} + {ATTN_TOL[dtype]}*|plain|",
+        "rms_plain": float(want.float().square().mean().sqrt()),
         "ms": time_ms(kernel, 20),
         "plain_ms": time_ms(lambda: ref.flash_attention_ref(q, k, v, **kwargs), 5),
         "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": time_ms(library, 20),
-        **device_times(kernel, library),
+        "library_ms": time_ms(library, 20) if library else None,
     }
+    if library:
+        row.update(device_times(kernel, library))
+    else:
+        row.update({"library_note": library_note, "device_ms": graph_ms(kernel)[0]})
+    return row
 
 
 def phase_kernels_k3(device) -> list[dict]:
@@ -1020,10 +1074,11 @@ def phase_kernels_k3(device) -> list[dict]:
     return rows
 
 
-def k4_case(case: str, B, L, H, KvH, D, dtype, lengths, device, g) -> dict:
+def k4_case(case: str, B, L, H, KvH, D, dtype, lengths, device, g, q_scale=1.0) -> dict:
     """The decode-attention kernel against its plain version and against SDPA
-    with a boolean mask, on one query token per lane."""
-    q = seeded((B, H, D), dtype, device, g)
+    with a boolean mask, on one query token per lane (``q_scale`` times
+    normal)."""
+    q = seeded((B, H, D), dtype, device, g) * q_scale
     k, v = (seeded((B, L, KvH, D), dtype, device, g) for _ in range(2))
     n = torch.tensor(lengths, dtype=torch.int32, device=device) if isinstance(lengths, list) \
         else lengths
@@ -1050,9 +1105,10 @@ def k4_case(case: str, B, L, H, KvH, D, dtype, lengths, device, g) -> dict:
         "name": name, "route": "cuda", "source": "src/repro_torch/csrc/decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention.py:73", "kernel": dec.KERNEL[dtype],
         "shape": {"B": B, "L": L, "H": H, "KvH": KvH, "D": D, "dtype": dtype_name(dtype),
-                  "length": lengths},
+                  "length": lengths, "q_scale": q_scale},
         "split": {"chunk": chunk, "chunks": n_chunks, "blocks": n_chunks * groups},
         "launches": None, "max_abs_err": err, "tolerance": f"{ATTN_TOL[dtype]} + {ATTN_TOL[dtype]}*|plain|",
+        "rms_plain": float(want.float().square().mean().sqrt()),
         "ms": time_ms(kernel, 50),
         "plain_ms": time_ms(lambda: ref.decode_attention_ref(q, k, v, n), 20),
         "bound_ms": bound_ms, "bound_by": bound_by,
@@ -1147,6 +1203,60 @@ def phase_kernels_moe(device) -> tuple[list[dict], list[dict]]:
           k4_case("consistency", cb, cs, H, KvH, D, BF16, [cs] * cb, device, g)]
     k4[0]["checks"] = [k4_case("serve float32", SLOTS, MAX_LEN, H, KvH, D, F32, lanes, device, g)]
     return k3, k4
+
+
+def phase_kernels_mla(device) -> list[dict]:
+    """K3 as deepseek-v2-lite's MLA prefill runs it: 16 heads, queries and
+    keys of nope 128 + rope 64 = 192 dims against values of 128, causal,
+    under the scale 192^-0.5, on the ``<192, 128>`` instantiation: at its
+    4 x 1024 prefill and at the cut consistency check (2 x 128); the prefill
+    shape in float32 (padded to 256) as a check."""
+    g = torch.Generator(device="cpu").manual_seed(SEED + 9)
+    a = get_config(DEEPSEEK).attn
+    H, Dqk, Dv = a.n_heads, a.nope_head_dim + a.rope_head_dim, a.v_head_dim
+    mla_dims = dict(Dv=Dv, scale=Dqk ** -0.5, q_scale=PEAKED_Q)
+    (B, S), (cb, cs) = PREFILL[DEEPSEEK], CONSIST[DEEPSEEK]
+    rows = [k3_case("MLA prefill", B, S, S, H, H, Dqk, BF16, device, g, **mla_dims),
+            k3_case("MLA consistency", cb, cs, cs, H, H, Dqk, BF16, device, g, **mla_dims)]
+    rows[0]["checks"] = [k3_case("MLA prefill float32", B, S, S, H, H, Dqk, F32, device, g,
+                                 **mla_dims)]
+    return rows
+
+
+def phase_kernels_cross(device) -> dict:
+    """K3 and K4 at the shapes of the two cross-attention models, bfloat16,
+    each with a float32 check.  seamless-m4t (16/16 heads of 64): K3 causal
+    over the decoder's 4 x 1024 prefill, and non-causal 1024 against 1024
+    (the encoder over 1024 audio frames, and cross-attention from the 1024
+    tokens to them: one shape); K4 over the decoder's cache with a length
+    per lane, and over the memory (cross decode, length 1024).
+    llama-3.2-vision (64/8 heads of 128): K3 causal over its 4 x 1024
+    prefill and non-causal from 1024 tokens to 1600 patches (off the key
+    tile); K4 over its cache and over the 1600 patches.  Queries are
+    ``PEAKED_Q`` times normal throughout."""
+    g = torch.Generator(device="cpu").manual_seed(SEED + 10)
+    lanes = [1, 100, 513, 1024]
+    sharp = dict(q_scale=PEAKED_Q)
+    out = {}
+    for arch in CROSS_ARCHS:
+        cfg = get_config(arch)
+        a = cfg.attn
+        H, KvH, D, Tm = a.n_heads, a.n_kv_heads, a.d_head, cfg.frontend_tokens
+        B, S = PREFILL[arch]
+        cross = f"{arch} {'encoder and ' if cfg.encoder_segments else ''}cross prefill"
+        k3 = [k3_case(f"{arch} prefill", B, S, S, H, KvH, D, BF16, device, g, **sharp),
+              k3_case(cross, B, S, Tm, H, KvH, D, BF16, device, g, causal=False, **sharp)]
+        k3[0]["checks"] = [k3_case(f"{arch} prefill float32", B, S, S, H, KvH, D, F32, device, g,
+                                   **sharp)]
+        k3[1]["checks"] = [k3_case(f"{cross} float32", B, S, Tm, H, KvH, D, F32, device, g,
+                                   causal=False, **sharp)]
+        k4 = [k4_case(f"{arch} serve", SLOTS, MAX_LEN, H, KvH, D, BF16, lanes, device, g,
+                      **sharp),
+              k4_case(f"{arch} cross decode", SLOTS, Tm, H, KvH, D, BF16, Tm, device, g, **sharp)]
+        k4[1]["checks"] = [k4_case(f"{arch} cross decode float32", SLOTS, Tm, H, KvH, D, F32, Tm,
+                                   device, g, **sharp)]
+        out[arch] = (k3, k4)
+    return out
 
 
 def ssd_flops(B, S, H, P, N, Q) -> float:
@@ -1351,18 +1461,48 @@ KERNELS = {"lower_to_cuda": to_cuda, "matmul": mm, "flash_attention": fa,
 def zero_counts() -> None:
     for module in KERNELS.values():
         module.launches = 0
+    fa.by_shape.clear()
+    dec.by_shape.clear()
 
 
 def counts() -> dict:
     return {name: module.launches for name, module in KERNELS.items()}
 
 
+def shape_counts() -> dict:
+    """K3's and K4's launches by the shape of the call (their ``by_shape``)."""
+    return {"flash_attention": dict(fa.by_shape), "decode_attention": dict(dec.by_shape)}
+
+
+def shape_key(row: dict) -> tuple:
+    """The ``by_shape`` key of the calls a K3 or K4 row stands for."""
+    sh = row["shape"]
+    if "Sq" in sh:
+        return (sh["B"], sh["H"], sh["KvH"], sh["Sq"], sh["Sk"], sh["D"], sh["Dv"], sh["causal"])
+    return (sh["B"], sh["H"], sh["KvH"], sh["L"], sh["D"], isinstance(sh["length"], list))
+
+
+def printable(by_shape: dict) -> dict:
+    return {" ".join(map(str, key)): n for key, n in by_shape.items()}
+
+
 def layers(cfg) -> dict:
-    """Blocks of the model that run each kernel: attention (K3 in a forward,
-    K4 in a decode step), SSD (K5 in a forward), RG-LRU (K6 in a forward)."""
+    """Blocks of the model that run each kernel: self-attention and
+    cross-attention (K3 in a forward, K4 in a decode step), MLA (K3 in a
+    forward; its latent decode is eager torch), the encoder's bidirectional
+    attention (K3 each time the memory is made), SSD (K5 in a forward),
+    RG-LRU (K6 in a forward)."""
     kinds = [k for s in cfg.segments for k in s.pattern * s.repeats]
     return {"attn": sum(k in ("attn", "local_attn") for k in kinds),
+            "cross": kinds.count("cross_attn"), "mla": kinds.count("mla"),
+            "enc": sum(len(s.pattern) * s.repeats for s in cfg.encoder_segments),
             "ssd": kinds.count("ssd"), "rglru": kinds.count("rglru")}
+
+
+def decode_launches(cfg, calls: int) -> int:
+    """K4 launches of ``calls`` decode steps: one a self- or cross-attention layer."""
+    n = layers(cfg)
+    return (n["attn"] + n["cross"]) * calls
 
 
 def expect(what: str, n: dict, **want) -> None:
@@ -1374,15 +1514,47 @@ def expect(what: str, n: dict, **want) -> None:
 
 def forward_launches(cfg, passes: int = 1) -> dict:
     n = layers(cfg)
-    return {"flash_attention": passes * n["attn"], "ssd_scan": passes * n["ssd"],
-            "rglru_scan": passes * n["rglru"]}
+    return {"flash_attention": passes * (n["attn"] + n["cross"] + n["mla"] + n["enc"]),
+            "ssd_scan": passes * n["ssd"], "rglru_scan": passes * n["rglru"]}
+
+
+def served_config(arch: str):
+    """The arch's config as served: full width, cut in depth where it must
+    be (``SERVE_CUT_REPEATS``)."""
+    cfg = get_config(arch)
+    if arch in SERVE_CUT_REPEATS:
+        cfg = cfg.scaled(segments=tuple(Segment(s.pattern, SERVE_CUT_REPEATS[arch], s.ffn)
+                                        for s in cfg.segments))
+    return cfg
+
+
+def open_gates(params, seed: int) -> None:
+    """Every cross layer's tanh gates set, in place, to values drawn from
+    ``seed`` in [0.3, 1.3) (a fresh model's are 0)."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    for seg in params["segments"]:
+        for block in seg:
+            for name in ("gate_attn", "gate_ffn"):
+                if name in block["mixer"]:
+                    t = block["mixer"][name]
+                    t.copy_(0.3 + torch.rand(t.shape, generator=g))
+
+
+def frontend_batch(cfg, B: int, device, seed: int) -> dict:
+    """Seeded, non-zero frontend embeddings (B, Tm, Fd), or nothing for a
+    model without a frontend."""
+    if cfg.frontend is None:
+        return {}
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    fe = torch.randn((B, cfg.frontend_tokens, cfg.frontend_dim), generator=g)
+    return {"frontend_embeds": fe.to(device)}
 
 
 def phase_serve(arch: str, device):
     """The Engine at full width answers the requests; K4 runs in every decode
     step, prefill's included, once per attention layer.  The recurrent
     models refill in waves: 2 waves of 64 prompt positions and 32 steps."""
-    cfg = get_config(arch)
+    cfg = served_config(arch)
     free, total = torch.cuda.mem_get_info(device)
     outside = total - free - torch.cuda.memory_reserved(device)   # context, local memory
     torch.cuda.reset_peak_memory_stats(device)
@@ -1391,13 +1563,15 @@ def phase_serve(arch: str, device):
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     init_peak = torch.cuda.max_memory_allocated(device)
+    if arch in CROSS_ARCHS:
+        open_gates(eng.params, SEED + 5)
     queue = make_requests(REQUESTS, PROMPT, NEW, cfg.vocab, seed=SEED)
     zero_counts()
     t0 = time.perf_counter()
     done, steps = serve_requests(eng, queue)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    n = counts()
+    n, shapes = counts(), shape_counts()
     tokens = sum(len(r.out) for r in done)
     if len(done) != REQUESTS or any(len(r.out) != NEW for r in done):
         fail(f"serve {arch}: {len(done)} requests done, new tokens {[len(r.out) for r in done]}")
@@ -1405,20 +1579,24 @@ def phase_serve(arch: str, device):
         fail(f"serve {arch}: a token outside the model's output vocabulary")
     if eng.wave and eng.decode_calls != REQUESTS // SLOTS * (PROMPT + NEW):
         fail(f"serve {arch}: {eng.decode_calls} decode calls for waves of {SLOTS} requests")
-    expect(f"serve {arch}", n, decode_attention=layers(cfg)["attn"] * eng.decode_calls)
+    expect(f"serve {arch}", n, decode_attention=decode_launches(cfg, eng.decode_calls))
     emit("serve", {"arch": arch, "params": transformer.param_count(eng.params),
                    "layers": layers(cfg), "waves": eng.wave,
+                   "cut": {"repeats": SERVE_CUT_REPEATS[arch]} if arch in SERVE_CUT_REPEATS
+                   else None,
+                   "gates": "seeded, non-zero" if arch in CROSS_ARCHS else None,
                    "slots": SLOTS, "max_len": MAX_LEN, "requests": len(done),
                    "prompt_tokens": PROMPT, "tokens": tokens, "decode_steps": steps,
                    "decode_calls": eng.decode_calls, "seconds": secs,
                    "tokens_per_s": tokens / secs,
                    "ms_per_decode_call": secs * 1e3 / eng.decode_calls,
                    "init_seconds": init_s, "launches": n,
+                   "launches_by_shape": printable(shapes["decode_attention"]),
                    "param_bytes": param_bytes(eng.params),
                    "peak_bytes_init": init_peak, "bytes_outside_the_allocator": outside,
                    "peak_bytes_serving": torch.cuda.max_memory_allocated(device),
                    "first_outputs": [r.out[:8] for r in done[:2]]})
-    return eng, n
+    return eng, n, shapes
 
 
 def phase_prefill(eng, device):
@@ -1428,20 +1606,22 @@ def phase_prefill(eng, device):
     B, S = PREFILL[cfg.name]
     g = torch.Generator(device="cpu").manual_seed(SEED + 2)
     tokens = torch.randint(1, cfg.vocab, (B, S), generator=g)
+    batch = {"tokens": tokens, **frontend_batch(cfg, B, device, SEED + 6)}
     step = make_prefill_step(cfg, device=device)
     zero_counts()
     t0 = time.perf_counter()
-    logits = step(eng.params, {"tokens": tokens})
+    logits = step(eng.params, batch)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    n = counts()
+    n, shapes = counts(), shape_counts()
     if logits.shape != (B, S, cfg.padded_vocab) or not bool(torch.isfinite(logits).all()):
         fail(f"prefill {cfg.name}: logits {tuple(logits.shape)} not finite or of the wrong shape")
     expect(f"prefill {cfg.name}", n, **forward_launches(cfg))
     emit("prefill", {"arch": cfg.name, "batch": B, "seq": S, "seconds": secs,
                      "tokens_per_s": B * S / secs, "launches": n,
+                     "launches_by_shape": printable(shapes["flash_attention"]),
                      "max_abs_logit": float(logits.float().abs().max())})
-    return n
+    return n, shapes
 
 
 def param_bytes(tree) -> int:
@@ -1460,10 +1640,13 @@ def as_float32(tree):
     return tree.float()
 
 
-def teacher_forced(params, cfg, tokens, device):
-    """(forward logits, teacher-forced decode logits) over ``tokens``."""
-    fwd, _ = transformer.lm_forward(params, {"tokens": tokens}, cfg)
+def teacher_forced(params, cfg, tokens, device, memory: dict):
+    """(forward logits, teacher-forced decode logits) over ``tokens``, with
+    the cross caches filled from ``memory`` (frontend embeddings) first."""
+    fwd, _ = transformer.lm_forward(params, {"tokens": tokens, **memory}, cfg)
     cache = transformer.init_lm_cache(cfg, tokens.shape[0], tokens.shape[1], device=device)
+    if memory:
+        cache = transformer.lm_prepare_decode_cache(params, cache, memory, cfg)
     steps = []
     for t in range(tokens.shape[1]):
         logits, cache = transformer.lm_decode_step(params, cache, tokens[:, t:t + 1], t, cfg)
@@ -1478,20 +1661,28 @@ def phase_consistency(eng, device):
     forward pass's logits (K3, K5, K6) over the same tokens.  tinyllama and
     Mamba-2: in bfloat16, as served, and on the same weights in float32.
     RecurrentGemma: cut to the first group of its pattern with the window
-    cut to 64, in float32."""
+    cut to 64, in float32.  qwen2-moe and deepseek: their first 8 layers at
+    capacity factor 64, both dtypes.  The cross models: both dtypes, their
+    cross caches filled from seeded embeddings and their gates open."""
     cfg, params = eng.cfg, eng.params
     B, S = CONSIST[cfg.name]
     cuts = {}
-    if cfg.name == MOE:
-        seg = cfg.segments[0]
-        cfg = cfg.scaled(segments=(Segment(seg.pattern, MOE_CUT_LAYERS, seg.ffn),),
+    if cfg.name in (MOE, DEEPSEEK):
+        # the first MOE_CUT_LAYERS layers, segment by segment
+        segs, seg_params, left = [], [], MOE_CUT_LAYERS
+        for seg, sp in zip(cfg.segments, params["segments"]):
+            r = min(seg.repeats, left)
+            if r:
+                segs.append(Segment(seg.pattern, r, seg.ffn))
+                seg_params.append([first_repeats(b, r) for b in sp])
+                left -= r
+        cfg = cfg.scaled(segments=tuple(segs),
                          moe=dataclasses.replace(cfg.moe, capacity_factor=MOE_CONSIST_CF))
-        params = dict(params, segments=[[first_repeats(b, MOE_CUT_LAYERS)
-                                         for b in params["segments"][0]]])
-        cuts = {"pattern": list(seg.pattern), "repeats": MOE_CUT_LAYERS,
+        params = dict(params, segments=seg_params)
+        cuts = {"segments": [[list(s.pattern), s.repeats, s.ffn] for s in segs],
                 "weights": f"the first {MOE_CUT_LAYERS} layers'",
                 "capacity_factor": MOE_CONSIST_CF}
-        print(f"consistency {MOE}: cut to {cuts}", flush=True)
+        print(f"consistency {cfg.name}: cut to {cuts}", flush=True)
     elif cfg.name == RGEMMA:
         first = cfg.segments[0]
         cfg = cfg.scaled(segments=(Segment(first.pattern, 1, first.ffn),),
@@ -1502,20 +1693,23 @@ def phase_consistency(eng, device):
         print(f"consistency {RGEMMA}: cut to {cuts}", flush=True)
     g = torch.Generator(device="cpu").manual_seed(SEED + 3)
     tokens = torch.randint(1, cfg.vocab, (B, S), generator=g).to(device)
-    out = {"arch": eng.cfg.name, "batch": B, "tokens": S, "cuts": cuts or None}
+    memory = frontend_batch(cfg, B, device, SEED + 7)
+    out = {"arch": eng.cfg.name, "batch": B, "tokens": S, "cuts": cuts or None,
+           "memory": "seeded frontend embeddings, gates open" if memory else None}
+    # K3: the forward, and the encoder again where the decode's memory is made
+    want = dict(forward_launches(cfg), decode_attention=decode_launches(cfg, S))
+    want["flash_attention"] += layers(cfg)["enc"]
     n16 = None
     if cfg.name != RGEMMA:                        # RecurrentGemma's cut check: float32 only
         zero_counts()
-        fwd16, dec16 = teacher_forced(params, cfg, tokens, device)
+        fwd16, dec16 = teacher_forced(params, cfg, tokens, device, memory)
         n16 = counts()
-        expect(f"consistency {cfg.name} bf16", n16, **forward_launches(cfg),
-               decode_attention=layers(cfg)["attn"] * S)
+        expect(f"consistency {cfg.name} bf16", n16, **want)
     zero_counts()
     cfg32 = cfg.scaled(dtype="float32")
-    fwd32, dec32 = teacher_forced(as_float32(params), cfg32, tokens, device)
+    fwd32, dec32 = teacher_forced(as_float32(params), cfg32, tokens, device, memory)
     n32 = counts()
-    expect(f"consistency {cfg.name} f32", n32, **forward_launches(cfg),
-           decode_attention=layers(cfg)["attn"] * S)
+    expect(f"consistency {cfg.name} f32", n32, **want)
     gap32 = (dec32 - fwd32).abs()
     if not bool((gap32 <= CONSIST_TOL32 + CONSIST_TOL32 * fwd32.abs()).all()):
         fail(f"consistency {cfg.name}: float32 decode differs from forward by {float(gap32.max())}")
@@ -1545,7 +1739,8 @@ def first_repeats(tree, n: int):
 
 def phase_profile(eng) -> None:
     """Where a serving decode step's time goes: device time by kernel and the
-    device's idle share over 8 steps at the served shape."""
+    device's idle share over 8 steps at the served shape; for an MoE the
+    experts' read bound, for MLA the latent decode's device time."""
     from torch.profiler import ProfilerActivity, profile
 
     toks = torch.ones((SLOTS, 1), dtype=torch.int32)
@@ -1576,11 +1771,13 @@ def phase_profile(eng) -> None:
     if cfg.moe is not None:
         # the dispatch runs every expert's three products over its (E, cap, D)
         # buffer, cap 1 included: each step reads all experts of all layers
-        m = cfg.moe
-        expert_bytes = (layers(cfg)["attn"] * m.n_routed * 3 * cfg.d_model * m.d_ff_expert
-                        * eng.params["segments"][0][0]["ffn"]["w_gate"].element_size())
+        expert_bytes = sum(param_bytes([b["ffn"][w] for w in ("w_gate", "w_up", "w_down")])
+                           for seg in eng.params["segments"] for b in seg
+                           if "router" in b.get("ffn", {}))
         bounds.update({"expert_bytes_per_step": expert_bytes,
                        "expert_bound_ms": expert_bytes / HBM_BYTES_PER_S * 1e3})
+    if layers(cfg)["mla"]:
+        bounds.update(mla_decode_times(eng))
     emit("profile", {
         "arch": eng.cfg.name,
         "what": f"lm_decode_step, {SLOTS} lanes at position {PROMPT + NEW}, 8 steps",
@@ -1593,16 +1790,37 @@ def phase_profile(eng) -> None:
         "top_kernels_ms_per_step": [[k[:80], t / 1e3] for k, t in by_kernel[:8]]})
 
 
+def mla_decode_times(eng) -> dict:
+    """The latent decode (eager torch, no kernel of its own) of one MLA layer
+    at the profiled shape, as one replay of a CUDA graph of 20 calls over 20
+    (``graph_ms``), and over the model's MLA layers: the device time a
+    step spends in it."""
+    cfg = eng.cfg
+    p = transformer._take(eng.params["segments"][-1][0]["mixer"], 0)
+    cache = transformer._take(eng.cache["segments"][-1][0], 0)
+    x1 = torch.randn((SLOTS, 1, cfg.d_model), generator=torch.Generator(device="cpu")
+                     .manual_seed(SEED + 8)).to(eng.device, torch.bfloat16)
+    pos = torch.full((SLOTS,), PROMPT + NEW, dtype=torch.int32, device=eng.device)
+    ms, why = graph_ms(lambda: mla.mla_decode_step(p, x1, cache, pos, cfg))
+    out = {"mla_decode_layer_device_ms": ms,
+           "mla_decode_device_ms_per_step": ms * layers(cfg)["mla"] if ms else None}
+    if why:
+        out["mla_decode_note"] = why
+    return out
+
+
 def serve_model(arch: str, device) -> dict:
     """Serve, prefill, consistency and profile of one model; frees it after.
-    Returns the launches of each phase."""
-    eng, served = phase_serve(arch, device)
-    prefilled = phase_prefill(eng, device)
+    Returns the launches of each phase, and those of serving and the
+    prefill by shape."""
+    eng, served, served_shapes = phase_serve(arch, device)
+    prefilled, prefill_shapes = phase_prefill(eng, device)
     consistent = phase_consistency(eng, device)
     phase_profile(eng)
     del eng
     torch.cuda.empty_cache()
-    return {"serve": served, "prefill": prefilled, "consistency": consistent}
+    return {"serve": served, "prefill": prefilled, "consistency": consistent,
+            "serve_shapes": served_shapes, "prefill_shapes": prefill_shapes}
 
 
 PHASE_SECONDS: dict[str, float] = {}
@@ -1635,6 +1853,8 @@ def main() -> None:
         k5_rows, k6_rows = phase_kernels_k5(device), phase_kernels_k6(device)
         k3_256, k4_256 = phase_kernels_d256(device)
         k3_moe, k4_moe = phase_kernels_moe(device)
+        k3_mla = phase_kernels_mla(device)
+        cross_rows = phase_kernels_cross(device)
     torch.cuda.empty_cache()
 
     # every count to 0, then the compiler's main path, then read the counts
@@ -1672,6 +1892,12 @@ def main() -> None:
         rgemma = serve_model(RGEMMA, device)
     with timed(MOE):
         moe = serve_model(MOE, device)
+    with timed(DEEPSEEK):
+        deepseek = serve_model(DEEPSEEK, device)
+    cross = {}
+    for arch in CROSS_ARCHS:
+        with timed(arch):
+            cross[arch] = serve_model(arch, device)
     k3_rows[0]["launches"] = dense["prefill"]["flash_attention"]
     # the consistency rows' cases: tinyllama's in bfloat16; Mamba-2's scan
     # runs in float32 under both of its passes; RecurrentGemma's cut check in float32
@@ -1691,8 +1917,30 @@ def main() -> None:
     k3_moe[1]["launches"] = moe["consistency"]["bf16"]["flash_attention"]
     k4_moe[0]["launches"] = moe["serve"]["decode_attention"]
     k4_moe[1]["launches"] = moe["consistency"]["bf16"]["decode_attention"]
+    # deepseek-v2-lite's MLA: its prefill (27 layers) and its cut consistency check in bf16
+    k3_mla[0]["launches"] = deepseek["prefill"]["flash_attention"]
+    k3_mla[1]["launches"] = deepseek["consistency"]["bf16"]["flash_attention"]
+    # the cross models: each row's count is the main path's launches at the
+    # row's shape; those must be all the wrapper's, and one kind of layer each
+    for arch, (k3, k4) in cross_rows.items():
+        n, ran = layers(served_config(arch)), cross[arch]
+        calls = ran["serve"]["decode_attention"] // (n["attn"] + n["cross"])
+        want = {"prefill": [n["attn"], n["enc"] + n["cross"]],   # self; encoder and cross
+                "serve": [n["attn"] * calls, n["cross"] * calls]}  # self; cross, length Tm
+        for phase, kernel, pair in (("prefill", "flash_attention", k3),
+                                    ("serve", "decode_attention", k4)):
+            by_shape = ran[phase + "_shapes"][kernel]
+            for row in pair:
+                row["launches"] = by_shape.get(shape_key(row), 0)
+            if sum(by_shape.values()) != ran[phase][kernel]:
+                fail(f"{arch}: {kernel}'s launches by shape do not add up to its count")
+            if [row["launches"] for row in pair] != want[phase]:
+                fail(f"{arch} {phase}: {kernel} launches by shape "
+                     f"{printable(by_shape)}, expected {want[phase]} at "
+                     f"{[shape_key(row) for row in pair]}")
+        rows += k3 + k4
     rows += (k3_rows + k4_rows + k5_rows + k6_rows + k3_256 + k4_256 + k3_moe + k4_moe
-             + s1_rows)
+             + k3_mla + s1_rows)
     for row in rows:
         if row["launches"] <= 0:
             fail(f"the main path never launched {row['name']}")

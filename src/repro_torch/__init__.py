@@ -9,10 +9,9 @@ module, so a reader finds the counterpart of each file under the same name:
                   ``lower_to_cuda`` (HIR -> generated CUDA C++ kernel)
   kernels/        hand-written CUDA kernels and their wrappers (``ops``)
   csrc/           the CUDA C++ sources, built with ``nvcc`` at first use
-  configs/        model configurations (four dense archs, Mamba-2,
-                  RecurrentGemma)
-  models/         the language models (attention, MLP, SSD, RG-LRU,
-                  transformer)
+  configs/        model configurations (the reference's ten archs)
+  models/         the language models (attention, MLA, MLP and MoE, SSD,
+                  RG-LRU, transformer with encoder and cross-attention)
   train/          the prefill and decode step factories
   launch/         ``serve``: the continuous-batching ``Engine``
   compat          carries a design, its stimulus and a model's parameters

@@ -1,3 +1,3 @@
 """Model configurations, copied from the reference package: ``base`` and the
-six archs the port runs (four dense ``attn``+``mlp`` ones, Mamba-2 and
-RecurrentGemma); ``registry`` lists only those."""
+ten archs of the reference's registry, which the port runs all (``registry``
+differs from the reference's only in its ``KeyError``)."""

@@ -11,24 +11,30 @@ import importlib
 from .base import ModelCfg, SHAPES, ShapeCfg
 
 ARCHS = (
+    "deepseek_v2_lite_16b",
     "qwen2_moe_a2_7b",
     "recurrentgemma_9b",
+    "llama_3_2_vision_90b",
     "tinyllama_1_1b",
     "qwen2_7b",
     "smollm_360m",
     "qwen2_5_14b",
     "mamba2_780m",
+    "seamless_m4t_medium",
 )
 
 # canonical assignment ids -> module names
 _ALIASES = {
+    "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
     "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
     "recurrentgemma-9b": "recurrentgemma_9b",
+    "llama-3.2-vision-90b": "llama_3_2_vision_90b",
     "tinyllama-1.1b": "tinyllama_1_1b",
     "qwen2-7b": "qwen2_7b",
     "smollm-360m": "smollm_360m",
     "qwen2.5-14b": "qwen2_5_14b",
     "mamba2-780m": "mamba2_780m",
+    "seamless-m4t-medium": "seamless_m4t_medium",
 }
 
 

@@ -44,7 +44,14 @@
 // 316 bytes), so the block is one consumer warpgroup (64 rows) and the
 // producer, 256 threads with up to 255 registers each, no spill; tiles of 64
 // keys, a ring of 2: Q and the ring take 160 KB of the 227 KB a block may use.
-// The one rounding beyond the Pallas body's is P to bf16 before P V.
+// Multi-head latent attention scores over 192 dims (128 decompressed and 64
+// rotary) and averages values of 128: the template takes the two head dims
+// apart, `flash_bf16_wgmma<DQK, DV>`, and <192, 128> is the one pair with
+// DQK != DV.  S = Q K^T runs 12 k16 steps through three 128-byte boxes of Q
+// and K, O += P V is N = 128 wide as at D 128, and a K tile of 128 keys is
+// 48 KB beside V's 32: a ring of 2 stages, 209 KB with Q.  Two consumer
+// warpgroups, as at D 128 (the registers are those of D 128: O and S take
+// 64 each).  The one rounding beyond the Pallas body's is P to bf16 before P V.
 //
 // float32 (`flash_f32`), head dims 16-256: the CUDA cores, 2e-5 of the plain
 // version (TF32 could not meet it).  One block of four warps per (q-block of
@@ -268,21 +275,29 @@ int launch_f32_d(const float* q, const float* k, const float* v, float* o, int B
 
 // -- bfloat16 on the tensor cores ---------------------------------------------------
 
-template <int D>
+// DQK is the head dim of Q and K (the depth of S = Q K^T), DV that of V and O
+// (the width of O += P V); they differ only for multi-head latent attention,
+// whose queries and keys carry a rotary part beside the value's dims.
+template <int DQK, int DV>
 struct WgTile {
-  // warpgroups of 64 query rows: at D 256 one, whose 128 accumulators of O
+  static_assert(DQK == DV || (DQK % 64 == 0 && DV % 64 == 0),
+                "head dims that differ must both be whole 128-byte boxes");
+  // warpgroups of 64 query rows: at DV 256 one, whose 128 accumulators of O
   // and the scores then have the registers of a 256-thread block
-  static constexpr int CONSUMERS = D == 256 ? 1 : 2;
+  static constexpr int CONSUMERS = DV == 256 ? 1 : 2;
   static constexpr int BQ = 64 * CONSUMERS;           // query rows per block
   static constexpr int THREADS = 128 * (CONSUMERS + 1);   // and one producer warpgroup
-  static constexpr int BK = D == 256 ? 64 : 128;      // keys per tile
-  static constexpr int STAGES = D == 256 ? 2 : 3;     // (K, V) tiles in the ring
-  static constexpr int SWZ = D >= 64 ? 128 : D * 2;   // bytes of a box row, its swizzle
+  static constexpr int BK = DQK == 256 ? 64 : 128;    // keys per tile
+  // (K, V) tiles in the ring: two where a K tile is wider than 128 dims
+  static constexpr int STAGES = DQK > 128 ? 2 : 3;
+  static constexpr int SWZ = DQK >= 64 ? 128 : DQK * 2;   // bytes of a box row, its swizzle
   static constexpr int COLS = SWZ / 2;                // head dims a box
-  static constexpr int BOXES = D / COLS;
-  static constexpr int Q_BYTES = BQ * D * 2;
-  static constexpr int KV_BYTES = BK * D * 2;         // K or V of one tile
-  static constexpr int STAGE_BYTES = 2 * KV_BYTES;
+  static constexpr int QK_BOXES = DQK / COLS;         // boxes of a row of Q or K
+  static constexpr int V_BOXES = DV / COLS;           // of a row of V
+  static constexpr int Q_BYTES = BQ * DQK * 2;
+  static constexpr int K_BYTES = BK * DQK * 2;        // K of one tile
+  static constexpr int V_BYTES = BK * DV * 2;         // V of one tile
+  static constexpr int STAGE_BYTES = K_BYTES + V_BYTES;
   // slack to align to 1 KB (where a swizzle atom starts), Q, the ring, barriers
   static constexpr int SMEM = 1024 + Q_BYTES + STAGES * STAGE_BYTES + 64;
   static_assert(SMEM <= SMEM_LIMIT, "the tiles do not fit a block's shared memory");
@@ -304,13 +319,13 @@ __device__ __forceinline__ void tma_load_bhsd(uint32_t dst, const CUtensorMap* m
   tma_load_4d(dst, map, c[0], c[1], c[2], c[3], bar);
 }
 
-template <int D>
-__global__ void __launch_bounds__(WgTile<D>::THREADS, 1)
+template <int DQK, int DV>
+__global__ void __launch_bounds__(WgTile<DQK, DV>::THREADS, 1)
 flash_bf16_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                  const __grid_constant__ CUtensorMap tv, MapDims mq, MapDims mk, MapDims mv,
                  __nv_bfloat16* __restrict__ o, Strides os, int group, int Sq, int Sk,
                  float scale_log2, int causal, int window, int kv_len) {
-  using T = WgTile<D>;
+  using T = WgTile<DQK, DV>;
   constexpr int TK = T::BK, SWZ = T::SWZ, COLS = T::COLS, BQ = T::BQ, STAGES = T::STAGES;
   extern __shared__ __align__(1024) uint8_t fsm[];
   const uint32_t base = (smem_u32(fsm) + 1023u) & ~1023u;
@@ -344,19 +359,19 @@ flash_bf16_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__
     if constexpr (T::CONSUMERS == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (threadIdx.x % 128 == 0) {
       mbar_expect_tx(q_full, T::Q_BYTES);
-      for (int j = 0; j < T::BOXES; ++j)
+      for (int j = 0; j < T::QK_BOXES; ++j)
         tma_load_bhsd(q_sm + j * BQ * SWZ, &tq, mq, j * COLS, h, q0, b, q_full);
       for (int t = 0; t < tiles; ++t) {
         const int s = t % STAGES;
         if (t >= STAGES) mbar_wait(empty + 8 * s, ((t / STAGES) - 1) & 1);
         const uint32_t bar = full + 8 * s;
-        const uint32_t k_sm = ring + s * T::STAGE_BYTES, v_sm = k_sm + T::KV_BYTES;
+        const uint32_t k_sm = ring + s * T::STAGE_BYTES, v_sm = k_sm + T::K_BYTES;
         mbar_expect_tx(bar, T::STAGE_BYTES);
         const int k0 = kv_begin + t * TK;
-        for (int j = 0; j < T::BOXES; ++j) {
+        for (int j = 0; j < T::QK_BOXES; ++j)
           tma_load_bhsd(k_sm + j * TK * SWZ, &tk, mk, j * COLS, kvh, k0, b, bar);
+        for (int j = 0; j < T::V_BOXES; ++j)
           tma_load_bhsd(v_sm + j * TK * SWZ, &tv, mv, j * COLS, kvh, k0, b, bar);
-        }
       }
     }
   } else {
@@ -366,9 +381,9 @@ flash_bf16_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__
     const int t128 = threadIdx.x % 128, w = t128 / 32, l = t128 % 32;
     const int wq0 = q0 + wg * 64;                    // first row of the warpgroup
     const int row0 = wq0 + w * 16 + l / 4;           // this thread's rows: row0, row0 + 8
-    float acc[D / 2];
+    float acc[DV / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < DV / 2; ++i) acc[i] = 0.f;
     float m[2] = {MASKED, MASKED}, lsum[2] = {0.f, 0.f};
     const uint32_t q_wg = q_sm + wg * 64 * SWZ;
     mbar_wait(q_full, 0);
@@ -376,7 +391,7 @@ flash_bf16_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__
     for (int t = 0; t < tiles; ++t) {
       const int s = t % STAGES;
       const int k0 = kv_begin + t * TK;
-      const uint32_t k_sm = ring + s * T::STAGE_BYTES, v_sm = k_sm + T::KV_BYTES;
+      const uint32_t k_sm = ring + s * T::STAGE_BYTES, v_sm = k_sm + T::K_BYTES;
       mbar_wait(full + 8 * s, (t / STAGES) & 1);
 
       // S = Q K^T: k16 step kk lies in box kk*16/COLS, 32 bytes a step into its rows
@@ -385,7 +400,7 @@ flash_bf16_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__
       for (int i = 0; i < TK / 2; ++i) sc[i] = 0.f;
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
+      for (int kk = 0; kk < DQK / 16; ++kk) {
         const uint32_t in_box = (kk * 16 / COLS), off = (kk * 16 % COLS) * 2;
         const uint64_t da = smem_desc(q_wg + in_box * BQ * SWZ + off, 16, 8 * SWZ, SWZ);
         const uint64_t db = smem_desc(k_sm + in_box * TK * SWZ + off, 16, 8 * SWZ, SWZ);
@@ -441,14 +456,14 @@ flash_bf16_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__
           pa[kk][j] = *reinterpret_cast<uint32_t*>(&pair);
         }
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
+      for (int i = 0; i < DV / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
 
-      // O += P V: V is (keys, D), N-major; k16 step kk is 16 rows down, the
+      // O += P V: V is (keys, DV), N-major; k16 step kk is 16 rows down, the
       // boxes of COLS columns lie TK*SWZ bytes apart
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < TK / 16; ++kk)
-        wgmma_rs<D>(acc, pa[kk], smem_desc(v_sm + kk * 16 * SWZ, TK * SWZ, 8 * SWZ, SWZ));
+        wgmma_rs<DV>(acc, pa[kk], smem_desc(v_sm + kk * 16 * SWZ, TK * SWZ, 8 * SWZ, SWZ));
       wgmma_commit();
       wgmma_wait_all();
       if (l == 0) mbar_arrive(empty + 8 * s);
@@ -464,7 +479,7 @@ flash_bf16_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__
       if (row < Sq) {
         __nv_bfloat16* orow = ob + (long long)row * os.s + 2 * (l % 4);
 #pragma unroll
-        for (int j = 0; j < D / 8; ++j)
+        for (int j = 0; j < DV / 8; ++j)
           *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
               __floats2bfloat162_rn(acc[4 * j + 2 * r] / den, acc[4 * j + 2 * r + 1] / den);
       }
@@ -498,18 +513,18 @@ bool map_bhsd(CUtensorMap* map, MapDims* md, const void* ptr, int B, int heads, 
   return make_map_4d(map, ptr, dims, bytes, box, swz);
 }
 
-template <int D>
+template <int DQK, int DV>
 int launch_bf16_d(const void* q, const void* k, const void* v, void* o, int B, int H, int KvH,
                   int Sq, int Sk, const long long* st, float scale, int causal, int window,
                   int kv_len, cudaStream_t stream) {
-  using T = WgTile<D>;
+  using T = WgTile<DQK, DV>;
   CUtensorMap tq, tk, tv;
   MapDims mq, mk, mv;
-  if (!map_bhsd(&tq, &mq, q, B, H, Sq, D, st, T::COLS, T::BQ, T::SWZ) ||
-      !map_bhsd(&tk, &mk, k, B, KvH, Sk, D, st + 3, T::COLS, T::BK, T::SWZ) ||
-      !map_bhsd(&tv, &mv, v, B, KvH, Sk, D, st + 6, T::COLS, T::BK, T::SWZ))
+  if (!map_bhsd(&tq, &mq, q, B, H, Sq, DQK, st, T::COLS, T::BQ, T::SWZ) ||
+      !map_bhsd(&tk, &mk, k, B, KvH, Sk, DQK, st + 3, T::COLS, T::BK, T::SWZ) ||
+      !map_bhsd(&tv, &mv, v, B, KvH, Sk, DV, st + 6, T::COLS, T::BK, T::SWZ))
     return (int)cudaErrorInvalidValue;
-  auto kernel = flash_bf16_wgmma<D>;
+  auto kernel = flash_bf16_wgmma<DQK, DV>;
   static bool attribute_set = false;       // once per instantiation
   if (!attribute_set) {
     cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -532,19 +547,21 @@ bool bad_shape(int B, int H, int KvH, int Sq, int Sk, int kv_len) {
 
 }  // namespace
 
-// Launchers: q (B,H,Sq,D), k and v (B,KvH,Sk,D), o (B,H,Sq,D), each given by its
+// Launchers: q and k (B,H,Sq,D) and (B,KvH,Sk,D), v (B,KvH,Sk,Dv), o (B,H,Sq,Dv),
+// Dv = D but for the bfloat16 pair (D 192, Dv 128), each given by its
 // pointer and its strides in elements over (batch, head, position) — twelve
 // values in `strides`, in the order q, k, v, o — with the head dim contiguous.
 // float32: rows 16-byte aligned; bfloat16: q, k, v 16-byte aligned with
 // strides of whole 16 bytes (TMA's rule), o's rows 4-byte aligned.  `window`
 // <= 0 means none; keys at positions >= `kv_len` are masked.  D is 16, 32, 64,
-// 128 or 256.  They launch on `stream` and return cudaGetLastError()
+// 128 or 256 (or 192 with Dv 128).  They launch on `stream` and return cudaGetLastError()
 // (cudaErrorInvalidValue for a shape they do not take).
 extern "C" int launch_flash_attention_f32(const void* q, const void* k, const void* v, void* o,
                                           int B, int H, int KvH, int Sq, int Sk, int D,
-                                          const long long* strides, float scale, int causal,
-                                          int window, int kv_len, void* stream) {
-  if (bad_shape(B, H, KvH, Sq, Sk, kv_len)) return (int)cudaErrorInvalidValue;
+                                          int Dv, const long long* strides, float scale,
+                                          int causal, int window, int kv_len, void* stream) {
+  // built for D == Dv only: the caller pads a pair with D != Dv to one head dim
+  if (bad_shape(B, H, KvH, Sq, Sk, kv_len) || Dv != D) return (int)cudaErrorInvalidValue;
   const float *fq = (const float*)q, *fk = (const float*)k, *fv = (const float*)v;
   float* fo = (float*)o;
   cudaStream_t s = (cudaStream_t)stream;
@@ -560,20 +577,25 @@ extern "C" int launch_flash_attention_f32(const void* q, const void* k, const vo
 
 extern "C" int launch_flash_attention_bf16_wgmma(const void* q, const void* k, const void* v,
                                                  void* o, int B, int H, int KvH, int Sq, int Sk,
-                                                 int D, const long long* strides, float scale,
-                                                 int causal, int window, int kv_len,
-                                                 void* stream) {
+                                                 int D, int Dv, const long long* strides,
+                                                 float scale, int causal, int window,
+                                                 int kv_len, void* stream) {
   if (bad_shape(B, H, KvH, Sq, Sk, kv_len) || ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16)
     return (int)cudaErrorInvalidValue;
   for (int i = 0; i < 9; ++i)
     if (strides[i] % 8) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  // the pairs with D != Dv are BF16_PAIRS of kernels/flash_attention.py (a
+  // test holds the two lists equal)
+  if (D == 192 && Dv == 128)
+    return launch_bf16_d<192, 128>(q, k, v, o, B, H, KvH, Sq, Sk, strides, scale, causal, window, kv_len, s);
+  if (Dv != D) return (int)cudaErrorInvalidValue;
   switch (D) {
-    case 16: return launch_bf16_d<16>(q, k, v, o, B, H, KvH, Sq, Sk, strides, scale, causal, window, kv_len, s);
-    case 32: return launch_bf16_d<32>(q, k, v, o, B, H, KvH, Sq, Sk, strides, scale, causal, window, kv_len, s);
-    case 64: return launch_bf16_d<64>(q, k, v, o, B, H, KvH, Sq, Sk, strides, scale, causal, window, kv_len, s);
-    case 128: return launch_bf16_d<128>(q, k, v, o, B, H, KvH, Sq, Sk, strides, scale, causal, window, kv_len, s);
-    case 256: return launch_bf16_d<256>(q, k, v, o, B, H, KvH, Sq, Sk, strides, scale, causal, window, kv_len, s);
+    case 16: return launch_bf16_d<16, 16>(q, k, v, o, B, H, KvH, Sq, Sk, strides, scale, causal, window, kv_len, s);
+    case 32: return launch_bf16_d<32, 32>(q, k, v, o, B, H, KvH, Sq, Sk, strides, scale, causal, window, kv_len, s);
+    case 64: return launch_bf16_d<64, 64>(q, k, v, o, B, H, KvH, Sq, Sk, strides, scale, causal, window, kv_len, s);
+    case 128: return launch_bf16_d<128, 128>(q, k, v, o, B, H, KvH, Sq, Sk, strides, scale, causal, window, kv_len, s);
+    case 256: return launch_bf16_d<256, 256>(q, k, v, o, B, H, KvH, Sq, Sk, strides, scale, causal, window, kv_len, s);
   }
   return (int)cudaErrorInvalidValue;
 }

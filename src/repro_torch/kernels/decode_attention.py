@@ -42,6 +42,7 @@ CUDA tensors launch the kernel or raise; CPU tensors take the plain version
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import struct
@@ -59,6 +60,8 @@ SMS = 132           # SMs of an H100 SXM; a call asks its own device
 
 #: kernel launches made by ``decode_attention`` and ``partial_decode_attention``
 launches = 0
+#: the same launches by the call's shape: (B, H, KvH, L, D, a length per lane)
+by_shape: collections.Counter = collections.Counter()
 
 #: the kernel each dtype runs
 KERNEL = {torch.float32: "decode_f32", torch.bfloat16: "decode_bf16_mma"}
@@ -190,6 +193,7 @@ def _call(q, k, v, length, scale, normalize):
     rc = _build.on_device(dev, _launcher(q.dtype), args)
     _build.check_launch(rc, KERNEL[q.dtype])
     launches += 1
+    by_shape[(B, H, KvH, L, D, per_lane is not None)] += 1
     out = out[..., :D]
     return out if normalize else (out, m, l)
 

@@ -26,12 +26,22 @@ window, from row ``kv_len + window - 1`` on) would average V over whatever
 tiles a design visits, so ``flash_attention`` refuses such inputs with a
 ``ValueError`` on every device.
 
+V may have a head dim Dv other than Q's and K's D (multi-head latent
+attention: D 192, Dv 128).  The bfloat16 kernel is built for the pairs of
+``BF16_PAIRS`` beside its D = Dv ones and takes those exactly: any other
+pair with D != Dv raises ``ValueError`` naming it, and is never padded into
+a pair it is built for.  The float32 kernel, which runs only in float32
+checks, takes such a pair padded to one head dim, the least of ``HEAD_DIMS``
+that holds both (256 for MLA's), by the same zero columns, under the scale
+of the true D, with the output cut back to Dv.
+
 CUDA tensors launch the kernel or raise; CPU tensors take the plain version
 (``ref.flash_attention_ref``).
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 from typing import Optional
 
@@ -42,10 +52,14 @@ from . import _build
 from .ref import flash_attention_ref
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
+#: (D, Dv) pairs with D != Dv that the bfloat16 kernel is built for
+BF16_PAIRS = ((192, 128),)
 
 #: kernel launches made by ``flash_attention`` (a run resets it to 0, drives
 #: its path, and reads it to show the path used the kernel)
 launches = 0
+#: the same launches by the call's shape: (B, H, KvH, Sq, Sk, D, Dv, causal)
+by_shape: collections.Counter = collections.Counter()
 
 #: the kernel each dtype runs (no other is tried: a call it refuses raises)
 KERNEL = {torch.float32: "flash_f32", torch.bfloat16: "flash_bf16_wgmma"}
@@ -60,7 +74,7 @@ def _launcher(dtype: torch.dtype):
         lib = _build.load_library(*_build.csrc_source("flash_attention.cu"))
         _launchers[dtype] = _build.bind(
             lib, _SYMBOL[dtype],
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p, ctypes.c_float]
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p, ctypes.c_float]
             + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     return _launchers[dtype]
 
@@ -71,6 +85,21 @@ def kernel_head_dim(D: int, who: str) -> int:
     if D % 8 or not 0 < D <= HEAD_DIMS[-1]:
         raise ValueError(f"{who}: head dim {D} is not a multiple of 8 up to {HEAD_DIMS[-1]}")
     return next(d for d in HEAD_DIMS if d >= D)
+
+
+def kernel_dims(D: int, Dv: int, dtype: torch.dtype) -> tuple[int, int]:
+    """The head dims (of Q and K, of V) the kernel of ``dtype`` runs a call of
+    head dims (D, Dv) at: one member of ``HEAD_DIMS`` for both where D == Dv
+    or the dtype is float32; the pair itself where it is one of
+    ``BF16_PAIRS``.  Any other bfloat16 pair raises ``ValueError``."""
+    if D == Dv:
+        return (kernel_head_dim(D, "flash_attention"),) * 2
+    if dtype == torch.float32:
+        return (kernel_head_dim(max(D, Dv), "flash_attention"),) * 2
+    if (D, Dv) in BF16_PAIRS:
+        return D, Dv
+    raise ValueError(f"flash_attention: the bfloat16 kernel is not built for head dims "
+                     f"(D {D}, Dv {Dv}); its pairs with D != Dv are {BF16_PAIRS}")
 
 
 def rows_readable(t: torch.Tensor) -> bool:
@@ -101,17 +130,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     scale: Optional[float] = None,
                     kv_len: Optional[int] = None) -> torch.Tensor:
-    """q: (B, H, Sq, D); k,v: (B, KvH, Sk, D) with H % KvH == 0.  Keys at
-    positions >= ``kv_len`` (default Sk) are masked out of the softmax; every
-    query row must see at least one key.
-    Returns (B, H, Sq, D) in q's dtype — on the card a (B,H,Sq,D) view of a
-    contiguous (B,Sq,H,D) tensor, the model's layout (of a (B,Sq,H,Dk) one
-    where D is padded to the kernel's Dk)."""
+    """q: (B, H, Sq, D); k: (B, KvH, Sk, D); v: (B, KvH, Sk, Dv) with
+    H % KvH == 0.  Keys at positions >= ``kv_len`` (default Sk) are masked
+    out of the softmax; every query row must see at least one key.  ``scale``
+    defaults to D ** -0.5.
+    Returns (B, H, Sq, Dv) in q's dtype — on the card a (B,H,Sq,Dv) view of
+    a contiguous (B,Sq,H,Dv) tensor, the model's layout (of a (B,Sq,H,Dk)
+    one where the head dims are padded to the kernel's Dk)."""
     B, H, Sq, D = q.shape
     _, KvH, Sk, _ = k.shape
+    Dv = v.shape[-1]
     if H % KvH != 0:
         raise ValueError(f"flash_attention: H={H} must be a multiple of KvH={KvH}")
-    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
+    if k.shape[:3] != v.shape[:3] or k.shape[0] != B or k.shape[3] != D:
         raise ValueError(f"flash_attention: k {tuple(k.shape)} and v {tuple(v.shape)} "
                          f"do not match q {tuple(q.shape)}")
     if kv_len is not None and not 0 < kv_len <= Sk:
@@ -130,17 +161,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _SYMBOL:
         raise TypeError(f"flash_attention takes float32 or bfloat16, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
-    Dk = kernel_head_dim(D, "flash_attention")
     if not (q.device == k.device == v.device):
         raise ValueError(f"operands on different devices: {q.device}, {k.device}, {v.device}")
-    q, k, v = kernel_operands(Dk, q, k, v)
-    out = torch.empty((B, Sq, H, Dk), dtype=q.dtype, device=q.device).transpose(1, 2)
+    Dk, Dvk = kernel_dims(D, Dv, q.dtype)
+    q, k = kernel_operands(Dk, q, k)
+    v, = kernel_operands(Dvk, v)
+    out = torch.empty((B, Sq, H, Dvk), dtype=q.dtype, device=q.device).transpose(1, 2)
     strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                                        *out.stride()[:3])
     global launches
     rc = _build.on_device(q.device, _launcher(q.dtype), q.data_ptr(), k.data_ptr(),
-                          v.data_ptr(), out.data_ptr(), B, H, KvH, Sq, Sk, Dk, strides, sc,
+                          v.data_ptr(), out.data_ptr(), B, H, KvH, Sq, Sk, Dk, Dvk, strides, sc,
                           int(causal), window or 0, kv_len or Sk)
     _build.check_launch(rc, KERNEL[q.dtype])
     launches += 1
-    return out[..., :D]
+    by_shape[(B, H, KvH, Sq, Sk, D, Dv, bool(causal))] += 1
+    return out[..., :Dv]

@@ -49,13 +49,14 @@ def matmul(x: torch.Tensor, y: torch.Tensor, *, bm: int = 128, bn: int = 128,
 
 
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
-        window: Optional[int] = None) -> torch.Tensor:
-    """Model layout: q (B,S,H,D); k,v (B,S,KvH,D).  Returns (B,S,H,D).
+        window: Optional[int] = None, scale: Optional[float] = None) -> torch.Tensor:
+    """Model layout: q (B,Sq,H,D); k (B,Sk,KvH,D); v (B,Sk,KvH,Dv).  Returns
+    (B,Sq,H,Dv).  ``scale`` defaults to D ** -0.5.
 
     The kernel tiles by its own block sizes and masks keys past Sk itself, so
     nothing is padded: the true key length is the kernel's ``kv_len``."""
     out = _fa.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                              causal=causal, window=window)
+                              causal=causal, window=window, scale=scale)
     return out.transpose(1, 2)
 
 

@@ -33,9 +33,10 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window: Optional[int] = None,
                         scale: Optional[float] = None,
                         kv_len: Optional[int] = None) -> torch.Tensor:
-    """q (B,H,Sq,D); k,v (B,KvH,Sk,D) (kernel layout).  Keys at positions
-    ``>= kv_len`` are masked, as are keys after the query (``causal``) and
-    ``window`` or more positions before it.  Returns (B,H,Sq,D) in q's dtype."""
+    """q (B,H,Sq,D); k (B,KvH,Sk,D); v (B,KvH,Sk,Dv) (kernel layout).  Keys
+    at positions ``>= kv_len`` are masked, as are keys after the query
+    (``causal``) and ``window`` or more positions before it.  ``scale``
+    defaults to D ** -0.5.  Returns (B,H,Sq,Dv) in q's dtype."""
     B, H, Sq, D = q.shape
     KvH, Sk = k.shape[1], k.shape[2]
     G = _groups(H, KvH, "flash_attention")
@@ -56,7 +57,7 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     p = torch.exp(s - m)
     l = p.sum(-1, keepdim=True)
     o = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float()) / torch.clamp(l, min=1e-30)
-    return o.reshape(B, H, Sq, D).to(q.dtype)
+    return o.reshape(B, H, Sq, v.shape[-1]).to(q.dtype)
 
 
 def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -66,7 +66,16 @@ class Engine:
         self.decode_calls = 0
 
     def _fresh_cache(self):
-        return transformer.init_lm_cache(self.cfg, self.slots, self.max_len, device=self.device)
+        cfg = self.cfg
+        cache = transformer.init_lm_cache(cfg, self.slots, self.max_len, device=self.device)
+        if cfg.frontend is not None:
+            # stub modality inputs for the demo engine, as the reference's; a
+            # real deployment feeds per-request embeddings here
+            fe = torch.zeros((self.slots, cfg.frontend_tokens, cfg.frontend_dim),
+                             dtype=torch.float32, device=self.device)
+            cache = transformer.lm_prepare_decode_cache(self.params, cache,
+                                                        {"frontend_embeds": fe}, cfg)
+        return cache
 
     def _positions(self) -> torch.Tensor:
         return torch.as_tensor(self.pos, dtype=torch.int32).to(self.device)

@@ -1,14 +1,17 @@
-"""Attention: GQA with RoPE (full or sliding-window), flash-style chunked
-computation in plain torch (the oracle of the flash kernel), and
+"""Attention: GQA with RoPE (full / sliding-window / cross), flash-style
+chunked computation in plain torch (the oracle of the flash kernel), and
 single-token decode over a KV cache — a full cache, or a ring buffer of
-``min(window, seq_len)`` slots under a window.
+``min(window, seq_len)`` slots under a window — or, for cross-attention,
+against memory K/V computed once at prefill.
 
 The reference's kernel-eligible regions run the kernels' wrappers on every
 device: ``attn_forward``'s attention is ``ops.mha`` (K3 on the card, its
-plain version on the CPU) and ``attn_decode_step``'s softmax is
-``ops.decode`` (K4).  What the port does not cover yet — logit soft-capping,
-cross-attention, the sequence-sharded decode — raises
-``NotImplementedError``; nothing falls back to a plain path on the card.
+plain version on the CPU; non-causal with Sq != Sk for cross-attention),
+and ``attn_decode_step``'s and ``cross_attn_decode``'s softmax is
+``ops.decode`` (K4; against the whole memory, ``length = Tm``, in cross
+decode).  What the port does not cover yet — logit soft-capping, the
+sequence-sharded decode — raises ``NotImplementedError``; nothing falls
+back to a plain path on the card.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 def _no_softcap(cfg: ModelCfg) -> None:
     if cfg.attn.logit_softcap is not None:
-        raise _not_ported("attention logit soft-capping", "6")
+        raise _not_ported("attention logit soft-capping", "6d")
 
 
 # ---------------------------------------------------------------------------
@@ -40,8 +43,8 @@ def _no_softcap(cfg: ModelCfg) -> None:
 
 
 def init_attn(gen: torch.Generator, cfg: ModelCfg, cross: bool = False):
-    if cross:
-        raise _not_ported("cross-attention", "6")
+    """The projections; ``cross`` makes the same ones (queries from the
+    decoder, keys and values from the memory), as the reference does."""
     a = cfg.attn
     d = cfg.d_model
     p = {
@@ -133,21 +136,45 @@ def _project_qkv(p, x, cfg: ModelCfg):
 def attn_forward(p, x, cfg: ModelCfg, *, positions=None, window=None, kv=None,
                  causal: bool = True):
     """Self-attention over x (B,S,D), sliding-window when ``window`` is set
-    (a query sees the ``window`` positions up to its own).  ``causal=False``
-    gives bidirectional self-attention.  The attention is ``ops.mha`` on
-    every device: K3 on the card, its plain version on the CPU."""
-    if kv is not None:
-        raise _not_ported("cross-attention", "6")
+    (a query sees the ``window`` positions up to its own); cross-attention
+    if ``kv`` (memory hidden states (B,Sm,D)) is given: no RoPE, no bias,
+    every query sees the whole memory.  ``causal=False`` gives bidirectional
+    self-attention (encoder stacks).  The attention is ``ops.mha`` on every
+    device: K3 on the card, its plain version on the CPU."""
     _no_softcap(cfg)
     a = cfg.attn
     B, S, _ = x.shape
-    q, k, v = _project_qkv(p, x, cfg)
-    pos = positions if positions is not None else \
-        torch.arange(S, device=x.device)[None, :].expand(B, S)
-    q = apply_rope(q, pos, a.rope_theta, a.rope_dim)
-    k = apply_rope(k, pos, a.rope_theta, a.rope_dim)
+    if kv is None:
+        q, k, v = _project_qkv(p, x, cfg)
+        pos = positions if positions is not None else \
+            torch.arange(S, device=x.device)[None, :].expand(B, S)
+        q = apply_rope(q, pos, a.rope_theta, a.rope_dim)
+        k = apply_rope(k, pos, a.rope_theta, a.rope_dim)
+    else:
+        q = dense(x, p["wq"])
+        k, v = cross_attn_kv(p, kv, cfg)
+        causal = False  # cross-attention attends to the full memory
     o = ops.mha(q, k, v, causal=causal, window=window)
     return dense(o, p["wo"], 2)
+
+
+def cross_attn_decode(p, x1, k, v, cfg: ModelCfg):
+    """Cross-attention decode against *precomputed* memory K/V (filled once
+    at prefill by ``transformer.lm_prepare_decode_cache``).  x1: (B,1,D);
+    k,v: (B,Tm,KvH,Dh).  The softmax over the memory is K4 (``ops.decode``)
+    with every lane's length the whole memory, Tm."""
+    _no_softcap(cfg)
+    a = cfg.attn
+    B = x1.shape[0]
+    q = dense(x1, p["wq"])
+    o = ops.decode(q[:, 0], k, v, k.shape[1])                     # (B, H, Dh)
+    o = o.reshape(B, 1, a.n_heads, a.d_head).to(x1.dtype)
+    return dense(o, p["wo"], 2)
+
+
+def cross_attn_kv(p, memory, cfg: ModelCfg):
+    """Memory K/V for one cross-attention layer; memory: (B,Tm,D)."""
+    return dense(memory, p["wk"]), dense(memory, p["wv"])
 
 
 # ---------------------------------------------------------------------------

@@ -5,16 +5,24 @@ a *pattern* of block kinds repeated ``repeats`` times.  Parameters keep the
 reference's tree: ``segments[i][pos]`` leaves have a leading ``repeats`` dim,
 and the reference's ``lax.scan`` over the repeats is a Python loop over it.
 
-Block kinds ported:
+Block kinds (configs.base.Segment.pattern):
     attn        causal GQA self-attention (+RoPE)
     local_attn  sliding-window GQA (window = cfg.attn.window), ring-buffer cache
+    enc_attn    bidirectional GQA (encoder stacks)
+    cross_attn  gated cross-attention to a memory (VLM image layers /
+                enc-dec decoder)
+    mla         multi-head latent attention (DeepSeek-V2)
     rglru       RG-LRU recurrent block (Griffin)
     ssd         Mamba-2 SSD mixer
 each pre-norm residual, followed by an ``mlp`` or ``moe`` ffn with its own
 pre-norm residual, or by none (``"none"``: no ``ln2``).  A ``moe`` ffn adds
 its load-balancing loss to the forward's aux sum; a decode step drops it.
-Every other kind (enc_attn, cross_attn, mla), encoders and modality
-frontends raise ``NotImplementedError`` (ROADMAP.md queue A, item 6).
+A ``cross_attn`` block scales its attention and its ffn by tanh of its own
+scalar gates.  The memory of cross-attention is the modality frontend's
+embeddings (``batch["frontend_embeds"]``, projected to d_model where their
+width differs), run through the encoder stack where the model has one.
+Attention logit soft-capping raises ``NotImplementedError`` (ROADMAP.md
+queue A, item 6d).
 """
 
 from __future__ import annotations
@@ -26,26 +34,24 @@ import torch
 
 from .._device import resolve_device
 from ..configs.base import ModelCfg, Segment
-from . import attention, mlp, rglru, ssd
+from . import attention, mla, mlp, rglru, ssd
 from .common import dense, dtype_of, init_norm, ninit, rms_norm, softcap
 
-MIXER_KINDS = ("attn", "local_attn", "rglru", "ssd")
+MIXER_KINDS = ("attn", "local_attn", "enc_attn", "cross_attn", "mla", "rglru", "ssd")
 FFN_KINDS = ("mlp", "moe", "none")
 
 
 def _check_kind(kind: str, ffn: str) -> None:
     if kind not in MIXER_KINDS or ffn not in FFN_KINDS:
-        raise NotImplementedError(f"block kind {kind!r} with ffn {ffn!r} is not ported yet: "
-                                  f"the port runs {MIXER_KINDS} blocks with an ffn of "
-                                  f"{FFN_KINDS} (ROADMAP.md queue A, item 6: enc_attn, "
-                                  f"cross_attn and mla)")
+        raise ValueError(f"block kind {kind!r} with ffn {ffn!r}: the kinds are {MIXER_KINDS}, "
+                         f"the ffns {FFN_KINDS}")
 
 
 def _check_cfg(cfg: ModelCfg) -> None:
-    if cfg.encoder_segments or cfg.frontend is not None:
-        raise NotImplementedError("encoders and modality frontends are not ported yet "
-                                  "(ROADMAP.md queue A, item 6)")
-    for seg in cfg.segments:
+    """Refuses what the port does not run yet: attention logit soft-capping."""
+    if cfg.attn.logit_softcap is not None:
+        raise attention._not_ported("attention logit soft-capping", "6d")
+    for seg in cfg.segments + cfg.encoder_segments:
         for pos, kind in enumerate(seg.pattern):
             _check_kind(kind, seg.ffn_at(pos))
 
@@ -76,8 +82,16 @@ def _window(kind: str, cfg: ModelCfg):
 
 
 def _init_mixer(gen: torch.Generator, kind: str, cfg: ModelCfg):
-    if kind in ("attn", "local_attn"):
+    if kind in ("attn", "local_attn", "enc_attn"):
         return attention.init_attn(gen, cfg)
+    if kind == "cross_attn":
+        p = attention.init_attn(gen, cfg, cross=True)
+        # tanh-gated (llama3.2-v): zero at init, as the reference makes them
+        p["gate_attn"] = torch.zeros((), dtype=torch.float32, device=gen.device)
+        p["gate_ffn"] = torch.zeros((), dtype=torch.float32, device=gen.device)
+        return p
+    if kind == "mla":
+        return mla.init_mla(gen, cfg)
     if kind == "rglru":
         return rglru.init_rglru(gen, cfg)
     return ssd.init_ssd(gen, cfg)
@@ -96,7 +110,14 @@ def init_block(gen: torch.Generator, kind: str, ffn: str, cfg: ModelCfg):
     return p
 
 
-def _ffn(p, x, ffn: str, cfg: ModelCfg):
+def _gate(p, kind: str, name: str, y):
+    """A cross block scales its attention and its ffn by tanh of its gates."""
+    if kind != "cross_attn":
+        return y
+    return torch.tanh(p["mixer"][name]).to(y.dtype) * y
+
+
+def _ffn(p, x, kind: str, ffn: str, cfg: ModelCfg):
     """The ffn's pre-norm residual.  Returns (x, aux_loss)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if ffn == "none":
@@ -106,27 +127,49 @@ def _ffn(p, x, ffn: str, cfg: ModelCfg):
         f = mlp.mlp_forward(p["ffn"], h, cfg)
     else:
         f, aux = mlp.moe_forward(p["ffn"], h, cfg)
-    return x + f, aux
+    return x + _gate(p, kind, "gate_ffn", f), aux
 
 
-def block_forward(p, x, kind: str, ffn: str, cfg: ModelCfg, *, positions=None, causal=True):
+def block_forward(p, x, kind: str, ffn: str, cfg: ModelCfg, *, positions=None, memory=None,
+                  causal=True):
     """One block forward.  Returns (x, aux_loss)."""
     _check_kind(kind, ffn)
     h = rms_norm(x, p["ln1"]["scale"], cfg.norm_eps, plus_one=cfg.norm == "rmsnorm_p1")
     if kind in ("attn", "local_attn"):
         m = attention.attn_forward(p["mixer"], h, cfg, positions=positions,
                                    window=_window(kind, cfg), causal=causal)
+    elif kind == "enc_attn":
+        m = attention.attn_forward(p["mixer"], h, cfg, positions=positions, causal=False)
+    elif kind == "cross_attn":
+        m = _gate(p, kind, "gate_attn", attention.attn_forward(p["mixer"], h, cfg, kv=memory))
+    elif kind == "mla":
+        # the reference's switch to its absorbed, chunked form; on the card
+        # both branches run K3 (mla_forward_chunked calls mla_forward there)
+        if x.shape[1] >= 4096:
+            m = mla.mla_forward_chunked(p["mixer"], h, cfg, positions=positions)
+        else:
+            m = mla.mla_forward(p["mixer"], h, cfg, positions=positions)
     elif kind == "rglru":
         m = rglru.rglru_forward(p["mixer"], h, cfg)
     else:
         m = ssd.ssd_forward(p["mixer"], h, cfg)
-    return _ffn(p, x + m, ffn, cfg)
+    return _ffn(p, x + m, kind, ffn, cfg)
 
 
 def init_block_cache(kind: str, batch: int, seq_len: int, cfg: ModelCfg, device=None):
-    if kind in ("attn", "local_attn"):
+    if kind in ("attn", "local_attn", "enc_attn"):
         return attention.init_attn_cache(batch, seq_len, cfg, window=_window(kind, cfg),
                                          device=device)
+    if kind == "cross_attn":
+        # precomputed memory K/V of cfg.frontend_tokens positions (filled by
+        # lm_prepare_decode_cache)
+        a = cfg.attn
+        shape = (batch, cfg.frontend_tokens, a.n_kv_heads, a.d_head)
+        dt = dtype_of(cfg.dtype)
+        return {"k": torch.zeros(shape, dtype=dt, device=device),
+                "v": torch.zeros(shape, dtype=dt, device=device)}
+    if kind == "mla":
+        return mla.init_mla_cache(batch, seq_len, cfg, device=device)
     if kind == "rglru":
         return rglru.init_rglru_cache(batch, cfg, device=device)
     return ssd.init_ssd_cache(batch, cfg, device=device)
@@ -135,14 +178,19 @@ def init_block_cache(kind: str, batch: int, seq_len: int, cfg: ModelCfg, device=
 def block_decode_step(p, x1, cache, index, kind: str, ffn: str, cfg: ModelCfg):
     _check_kind(kind, ffn)
     h = rms_norm(x1, p["ln1"]["scale"], cfg.norm_eps, plus_one=cfg.norm == "rmsnorm_p1")
-    if kind in ("attn", "local_attn"):
+    if kind in ("attn", "local_attn", "enc_attn"):
         m, cache = attention.attn_decode_step(p["mixer"], h, cache, index, cfg,
                                               window=_window(kind, cfg))
+    elif kind == "cross_attn":
+        m = _gate(p, kind, "gate_attn",
+                  attention.cross_attn_decode(p["mixer"], h, cache["k"], cache["v"], cfg))
+    elif kind == "mla":
+        m, cache = mla.mla_decode_step(p["mixer"], h, cache, index, cfg)
     elif kind == "rglru":
         m, cache = rglru.rglru_decode_step(p["mixer"], h, cache, cfg)
     else:
         m, cache = ssd.ssd_decode_step(p["mixer"], h, cache, cfg)
-    x1, _ = _ffn(p, x1 + m, ffn, cfg)
+    x1, _ = _ffn(p, x1 + m, kind, ffn, cfg)
     return x1, cache
 
 
@@ -158,13 +206,14 @@ def init_segment(gen: torch.Generator, seg: Segment, cfg: ModelCfg):
             for pos, kind in enumerate(seg.pattern)]
 
 
-def segment_forward(params, x, seg: Segment, cfg: ModelCfg, *, positions=None, causal=True):
+def segment_forward(params, x, seg: Segment, cfg: ModelCfg, *, positions=None, memory=None,
+                    causal=True):
     """Loop over the segment's repeats.  Returns (x, aux_sum)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for r in range(seg.repeats):
         for pos, kind in enumerate(seg.pattern):
             x, a = block_forward(_take(params[pos], r), x, kind, seg.ffn_at(pos), cfg,
-                                 positions=positions, causal=causal)
+                                 positions=positions, memory=memory, causal=causal)
             aux = aux + a
     return x, aux
 
@@ -209,6 +258,11 @@ def init_lm(seed: int, cfg: ModelCfg, *, device=None):
     }
     if not cfg.tie_embeddings:
         p["lm_head"] = ninit(gen, (cfg.d_model, cfg.padded_vocab), dtype=dt)
+    if cfg.encoder_segments:
+        p["encoder"] = {"segments": [init_segment(gen, s, cfg) for s in cfg.encoder_segments],
+                        "ln_f": init_norm(cfg.d_model, dev)}
+    if cfg.frontend is not None and cfg.frontend_dim != cfg.d_model:
+        p["frontend_proj"] = ninit(gen, (cfg.frontend_dim, cfg.d_model), dtype=dt)
     return p
 
 
@@ -225,12 +279,36 @@ def _head(p, x, cfg: ModelCfg):
     return softcap(dense(x, head), cfg.logit_softcap)
 
 
+def _memory_states(p, batch, cfg: ModelCfg):
+    """Encoder / modality-frontend memory for cross-attention, or None.
+
+    ``batch["frontend_embeds"]``: (B, Tm, frontend_dim) precomputed patch or
+    audio-frame embeddings (the frontend itself is a stub, as in the
+    reference), on the parameters' device or the host."""
+    mem = None
+    fe = batch.get("frontend_embeds")
+    if fe is not None:
+        # in the activations' dtype (the embedding table's): K3 takes one dtype
+        # for q, k and v, where the reference would promote float32 embeddings
+        # against bfloat16 weights to a float32 memory (the divergence is held
+        # to 2e-2 of the largest magnitude by tests/test_torch_cross.py)
+        mem = torch.as_tensor(fe).to(device=p["embed"].device, dtype=p["embed"].dtype)
+        if "frontend_proj" in p:
+            mem = dense(mem, p["frontend_proj"])
+    if cfg.encoder_segments:
+        if mem is None:
+            raise ValueError("an encoder-decoder model needs batch['frontend_embeds']")
+        x = mem
+        for seg_p, seg in zip(p["encoder"]["segments"], cfg.encoder_segments):
+            x, _ = segment_forward(seg_p, x, seg, cfg, causal=False)
+        mem = rms_norm(x, p["encoder"]["ln_f"]["scale"], cfg.norm_eps,
+                       plus_one=cfg.norm == "rmsnorm_p1")
+    return mem
+
+
 def lm_forward(p, batch, cfg: ModelCfg):
-    """batch: {"tokens": (B,S) int, optional "positions"}.  Returns
-    (logits (B,S,padded_vocab), aux)."""
-    if batch.get("frontend_embeds") is not None:
-        raise NotImplementedError("modality frontends are not ported yet "
-                                  "(ROADMAP.md queue A, item 6)")
+    """batch: {"tokens": (B,S) int, optional "positions", optional
+    "frontend_embeds": (B,Tm,Fd)}.  Returns (logits (B,S,padded_vocab), aux)."""
     x = _embed(p, batch["tokens"], cfg)
     B, S = x.shape[:2]
     positions = batch.get("positions")
@@ -238,9 +316,10 @@ def lm_forward(p, batch, cfg: ModelCfg):
         positions = torch.arange(S, dtype=torch.int32, device=x.device)[None, :].expand(B, S)
     else:
         positions = torch.as_tensor(positions, device=x.device)
+    memory = _memory_states(p, batch, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for seg_p, seg in zip(p["segments"], cfg.segments):
-        x, a = segment_forward(seg_p, x, seg, cfg, positions=positions)
+        x, a = segment_forward(seg_p, x, seg, cfg, positions=positions, memory=memory)
         aux = aux + a
     return _head(p, x, cfg), aux
 
@@ -249,10 +328,37 @@ def lm_forward(p, batch, cfg: ModelCfg):
 
 
 def init_lm_cache(cfg: ModelCfg, batch: int, seq_len: int, *, device=None):
-    """Zeroed KV caches on ``device`` (``None``: the CUDA device)."""
+    """Zeroed caches on ``device`` (``None``: the CUDA device); a cross block's
+    holds ``cfg.frontend_tokens`` positions of memory K/V."""
     dev = resolve_device(device)
     _check_cfg(cfg)
-    return {"segments": [init_segment_cache(s, batch, seq_len, cfg, dev) for s in cfg.segments]}
+    return {"segments": [init_segment_cache(s, batch, seq_len, cfg, dev)
+                         for s in cfg.segments]}
+
+
+def lm_prefill_memory(p, batch, cfg: ModelCfg):
+    """Compute the cross-attention memory once before decoding."""
+    return _memory_states(p, batch, cfg)
+
+
+def lm_prepare_decode_cache(p, cache, batch, cfg: ModelCfg):
+    """Fill the per-layer cross-attention K/V caches from the (frontend /
+    encoder) memory — one pass at prefill instead of reprojecting the memory
+    every decode step.  The caches are written in place (the reference
+    returns a new tree) and the cache is returned."""
+    memory = _memory_states(p, batch, cfg)
+    if memory is None:
+        return cache
+    for seg_p, seg_c, seg in zip(p["segments"], cache["segments"], cfg.segments):
+        for pos, kind in enumerate(seg.pattern):
+            if kind != "cross_attn":
+                continue
+            c = seg_c[pos]
+            for r in range(seg.repeats):
+                k, v = attention.cross_attn_kv(_take(seg_p[pos]["mixer"], r), memory, cfg)
+                c["k"][r] = k
+                c["v"][r] = v
+    return cache
 
 
 def lm_decode_step(p, cache, tokens1, index, cfg: ModelCfg):

@@ -219,8 +219,11 @@ def test_decode_attention_contract_errors():
 
 
 def test_model_attention_raises_for_what_the_dense_slice_leaves_out():
-    """No silent plain path for soft-capping or cross-attention.  Windows are
-    ported: a windowed cache is a ring of ``min(window, seq_len)`` slots."""
+    """No silent plain path for soft-capping or the sequence-sharded decode.
+    Windows are ported (a windowed cache is a ring of ``min(window,
+    seq_len)`` slots), and so is cross-attention (tests/test_torch_cross.py):
+    its parameters are the self-attention's, and a memory of another length
+    gives the query's shape back."""
     cfg = get_smoke_config("tinyllama-1.1b")
     gen = torch.Generator().manual_seed(0)
     p = attention.init_attn(gen, cfg)
@@ -230,12 +233,14 @@ def test_model_attention_raises_for_what_the_dense_slice_leaves_out():
     assert attention.attn_forward(p, x, cfg, window=2).shape == x.shape
     out, _ = attention.attn_decode_step(p, x[:, :1], cache, 0, cfg, window=2)
     assert out.shape == (1, 1, cfg.d_model)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        attention.attn_forward(p, x, cfg, kv=x)
+    memory = torch.ones((1, 7, cfg.d_model))
+    assert attention.attn_forward(p, x, cfg, kv=memory).shape == x.shape
     capped = cfg.scaled(attn=cfg.attn.__class__(**{**cfg.attn.__dict__, "logit_softcap": 30.0}))
     with pytest.raises(NotImplementedError, match="soft-capping"):
         attention.attn_forward(p, x, capped)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        attention._sharded_flash_decode(None, None, None, None, cfg, None)
+        attention.attn_forward(p, x, capped, kv=memory)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        attention.init_attn(gen, cfg, cross=True)
+        attention._sharded_flash_decode(None, None, None, None, cfg, None)
+    cross = attention.init_attn(gen, cfg, cross=True)
+    assert {k: v.shape for k, v in cross.items()} == {k: v.shape for k, v in p.items()}

@@ -32,7 +32,7 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels import rglru_scan as rg
 from repro_torch.kernels import ssd_scan as ssd_k
 from repro_torch.launch import serve
-from repro_torch.models import mlp, ssd, transformer
+from repro_torch.models import mla, mlp, ssd, transformer
 
 LOOP_NESTS = ["array_add", "transpose", "stencil1d", "histogram", "conv2d"]
 
@@ -1184,6 +1184,7 @@ def test_traced_design_run_differential_on_card(gal_name, hierarchy):
 # -- the MoE layer and head dim 128 at one query head a KV head (qwen2-moe) -------------
 
 MOE = "qwen2-moe-a2.7b"
+DEEPSEEK = "deepseek-v2-lite-16b"
 
 
 def moe_tokens(cfg, T, seed):
@@ -1206,19 +1207,22 @@ def top_k_margin(p, x, k):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case,T", [("smoke", 37), ("full width", 4), ("full width", 4096)])
+@pytest.mark.parametrize("case,T", [("smoke", 37), ("full width", 4), ("full width", 4096),
+                                    ("deepseek full width", 4096)])
 def test_moe_layer_on_card_equals_the_cpu(case, T):
     """``moe_forward_local`` on the card (expert products as ``torch.bmm``,
     the gate-weighted sum an atomic ``index_add_``) against its CPU run on
     the same weights and tokens: the smoke config in float32 at 1e-5; one
     full-width layer of qwen2-moe (60 experts of 1408, top-4, shared 5632)
-    in bfloat16 at 2e-2 |cpu| + 2e-2 max |cpu|, the reference kernel tests'
-    bf16 tolerance scaled by the result's magnitude, as chip_smoke.py holds
-    the matmul: the routed and the shared outputs are each rounded to bf16
-    before they are added, so where they cancel the sum keeps their
-    rounding (half an ulp of values near 10 is 0.03)."""
+    or of deepseek-v2-lite (64 of 1408, top-6, shared 2816) in bfloat16 at
+    2e-2 |cpu| + 2e-2 max |cpu|, the reference kernel tests' bf16 tolerance
+    scaled by the result's magnitude, as chip_smoke.py holds the matmul:
+    the routed and the shared outputs are each rounded to bf16 before they
+    are added, so where they cancel the sum keeps their rounding (half an
+    ulp of values near 10 is 0.03)."""
     dev = _cuda_or_skip()
-    cfg = get_smoke_config(MOE) if case == "smoke" else get_config(MOE)
+    cfg = (get_smoke_config(MOE) if case == "smoke"
+           else get_config(DEEPSEEK if case.startswith("deepseek") else MOE))
     p = mlp.init_moe(torch.Generator().manual_seed(0), cfg)
     x = moe_tokens(cfg, T, seed=1)
     assert top_k_margin(p, x, cfg.moe.top_k) > 5e-5
@@ -1278,3 +1282,185 @@ def test_simulator_for_without_a_device_raises_where_there_is_no_cuda():
         port_sim.simulator_for(module, entry)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         port_sim.run_differential(module, entry, rtl_stimulus("array_add", 4))
+
+
+# -- slice 9: K3 with Dqk != Dv (MLA), cross-attention shapes, the three new archs ----
+
+# MLA at full width: 16 heads, queries and keys of nope 128 + rope 64, values of 128
+MLA_H, MLA_DQK, MLA_DV = 16, 192, 128
+# Queries this many times normal in the slice's tests over a thousand keys
+# or more: with unit queries the softmax there is nearly flat and |o| about
+# 0.04, half the bfloat16 tolerance's absolute term; sharper, |o| is of
+# order 1 and a key tile dropped or counted twice shows (x4 is exact in bf16).
+PEAKED_Q = 4.0
+
+
+def mla_operands(dev, dtype, B, S, seed=11):
+    q, k = (normal((B, S, MLA_H, MLA_DQK), dtype, seed + i) for i in range(2))
+    q = q * PEAKED_Q
+    v = normal((B, S, MLA_H, MLA_DV), dtype, seed + 2)
+    return _on(dev, dtype, q, k, v)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_flash_attention_dqk_192_dv_128_matches_plain_on_card(dtype):
+    """K3 at (2, 1024, 16) with queries and keys of 192 dims and values of
+    128, causal, under MLA's scale 192^-0.5: bfloat16 on its own
+    ``<192, 128>`` instantiation, float32 padded to 256, each within the
+    reference kernel tests' tolerance of the plain version; the output has
+    the values' head dim."""
+    dev = _cuda_or_skip()
+    q, k, v = mla_operands(dev, dtype, 2, 1024)
+    scale = MLA_DQK ** -0.5
+    before = fa.launches
+    got = ops.mha(q, k, v, causal=True, scale=scale)
+    torch.cuda.synchronize()
+    assert fa.launches - before == 1
+    assert got.shape == (2, 1024, MLA_H, MLA_DV)
+    want = ref.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                   causal=True, scale=scale).transpose(1, 2)
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(), **tol(dtype))
+
+
+@pytest.mark.gpu
+def test_flash_attention_refuses_a_bf16_pair_it_is_not_built_for_on_card():
+    dev = _cuda_or_skip()
+    q = torch.zeros((1, 2, 64, 128), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match=r"\(D 128, Dv 64\)"):
+        fa.flash_attention(q, q, q[..., :64].contiguous())
+
+
+# (B, Sq, Sk, H, KvH, D): llama-3.2-vision's cross prefill (64 tokens against
+# 1600 patches, off the key tile) and seamless' encoder / cross prefill
+CROSS_CASES = [(4, 64, 1600, 64, 8, 128), (4, 1024, 1024, 16, 16, 64)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("B,Sq,Sk,H,KvH,D", CROSS_CASES)
+def test_flash_attention_non_causal_cross_shapes_on_card(B, Sq, Sk, H, KvH, D, dtype):
+    dev = _cuda_or_skip()
+    q, k, v = _on(dev, dtype, *attention_operands((B, Sq, H, D), (B, Sk, KvH, D), dtype, seed=21))
+    q = q * PEAKED_Q
+    got = ops.mha(q, k, v, causal=False)
+    want = ref.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                   causal=False).transpose(1, 2)
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(), **tol(dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("B,Tm,H,KvH,D", [(4, 1600, 64, 8, 128), (4, 1024, 16, 16, 64)])
+def test_decode_attention_against_the_whole_memory_on_card(B, Tm, H, KvH, D, dtype):
+    """K4 as cross decode runs it: every lane's length the memory's, Tm."""
+    dev = _cuda_or_skip()
+    q, k, v = _on(dev, dtype, *attention_operands((B, H, D), (B, Tm, KvH, D), dtype, seed=23))
+    q = q * PEAKED_Q
+    got = ops.decode(q, k, v, Tm)
+    want = ref.decode_attention_ref(q, k, v, Tm)
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(), **tol(dtype))
+
+
+def _mla_layer(dev, seed=0):
+    cfg = get_config(DEEPSEEK)
+    return cfg, mla.init_mla(torch.Generator(device=dev).manual_seed(seed), cfg)
+
+
+@pytest.mark.gpu
+def test_mla_layer_graph_replay_equals_eager_on_card():
+    """A full-width MLA layer's prefill (2 x 256, bf16) captured in a CUDA
+    graph and replayed gives the eager result, K3 launched once a call."""
+    dev = _cuda_or_skip()
+    cfg, p = _mla_layer(dev)
+    x = torch.as_tensor(normal((2, 256, cfg.d_model), "bfloat16", 31)).to(dev, torch.bfloat16)
+    eager = mla.mla_forward(p, x, cfg).clone()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(stream):
+        mla.mla_forward(p, x, cfg)               # warm-up on the capturing stream
+        before = fa.launches
+        with torch.cuda.graph(graph, stream=stream):
+            out = mla.mla_forward(p, x, cfg)
+        assert fa.launches - before == 1
+    torch.cuda.current_stream().wait_stream(stream)
+    for _ in range(3):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+
+
+@pytest.mark.gpu
+def test_mla_layer_at_full_width_equals_its_plain_form_on_card():
+    """One full-width MLA layer at T = 4096 in bfloat16: the chunked entry,
+    which on the card runs K3 ``<192, 128>`` over decompressed K/V, against
+    the reference's absorbed online-softmax form over latent chunks, run on
+    the card as plain tensor code, within 2e-2 |plain| + 2e-2 max |plain|
+    (the two forms round to bf16 at other places: k_nope against q W_uk)."""
+    dev = _cuda_or_skip()
+    cfg, p = _mla_layer(dev, seed=1)
+    x = torch.as_tensor(normal((1, 4096, cfg.d_model), "bfloat16", 32)).to(dev, torch.bfloat16)
+    before = fa.launches
+    got = mla.mla_forward_chunked(p, x, cfg)
+    torch.cuda.synchronize()
+    assert fa.launches - before == 1
+    want = mla.mla_forward_chunked_plain(p, x, cfg).float().cpu().numpy()
+    assert got.shape == (1, 4096, cfg.d_model) and got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().cpu().numpy(), want, rtol=2e-2,
+                               atol=2e-2 * np.abs(want).max())
+
+
+def _open_gates(params, seed):
+    """Every cross layer's gates set to seeded non-zero values (a fresh
+    model's are 0, which hides cross-attention and the cross block's ffn)."""
+    g = torch.Generator().manual_seed(seed)
+    for seg in params["segments"]:
+        for block in seg:
+            for name in ("gate_attn", "gate_ffn"):
+                if name in block["mixer"]:
+                    t = block["mixer"][name]
+                    t.copy_(0.3 + torch.rand(t.shape, generator=g))
+    return params
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", [DEEPSEEK, "seamless-m4t-medium", "llama-3.2-vision-90b"])
+def test_slice9_model_on_card_equals_the_cpu(arch):
+    """Each new arch's smoke model (gates open, seeded embeddings): the
+    forward through K3 (MLA at head dims 48/32 in float32, padded to 64; the
+    encoder and cross-attention non-causal) equals the plain CPU forward,
+    and the Engine, through K4 in self- and cross-attention decode, gives the
+    CPU Engine's greedy tokens."""
+    dev = _cuda_or_skip()
+    cfg = get_smoke_config(arch)
+    params = _open_gates(transformer.init_lm(0, cfg, device="cpu"), seed=3)
+    on_card = _to(params, dev)
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, (2, 40)))}
+    if cfg.frontend is not None:
+        batch["frontend_embeds"] = torch.as_tensor(
+            rng.normal(size=(2, cfg.frontend_tokens, cfg.frontend_dim)).astype(np.float32))
+    kinds = [k for s in cfg.encoder_segments + cfg.segments for k in s.pattern * s.repeats]
+    before = fa.launches
+    got, aux = transformer.lm_forward(on_card, batch, cfg)
+    torch.cuda.synchronize()
+    assert fa.launches - before == len(kinds)              # every block attends
+    want, want_aux = transformer.lm_forward(params, batch, cfg)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(float(aux), float(want_aux), rtol=1e-5, atol=1e-7)
+    done = {}
+    for where, p in (("cpu", params), ("card", on_card)):
+        eng = serve.Engine(cfg, 3, 32, device=dev if where == "card" else "cpu", params=p)
+        if cfg.frontend is not None:
+            eng.cache = transformer.lm_prepare_decode_cache(
+                p, eng.cache, {"frontend_embeds": batch["frontend_embeds"][[0, 1, 0]]}, cfg)
+        before_dec = dec.launches
+        out, _ = serve.serve_requests(eng, serve.make_requests(6, 5, 6, cfg.vocab))
+        done[where] = [(r.rid, r.out) for r in out]
+        if where == "card":
+            attends = sum(k in ("attn", "cross_attn") for s in cfg.segments
+                          for k in s.pattern * s.repeats)
+            assert dec.launches - before_dec == attends * eng.decode_calls
+    assert done["card"] == done["cpu"]

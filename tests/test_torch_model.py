@@ -33,7 +33,8 @@ from repro_torch.train.steps import make_prefill_step, make_serve_step
 ROOT = Path(__file__).resolve().parent.parent
 ARCHS = ["tinyllama-1.1b", "qwen2-7b"]
 PORTED = ["tinyllama-1.1b", "qwen2-7b", "smollm-360m", "qwen2.5-14b", "mamba2-780m",
-          "recurrentgemma-9b", "qwen2-moe-a2.7b"]
+          "recurrentgemma-9b", "qwen2-moe-a2.7b", "deepseek-v2-lite-16b",
+          "seamless-m4t-medium", "llama-3.2-vision-90b"]
 B, S = 2, 12
 
 _cache: dict = {}
@@ -83,10 +84,10 @@ def test_configs_equal_the_reference(arch):
 
 
 def test_registry_lists_only_the_ported_archs():
-    assert registry.list_archs() == sorted(PORTED)
-    for arch in set(ref_registry.list_archs()) - set(PORTED):
-        with pytest.raises(KeyError, match="not ported yet"):
-            registry.get_config(arch)
+    """All ten of the reference's archs are ported; an unknown one raises."""
+    assert registry.list_archs() == sorted(PORTED) == ref_registry.list_archs()
+    with pytest.raises(KeyError, match="not ported yet"):
+        registry.get_config("gpt-2")
 
 
 # -- the model ----------------------------------------------------------------------

@@ -15,6 +15,7 @@ decode against its own forward, as in
 mode; ``tests/test_torch_gpu.py`` holds them to these plain versions on a card.
 """
 
+import dataclasses
 import subprocess
 import sys
 from pathlib import Path
@@ -362,12 +363,24 @@ def test_params_carry_over_the_recurrent_trees():
 
 
 def test_unported_kinds_still_raise():
+    """Every block kind is ported (the MoE ffn: tests/test_torch_moe.py; mla,
+    enc_attn and cross_attn: tests/test_torch_mla.py, test_torch_cross.py);
+    what still raises is attention logit soft-capping, on every kind that
+    attends, and the sequence-sharded decode.  An unknown kind is a
+    ValueError."""
     cfg = registry.get_smoke_config("mamba2-780m")
-    # (the MoE ffn, which this list once held, is ported: tests/test_torch_moe.py)
-    for pattern, ffn in ((("mla",), "none"), (("cross_attn",), "mlp"), (("enc_attn",), "mlp")):
-        bad = cfg.scaled(segments=(Segment(pattern, 1, ffn),))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            transformer.init_lm(0, bad, device="cpu")
+    capped = dataclasses.replace(cfg.attn, logit_softcap=30.0)
+    for pattern, ffn in ((("mla",), "none"), (("cross_attn",), "mlp"), (("enc_attn",), "mlp"),
+                         (("ssd",), "none")):
+        ok = cfg.scaled(segments=(Segment(pattern, 1, ffn),))
+        assert transformer.param_count(transformer.init_lm(0, ok, device="cpu")) > 0
+        with pytest.raises(NotImplementedError, match="soft-capping.*ROADMAP"):
+            transformer.init_lm(0, ok.scaled(attn=capped), device="cpu")
+    with pytest.raises(NotImplementedError, match="sequence-sharded.*ROADMAP"):
+        attention._sharded_flash_decode(None, None, None, None, cfg, None)
+    with pytest.raises(ValueError, match="kind 'conv'"):
+        transformer.init_lm(0, cfg.scaled(segments=(Segment(("conv",), 1, "mlp"),)),
+                            device="cpu")
 
 
 # -- serving ---------------------------------------------------------------------------

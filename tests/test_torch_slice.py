@@ -54,7 +54,8 @@ VERBATIM = (
                                         "conv2d", "gemm", "gemm_shared", "mac", "fifo")]
     + [f"configs/{m}.py" for m in ("base", "tinyllama_1_1b", "smollm_360m", "qwen2_7b",
                                    "qwen2_5_14b", "mamba2_780m", "recurrentgemma_9b",
-                                   "qwen2_moe_a2_7b")]
+                                   "qwen2_moe_a2_7b", "deepseek_v2_lite_16b",
+                                   "seamless_m4t_medium", "llama_3_2_vision_90b")]
 )
 
 
@@ -225,17 +226,19 @@ def test_sim_keeps_the_reference_apart_from_its_backends():
 
 
 def test_registry_differs_only_by_the_archs_not_ported():
-    """``configs/registry.py`` lists the seven archs the port runs (four dense,
-    Mamba-2, RecurrentGemma and the MoE qwen2-moe): the other archs' lines
-    leave ``ARCHS`` and ``_ALIASES``, and the ``KeyError`` says an arch may
-    be unknown or not ported yet."""
+    """``configs/registry.py`` lists the ten archs of the reference, all of
+    which the port runs (four dense, Mamba-2, RecurrentGemma, the MoE
+    qwen2-moe and deepseek-v2-lite, seamless-m4t and llama-3.2-vision): no
+    arch's lines leave ``ARCHS`` or ``_ALIASES``, and only the ``KeyError``
+    differs, saying an arch may be unknown or not ported yet."""
     ref_lines = (REF / "configs/registry.py").read_text().splitlines()
     port_lines = (PORT / "configs/registry.py").read_text().splitlines()
     ported = {"tinyllama_1_1b", "qwen2_7b", "smollm_360m", "qwen2_5_14b", "mamba2_780m",
-              "recurrentgemma_9b", "qwen2_moe_a2_7b"}
+              "recurrentgemma_9b", "qwen2_moe_a2_7b", "deepseek_v2_lite_16b",
+              "seamless_m4t_medium", "llama_3_2_vision_90b"}
     dropped = {i for i, ln in enumerate(ref_lines) if ln.startswith('    "') and ln.endswith(",")
                and ln.rstrip(",").split('"')[-2] not in ported}
-    assert len(dropped) == 2 * 3
+    assert not dropped
     raise_line = next(i for i, ln in enumerate(ref_lines) if "raise KeyError" in ln)
     want = [ln for i, ln in enumerate(ref_lines) if i not in dropped]
     want[want.index(ref_lines[raise_line])] = (

@@ -41,6 +41,17 @@ PyTorch version on the card, then drives:
   cut to one group of its pattern, its window cut to 64; qwen2-moe and
   deepseek cut to their first 8 layers, at capacity factor 64; the cross
   models with their caches filled from seeded embeddings);
+* training (``train``): tinyllama-1.1b at full width and depth, bfloat16
+  with remat, 6 AdamW steps of 4 x 2048 tokens through ``launch.train``
+  with a checkpoint every 3 steps — every attention layer's forward through
+  flash attention (again in the backward, under remat) and its backward
+  through the flash kernel's backward (S2) — then every gradient leaf finite
+  and non-zero, the last checkpoint restored equal to the live state and a
+  profiled step; one float32 smoke step on the card against the CPU
+  (``train_card_vs_cpu``); the bfloat16 kernel gradients of the first two
+  layers at full width against float32 plain ones (``train_grads``); and
+  ``examples/train_tinylm_torch.py`` for 40 steps with a failure injected
+  (``train_example``);
 * the designer's differential check (``differential``): the design lowered
   to RTL (``generate_verilog``) and run on the cycle-accurate simulator's
   kernel generated per design, on 4096 stimulus vectors — the reference's
@@ -69,10 +80,12 @@ carry ``cycles``, ``ns_per_cycle``, ``run_ms`` (a whole ``sim.run``, the
 stimulus copied to the card and laid out there, the results copied back)
 and the state words a lane their byte bound counts; a loop nest's large
 size is nested under its paper row, held to its plain version on 16 lanes
-spread over the batch, on the CPU (``plain_on``).  Output: one JSON object per line (``env``,
+spread over the batch, on the CPU (``plain_on``).  The S2 rows
+(``flash_attention_bwd[...]``) carry each output's error and the backward of
+SDPA as ``library_ms``.  Output: one JSON object per line (``env``,
 ``build``, ``k1_without_staging``, ``main_path``, ``differential``, then
 ``serve``, ``prefill``, ``consistency`` and ``profile`` for each model,
-``kernels``), the card's
+the four training lines, ``kernels``), the card's
 name and power limit as ``nvidia-smi`` gives them, and a last line
 ``{"ok": true, "device": {...}}``.  Any mismatch or failure exits non-zero
 before that line.  A ``phases`` line gives the host seconds of each group of
@@ -86,8 +99,10 @@ import copy
 import dataclasses
 import functools
 import inspect
+import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -117,12 +132,21 @@ from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import decode_attention as dec  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import flash_attention_bwd as fab  # noqa: E402
 from repro_torch.kernels import matmul as mm  # noqa: E402
 from repro_torch.kernels import rglru_scan as rg  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd_k  # noqa: E402
+from repro_torch import _tree  # noqa: E402
+from repro_torch.checkpoint.store import restore  # noqa: E402
+from repro_torch.configs.base import ShapeCfg  # noqa: E402
+from repro_torch.configs.registry import get_smoke_config  # noqa: E402
+from repro_torch.data.pipeline import make_batch  # noqa: E402
+from repro_torch.launch import train as train_driver  # noqa: E402
 from repro_torch.launch.serve import Engine, make_requests, serve_requests  # noqa: E402
 from repro_torch.models import mla, ssd, transformer  # noqa: E402
-from repro_torch.train.steps import make_prefill_step  # noqa: E402
+from repro_torch.optim.adamw import OptCfg  # noqa: E402
+from repro_torch.train.steps import (init_train_state, make_grad_fn,  # noqa: E402
+                                     make_prefill_step, make_train_step)
 
 SEED = 0
 LANES = 4096
@@ -277,6 +301,24 @@ ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 PEAKED_Q = 4.0
 # and test_ssd_scan's / test_rglru_scan's, against the step-by-step oracles
 SCAN_TOL = 2e-4
+# the flash kernel's backward (S2) against its plain version: per tensor,
+# max |kernel - plain| <= tol * max |plain| (float32 sums in other orders;
+# in bfloat16 one rounding of each output to 8 bits on top)
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+# training: tinyllama-1.1b at full width and depth, in bfloat16 with
+# remat="block" as its config has it, on the synthetic stream; 4 x 2048
+# tokens a step, 6 steps, a checkpoint every 3 (written under the checkout's
+# build/, removed after)
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_CKPT_EVERY = 4, 2048, 6, 3
+TRAIN_OPT = dict(lr=3e-4, warmup_steps=2, decay_steps=8)
+TRAIN_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_train"
+# its gradients in bfloat16 through K3 and S2 against float32 plain ones, at
+# full width cut to the first layers, as the consistency checks hold bf16
+# (each leaf's relative L2 error at most 3x the bf16 plain path's)
+GRAD_CUT_LAYERS, GRAD_B, GRAD_S = 2, 2, 1024
+# the examples/train_tinylm_torch.py run: 40 steps, a failure injected at 12
+EXAMPLE_STEPS, EXAMPLE_FAIL_AT = 40, 12
 
 
 def emit(key: str, value) -> None:
@@ -442,8 +484,8 @@ def phase_build(device) -> tuple[dict, list[dict]]:
     t0 = time.perf_counter()
     compiled = {}
     pending = [_build.start_build(*_build.csrc_source(src))
-               for src in ("matmul.cu", "flash_attention.cu", "decode_attention.cu",
-                           "ssd_scan.cu", "rglru_scan.cu")]
+               for src in ("matmul.cu", "flash_attention.cu", "flash_attention_bwd.cu",
+                           "decode_attention.cu", "ssd_scan.cu", "rglru_scan.cu")]
     for dname, gal, paper, large in ALL_DESIGNS:
         for tag, size in (("paper", paper), ("large", large)):
             module, name, fn, _ = compile_design(gal, size, device)
@@ -1452,16 +1494,134 @@ def phase_kernels_k6(device) -> list[dict]:
     return rows
 
 
+# -- the flash kernel's backward (S2) ------------------------------------------------
+
+
+def s2_case(case: str, B, Sq, Sk, H, KvH, D, dtype, device, g, *, causal=True,
+            window=None) -> dict:
+    """S2 (``flash_attention_bwd``: three launches a call) against its plain
+    version and against the backward of SDPA on the same inputs: q, k, v as
+    (B,H,S,D) views of model-layout tensors, the queries ``PEAKED_Q`` times
+    normal; o and lse from K3's forward; dO normal."""
+    q = (seeded((B, Sq, H, D), dtype, device, g) * PEAKED_Q).transpose(1, 2)
+    k = seeded((B, Sk, KvH, D), dtype, device, g).transpose(1, 2)
+    v = seeded((B, Sk, KvH, D), dtype, device, g).transpose(1, 2)
+    do = seeded((B, Sq, H, D), dtype, device, g).transpose(1, 2)
+    kw = dict(causal=causal, window=window)
+    o, lse = fa._forward(q, k, v, causal, window, D ** -0.5, None, with_lse=True)
+    got = fab.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    name = (f"flash_attention_bwd[{case} {B}x{Sq}x{Sk} H{H}/{KvH} D{D} {dtype_name(dtype)}"
+            f"{'' if causal else ' non-causal'}{f' window {window}' if window else ''}]")
+
+    def held(what: str, parts) -> dict:
+        errs = {}
+        for part, a, b in zip(("dq", "dk", "dv"), parts, want):
+            errs[part] = float((a.float() - b.float()).abs().max())
+            limit = BWD_TOL[dtype] * float(b.float().abs().max())
+            if a.shape != b.shape or not errs[part] <= limit:
+                fail(f"{what}: {part} max |difference| {errs[part]} outside "
+                     f"{BWD_TOL[dtype]} x max |plain| = {limit}")
+        return errs
+
+    errs = held(name, got)
+    valid = torch.ones((Sq, Sk), dtype=torch.bool, device=device)
+    q_pos = torch.arange(Sq, device=device)[:, None]
+    k_pos = torch.arange(Sk, device=device)[None, :]
+    if causal:
+        valid &= k_pos <= q_pos
+    if window is not None:
+        valid &= k_pos > q_pos - window
+    pairs = int(valid.sum())
+    # five products over the pairs the masks leave (S, dP, dV, dK, dQ), a
+    # multiply-add each; q, k, v, o, dO and lse read once, dq, dk, dv written
+    flops = 2.0 * 5 * B * H * pairs * D
+    es = q.element_size()
+    nbytes = (4 * B * H * Sq * D + 4 * B * KvH * Sk * D) * es + 4 * B * H * Sq
+    bound_ms, bound_by = bound(flops, nbytes, dtype)
+    ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+    out = None
+    try:
+        if window is None:
+            out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal, enable_gqa=True)
+        else:
+            out = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=valid, enable_gqa=True)
+        library = lambda: torch.autograd.grad(out, (ql, kl, vl), do, retain_graph=True)
+        held(f"{name}: the library call", library())
+        library_note = None
+    except RuntimeError as e:                     # no backend takes the call
+        library, library_note = None, f"refused: {str(e).splitlines()[0][:160]}"
+    del want
+    torch.cuda.empty_cache()
+    kernel = lambda: fab.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    row = {
+        "name": name, "route": "cuda", "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/models/attention.py:63 (no TPU kernel: XLA's autodiff of the "
+                    "plain flash_attention)",
+        "kernel": "/".join(fab.KERNELS),
+        "shape": {"B": B, "Sq": Sq, "Sk": Sk, "H": H, "KvH": KvH, "D": D,
+                  "dtype": dtype_name(dtype), "causal": causal, "window": window,
+                  "q_scale": PEAKED_Q},
+        "launches": None, "max_abs_err": max(errs.values()), "max_abs_err_by_output": errs,
+        "tolerance": f"{BWD_TOL[dtype]} * max|plain| per output",
+        "ms": time_ms(kernel, 10),
+        "plain_ms": time_ms(lambda: ref.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw), 2),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": time_ms(library, 10) if library else None,
+        "device_ms": graph_ms(kernel)[0],
+        # the library's backward runs through autograd, whose capture in a
+        # CUDA graph is refused; a refused capture has left memory reserved
+        "library_device_ms": None,
+        "library_device_ms_note": "not measured: the library call is an autograd backward",
+    }
+    if library_note:
+        row["library_note"] = library_note
+    del out, library
+    torch.cuda.empty_cache()
+    return row
+
+
+def s2_shape_key(row: dict) -> tuple:
+    """The ``by_shape`` key of the calls an S2 row stands for."""
+    sh = row["shape"]
+    return (sh["B"], sh["H"], sh["KvH"], sh["Sq"], sh["Sk"], sh["D"], sh["causal"])
+
+
+def phase_kernels_s2(device) -> list[dict]:
+    """S2 at the shapes the training paths run it at — tinyllama-1.1b's
+    step in bfloat16, the example's TINYLM in float32 — then checks no main
+    path counts: head dims 128 and 256, groups 1 and 16, a window, a
+    non-causal call with Sq != Sk."""
+    g = torch.Generator(device="cpu").manual_seed(SEED + 9)
+    a = get_config(ARCH).attn
+    t = train_example().TINYLM.attn
+    rows = [s2_case("train", TRAIN_B, TRAIN_S, TRAIN_S, a.n_heads, a.n_kv_heads, a.d_head,
+                    BF16, device, g),
+            s2_case("example", 4, 128, 128, t.n_heads, t.n_kv_heads, t.d_head, F32, device, g)]
+    rows[0]["checks"] = [
+        s2_case("D 128", 2, 512, 512, 16, 2, 128, BF16, device, g),
+        s2_case("D 256, group 16", 2, 512, 512, 16, 1, 256, BF16, device, g),
+        s2_case("group 1", 2, 512, 512, 16, 16, 64, BF16, device, g),
+        s2_case("window", 2, 1024, 1024, 16, 2, 64, BF16, device, g, window=256),
+        s2_case("non-causal", 2, 384, 640, 8, 2, 64, F32, device, g, causal=False),
+        s2_case("D 80, padded to 128", 2, 2, 130, 4, 2, 80, BF16, device, g, causal=False),
+    ]
+    return rows
+
+
 # -- serving ------------------------------------------------------------------------
 
 KERNELS = {"lower_to_cuda": to_cuda, "matmul": mm, "flash_attention": fa,
-           "decode_attention": dec, "ssd_scan": ssd_k, "rglru_scan": rg, "rtl_sim": sim_cuda}
+           "flash_attention_bwd": fab, "decode_attention": dec, "ssd_scan": ssd_k,
+           "rglru_scan": rg, "rtl_sim": sim_cuda}
 
 
 def zero_counts() -> None:
     for module in KERNELS.values():
         module.launches = 0
     fa.by_shape.clear()
+    fab.by_shape.clear()
     dec.by_shape.clear()
 
 
@@ -1823,6 +1983,257 @@ def serve_model(arch: str, device) -> dict:
             "serve_shapes": served_shapes, "prefill_shapes": prefill_shapes}
 
 
+# -- training ------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def train_example():
+    """examples/train_tinylm_torch.py as a module (its model is ``TINYLM``)."""
+    import importlib.util
+    path = Path(__file__).resolve().parent / "examples" / "train_tinylm_torch.py"
+    spec = importlib.util.spec_from_file_location("train_tinylm_torch", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def train_launches(cfg) -> dict:
+    """K3 and S2 launches of one train step: a forward over every attention
+    layer, again in the backward under remat="block", and S2 once a layer."""
+    n = layers(cfg)["attn"]
+    return {"flash_attention": n * (2 if cfg.remat == "block" else 1),
+            "flash_attention_bwd": n}
+
+
+def states_equal(a, b) -> bool:
+    la, lb = _tree.with_paths(a), _tree.with_paths(b)
+    return la.keys() == lb.keys() and all(
+        la[k].dtype == lb[k].dtype and la[k].shape == lb[k].shape and torch.equal(la[k], lb[k])
+        for k in la)
+
+
+def phase_train(device) -> dict:
+    """The training path (``launch.train``) at tinyllama-1.1b's full width
+    and depth: AdamW steps on the synthetic stream with checkpoints, every
+    attention layer's forward through K3 (twice a step under remat) and its
+    backward through S2.  Then: every gradient leaf finite and non-zero; the
+    last checkpoint restored equal to the live state, bit for bit."""
+    cfg = get_config(ARCH)
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    free_disk = shutil.disk_usage(TRAIN_DIR.parent).free
+    per_step, last = [], {}
+
+    def on_step(i, m):
+        now = counts()
+        per_step.append({k: now[k] - last.get(k, 0) for k in now})
+        last.update(now)
+
+    torch.cuda.reset_peak_memory_stats(device)
+    zero_counts()
+    run = train_driver.train(cfg, OptCfg(**TRAIN_OPT), steps=TRAIN_STEPS, batch=TRAIN_B,
+                             seq=TRAIN_S, ckpt_dir=TRAIN_DIR, ckpt_every=TRAIN_CKPT_EVERY,
+                             device=device, on_step=on_step)
+    n, shapes = counts(), {"flash_attention": dict(fa.by_shape),
+                           "flash_attention_bwd": dict(fab.by_shape)}
+    peak = torch.cuda.max_memory_allocated(device)
+    if run.report.steps_completed != TRAIN_STEPS or len(per_step) != TRAIN_STEPS:
+        fail(f"train: {run.report.steps_completed} steps completed, {len(per_step)} reported")
+    for i, step_n in enumerate(per_step):
+        expect(f"train step {i}", step_n, **train_launches(cfg))
+    for m in run.metrics:
+        if not all(np.isfinite(m[k]) for k in ("loss", "grad_norm", "xent")):
+            fail(f"train: a step's metrics are not finite: {m}")
+    times = run.monitor.times
+    step_s = float(np.median(times[2:TRAIN_STEPS]))
+    # the last checkpoint (the last step's) against the live state
+    t0 = time.perf_counter()
+    restored, at = restore(TRAIN_DIR, run.state)
+    restore_s = time.perf_counter() - t0
+    if at != TRAIN_STEPS - 1 or not states_equal(restored, run.state):
+        fail(f"train: the checkpoint of step {at} differs from the live state")
+    ckpt_bytes = sum(f.stat().st_size for f in TRAIN_DIR.rglob("*") if f.is_file())
+    del restored
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    # the gradients of the trained state on the first batch: each leaf finite
+    # and non-zero (a kernel that dropped a gradient would leave zeros)
+    batch = {k: torch.as_tensor(v, device=device) for k, v in make_batch(
+        cfg, ShapeCfg("train", TRAIN_S, TRAIN_B, "train"), step=0).items()}
+    _, _, grads = make_grad_fn(cfg)(run.state["params"], batch)
+    for key, gl in _tree.with_paths(grads).items():
+        if not bool(torch.isfinite(gl).all()) or float(gl.float().abs().max()) == 0.0:
+            fail(f"train: gradient {key} is not finite or all zero")
+    del grads
+    profile = train_step_profile(cfg, run.state, device)
+    params = run.state["params"]
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "dtype": cfg.dtype, "remat": cfg.remat, "batch": TRAIN_B, "seq": TRAIN_S,
+           "steps": TRAIN_STEPS, "opt": TRAIN_OPT, "ckpt_every": TRAIN_CKPT_EVERY,
+           "params": transformer.param_count(params), "param_bytes": param_bytes(params),
+           "state_bytes": param_bytes(run.state), "checkpoint_bytes_on_disk": ckpt_bytes,
+           "free_disk_bytes_before": free_disk, "restore_seconds": restore_s,
+           "losses": run.losses, "grad_norms": [m["grad_norm"] for m in run.metrics],
+           "lrs": [m["lr"] for m in run.metrics],
+           "step_seconds": times, "step_seconds_median_2_5": step_s,
+           "tokens_per_s": TRAIN_B * TRAIN_S / step_s, "seconds": run.seconds,
+           "restarts": run.report.restarts, "peak_bytes": peak,
+           "launches": n, "launches_per_step": per_step,
+           "launches_by_shape": {k: printable(v) for k, v in shapes.items()},
+           "gradients": "every leaf finite and non-zero",
+           "checkpoint": f"step {at} restored equal to the live state, bit for bit",
+           "profile": profile}
+    del run, params
+    torch.cuda.empty_cache()
+    emit("train", out)
+    return {"launches": n, "shapes": shapes}
+
+
+def train_step_profile(cfg, state, device) -> dict:
+    """Where one more train step's time goes, under ``torch.profiler``:
+    device time by kernel, K3's and S2's share, the device's idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step = make_train_step(cfg, OptCfg(**TRAIN_OPT), device=device)
+    batch = make_batch(cfg, ShapeCfg("train", TRAIN_S, TRAIN_B, "train"), step=TRAIN_STEPS)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        new_state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    del new_state
+    events = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+    by_kernel = sorted(((e.key, e.self_device_time_total / 1e3) for e in events),
+                       key=lambda kv: -kv[1])
+    busy = sum(t for _, t in by_kernel)
+    of = lambda names: sum(t for k, t in by_kernel if any(n in k for n in names))
+    return {"wall_ms": wall_ms, "device_ms": busy if busy else "not measured",
+            "device_idle_share": 1 - busy / wall_ms if busy else "not measured",
+            "s2_ms": of(fab.KERNELS), "k3_ms": of(["flash_bf16_wgmma", "flash_f32"]),
+            "top_kernels_ms": [[k[:80], t] for k, t in by_kernel[:10]]}
+
+
+def phase_train_card_vs_cpu(device) -> dict:
+    """One train step of tinyllama's smoke config (float32) on the card
+    (K3 ``flash_f32`` and S2) against the same step on the CPU (the plain
+    versions) from one state made on the host, every leaf float32 (the
+    config's bfloat16 projection weights too: a bfloat16 leaf rounds apart
+    by one unit where the two sides' float32 gradients straddle a rounding
+    boundary): each parameter leaf within 1e-4 of its largest magnitude."""
+    cfg = get_smoke_config(ARCH)
+    state = _tree.map(lambda t: t.float() if t.dtype == torch.bfloat16 else t,
+                      init_train_state(SEED, cfg, device="cpu"))
+    batch = make_batch(cfg, ShapeCfg("smoke", 64, 4, "train"), step=0)
+    opt = OptCfg(**TRAIN_OPT)
+    zero_counts()
+    card, m_card = make_train_step(cfg, opt, device=device)(
+        _tree.map(lambda t: t.to(device), state), batch)
+    torch.cuda.synchronize()
+    n = counts()
+    expect("train card vs cpu", n, **train_launches(cfg))
+    cpu, m_cpu = make_train_step(cfg, opt, device="cpu")(state, batch)
+    worst = 0.0
+    for key, want in _tree.with_paths(cpu["params"]).items():
+        got = _tree.with_paths(card["params"])[key].cpu().float()
+        err = float((got - want.float()).abs().max()) / float(want.float().abs().max())
+        worst = max(worst, err)
+        if not err <= 1e-4:
+            fail(f"train card vs cpu: {key} differs by {err} of its largest magnitude")
+    out = {"arch": cfg.name, "dtype": cfg.dtype, "batch": 4, "seq": 64,
+           "loss_card": float(m_card["loss"]), "loss_cpu": float(m_cpu["loss"]),
+           "worst_param_err_over_max": worst, "limit": 1e-4, "launches": n}
+    emit("train_card_vs_cpu", out)
+    return out
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """``ops.mha`` through the plain version on the card (autograd through
+    ``ref.flash_attention_ref``): the yardstick of a gradient check only."""
+    real = ops.mha
+
+    def mha(q, k, v, *, causal=True, window=None, scale=None):
+        return ref.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                       causal=causal, window=window,
+                                       scale=scale).transpose(1, 2)
+
+    ops.mha = mha
+    try:
+        yield
+    finally:
+        ops.mha = real
+
+
+def phase_train_grads(device) -> dict:
+    """tinyllama-1.1b at full width, cut to its first layers: the bfloat16
+    gradients through K3 and S2 against float32 plain ones on the same
+    weights and batch.  Each leaf's relative L2 error may be at most 3x the
+    bfloat16 plain path's (the rule of the consistency checks)."""
+    full = get_config(ARCH)
+    cfg = full.scaled(segments=(Segment(full.segments[0].pattern, GRAD_CUT_LAYERS,
+                                        full.segments[0].ffn),))
+    params = init_train_state(SEED + 10, cfg, device=device)["params"]
+    batch = {k: torch.as_tensor(v, device=device) for k, v in make_batch(
+        cfg, ShapeCfg("grads", GRAD_S, GRAD_B, "train"), step=1).items()}
+    zero_counts()
+    _, _, kernel = make_grad_fn(cfg)(params, batch)
+    torch.cuda.synchronize()
+    n = counts()
+    expect("train grads, kernel path", n, **train_launches(cfg))
+    with plain_attention():
+        _, _, plain16 = make_grad_fn(cfg)(params, batch)
+        _, _, plain32 = make_grad_fn(cfg.scaled(dtype="float32"))(as_float32(params), batch)
+    rel = lambda a, b: float((a.float() - b.float()).norm() / b.float().norm())
+    leaves = {}
+    for key, want in _tree.with_paths(plain32).items():
+        k_err = rel(_tree.with_paths(kernel)[key], want)
+        p_err = rel(_tree.with_paths(plain16)[key], want)
+        leaves[key] = {"kernel_bf16_vs_plain_f32": k_err, "plain_bf16_vs_plain_f32": p_err}
+        if not k_err <= CONSIST_NOISE * p_err:
+            fail(f"train grads: {key}: the kernel's bf16 gradient is {k_err} from float32, "
+                 f"> {CONSIST_NOISE} x the bf16 plain path's {p_err}")
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "batch": GRAD_B, "seq": GRAD_S,
+           "cut": f"the first {GRAD_CUT_LAYERS} layers, full width", "launches": n,
+           "limit": f"{CONSIST_NOISE} x the bf16 plain path's relative L2 error",
+           "worst_ratio": max(v["kernel_bf16_vs_plain_f32"] / v["plain_bf16_vs_plain_f32"]
+                              for v in leaves.values()),
+           "leaves": leaves}
+    del kernel, plain16, plain32, params
+    torch.cuda.empty_cache()
+    emit("train_grads", out)
+    return out
+
+
+def phase_train_example(device) -> dict:
+    """examples/train_tinylm_torch.py as a user runs it: TINYLM in float32
+    (K3 ``flash_f32`` and S2 in float32), a failure injected, one restart
+    from a checkpoint; the example asserts that the loss falls."""
+    module = train_example()
+    zero_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = module.main(["--steps", str(EXAMPLE_STEPS), "--fail-at", str(EXAMPLE_FAIL_AT),
+                          "--device", str(device)])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    n, shapes = counts(), {"flash_attention": dict(fa.by_shape),
+                           "flash_attention_bwd": dict(fab.by_shape)}
+    text = buf.getvalue()
+    last = text.strip().splitlines()[-1]
+    if rc != 0 or f"completed {EXAMPLE_STEPS} steps, 1 restarts" not in last:
+        fail(f"train example: exit {rc}, {last!r}")
+    cfg = module.TINYLM
+    # a checkpoint every 10 steps: the failure at 12 reruns steps 10 and 11
+    runs = EXAMPLE_STEPS + EXAMPLE_FAIL_AT % 10
+    expect("train example", n, **{k: v * runs for k, v in train_launches(cfg).items()})
+    out = {"example": "examples/train_tinylm_torch.py", "steps": EXAMPLE_STEPS,
+           "fail_at": EXAMPLE_FAIL_AT, "step_runs": runs, "seconds": secs,
+           "last_line": last, "launches": n,
+           "launches_by_shape": {k: printable(v) for k, v in shapes.items()}}
+    emit("train_example", out)
+    return {"launches": n, "shapes": shapes}
+
+
 PHASE_SECONDS: dict[str, float] = {}
 
 
@@ -1855,6 +2266,11 @@ def main() -> None:
         k3_moe, k4_moe = phase_kernels_moe(device)
         k3_mla = phase_kernels_mla(device)
         cross_rows = phase_kernels_cross(device)
+    with timed("kernels S2"):
+        s2_rows = phase_kernels_s2(device)
+        a = get_config(ARCH).attn
+        k3_train = k3_case("train", TRAIN_B, TRAIN_S, TRAIN_S, a.n_heads, a.n_kv_heads,
+                           a.d_head, BF16, device, torch.Generator().manual_seed(SEED + 11))
     torch.cuda.empty_cache()
 
     # every count to 0, then the compiler's main path, then read the counts
@@ -1898,6 +2314,23 @@ def main() -> None:
     for arch in CROSS_ARCHS:
         with timed(arch):
             cross[arch] = serve_model(arch, device)
+    # the training paths, each with the counts at 0 just before it
+    with timed("train"):
+        trained = phase_train(device)
+        phase_train_card_vs_cpu(device)
+        phase_train_grads(device)
+        example = phase_train_example(device)
+    # S2's rows: the full-width step's calls, the example's calls, each all
+    # of its phase's; K3 at the training shape: the full-width step's
+    for row, ran in ((s2_rows[0], trained), (s2_rows[1], example)):
+        by_shape = ran["shapes"]["flash_attention_bwd"]
+        row["launches"] = by_shape.get(s2_shape_key(row), 0)
+        if row["launches"] != ran["launches"]["flash_attention_bwd"]:
+            fail(f"{row['name']}: {row['launches']} launches at its shape of "
+                 f"{ran['launches']['flash_attention_bwd']} in its phase")
+    k3_train["launches"] = trained["shapes"]["flash_attention"].get(shape_key(k3_train), 0)
+    if k3_train["launches"] != trained["launches"]["flash_attention"]:
+        fail(f"{k3_train['name']}: launches by shape do not add up to the phase's count")
     k3_rows[0]["launches"] = dense["prefill"]["flash_attention"]
     # the consistency rows' cases: tinyllama's in bfloat16; Mamba-2's scan
     # runs in float32 under both of its passes; RecurrentGemma's cut check in float32
@@ -1940,7 +2373,7 @@ def main() -> None:
                      f"{[shape_key(row) for row in pair]}")
         rows += k3 + k4
     rows += (k3_rows + k4_rows + k5_rows + k6_rows + k3_256 + k4_256 + k3_moe + k4_moe
-             + k3_mla + s1_rows)
+             + k3_mla + s1_rows + [k3_train] + s2_rows)
     for row in rows:
         if row["launches"] <= 0:
             fail(f"the main path never launched {row['name']}")

@@ -12,8 +12,13 @@ module, so a reader finds the counterpart of each file under the same name:
   configs/        model configurations (the reference's ten archs)
   models/         the language models (attention, MLA, MLP and MoE, SSD,
                   RG-LRU, transformer with encoder and cross-attention)
-  train/          the prefill and decode step factories
-  launch/         ``serve``: the continuous-batching ``Engine``
+  train/          the train, prefill and decode step factories
+  optim/          AdamW with a cosine schedule and global-norm clipping
+  data/           the synthetic, seekable token stream (a copy)
+  checkpoint/     atomic checkpoints in the reference's on-disk layout
+  ft/             the checkpoint-restart driver (the reference's file)
+  launch/         ``serve``: the continuous-batching ``Engine``; ``train``:
+                  the training driver
   compat          carries a design, its stimulus and a model's parameters
                   over from the reference
 

@@ -7,7 +7,8 @@ memref argument).  The textual IR is the interchange format for the first —
 the format for the second.
 
 The model has weights: ``params_from_reference`` maps the reference's
-``init_lm`` tree, fetched to the host as numpy arrays, onto the port's.
+``init_lm`` tree, fetched to the host as numpy arrays, onto the port's, and
+``state_from_reference`` a whole train state (parameters and AdamW moments).
 """
 
 from __future__ import annotations
@@ -58,3 +59,18 @@ def params_from_reference(tree, device: Optional[Union[str, torch.device]] = Non
     if arr.dtype.name == "bfloat16":
         return torch.tensor(arr.astype(np.float32)).to(device=dev, dtype=torch.bfloat16)
     return torch.tensor(arr).to(dev)             # a copy: fetched arrays are read-only
+
+
+def state_from_reference(state, device: Optional[Union[str, torch.device]] = None):
+    """The reference's train state (``{"params", "opt": {"m", "v", "step"}}``,
+    fetched to the host) as the port's on ``device`` (``None`` = the CUDA
+    device): the parameters as ``params_from_reference`` carries them, the
+    float32 moments leaf for leaf, the step count an int32 scalar — so both
+    sides can take a train step from one state."""
+    dev = resolve_device(device)
+    opt = state["opt"]
+    return {"params": params_from_reference(state["params"], dev),
+            "opt": {"m": params_from_reference(opt["m"], dev),
+                    "v": params_from_reference(opt["v"], dev),
+                    "step": torch.tensor(int(np.asarray(opt["step"])), dtype=torch.int32,
+                                         device=dev)}}

@@ -63,6 +63,12 @@
 // probabilities go through shared memory, and the lane accumulates D/2 outputs
 // of P.V; (acc, m) live in registers and l as per-lane partial sums.  Scores
 // are (q * scale) . k.  At D 256 its accumulator spills.
+//
+// Training: where the caller passes an `lse` buffer, both kernels also write
+// each query row's log-sum-exp, m + log l in natural units (the bf16 kernel's m
+// is in log2 units: m ln 2 + log l), which the backward
+// (flash_attention_bwd.cu) takes to rebuild P = exp(s - lse).  Serving passes
+// null and pays one test a block.
 #include "hopper.cuh"
 
 namespace {
@@ -75,6 +81,7 @@ constexpr int ROWS = BQ / WARPS;   // query rows per warp
 constexpr int PS = BK + 4;         // row stride of the probability tile (floats)
 constexpr float MASKED = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 #define ABSENT __int_as_float(0xff800000u)  // -inf: a key past the end, weight 0
 
 struct Strides {
@@ -109,8 +116,8 @@ constexpr size_t smem_floats() {
 template <int D>
 __global__ void __launch_bounds__(THREADS)
 flash_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-          float* __restrict__ o, int group, int Sq, int Sk, Strides qs, Strides ks,
-             Strides vs, Strides os, float scale, int causal, int window, int kv_len) {
+          float* __restrict__ o, float* __restrict__ lse, int group, int Sq, int Sk, Strides qs,
+          Strides ks, Strides vs, Strides os, float scale, int causal, int window, int kv_len) {
   constexpr int DP = D + 4;                // padded row stride of the Q and K tiles
   constexpr int DL = D < 32 ? D : 32;      // lanes along the head dim in P.V
   constexpr int RG = 32 / DL;              // lane groups along the rows in P.V
@@ -236,6 +243,12 @@ flash_f32(const float* __restrict__ q, const float* __restrict__ k, const float*
 
 #pragma unroll
   for (int r = 0; r < ROWS; ++r) l[r] = warp_sum(l[r]);
+  if (lse != nullptr && lane == 0) {         // the backward's row statistics
+    float* lrow = lse + ((long long)b * gridDim.y + h) * Sq;
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r)
+      if (q0 + warp * ROWS + r < Sq) lrow[q0 + warp * ROWS + r] = m[r] + logf(l[r]);
+  }
   float* op = o + b * os.b + h * os.h;
 #pragma unroll
   for (int u = 0; u < RPL; ++u) {
@@ -253,7 +266,7 @@ flash_f32(const float* __restrict__ q, const float* __restrict__ k, const float*
 }
 
 template <int D>
-int launch_f32_d(const float* q, const float* k, const float* v, float* o, int B, int H,
+int launch_f32_d(const float* q, const float* k, const float* v, float* o, float* lse, int B, int H,
                  int KvH, int Sq, int Sk, const long long* st, float scale, int causal,
                  int window, int kv_len, cudaStream_t stream) {
   auto kernel = flash_f32<D>;
@@ -268,8 +281,8 @@ int launch_f32_d(const float* q, const float* k, const float* v, float* o, int B
   const Strides qs{st[0], st[1], st[2]}, ks{st[3], st[4], st[5]};
   const Strides vs{st[6], st[7], st[8]}, os{st[9], st[10], st[11]};
   dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  kernel<<<grid, THREADS, smem, stream>>>(q, k, v, o, H / KvH, Sq, Sk, qs, ks, vs, os, scale,
-                                          causal, window, kv_len);
+  kernel<<<grid, THREADS, smem, stream>>>(q, k, v, o, lse, H / KvH, Sq, Sk, qs, ks, vs, os,
+                                          scale, causal, window, kv_len);
   return (int)cudaGetLastError();
 }
 
@@ -323,8 +336,8 @@ template <int DQK, int DV>
 __global__ void __launch_bounds__(WgTile<DQK, DV>::THREADS, 1)
 flash_bf16_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                  const __grid_constant__ CUtensorMap tv, MapDims mq, MapDims mk, MapDims mv,
-                 __nv_bfloat16* __restrict__ o, Strides os, int group, int Sq, int Sk,
-                 float scale_log2, int causal, int window, int kv_len) {
+                 __nv_bfloat16* __restrict__ o, float* __restrict__ lse, Strides os, int group,
+                 int Sq, int Sk, float scale_log2, int causal, int window, int kv_len) {
   using T = WgTile<DQK, DV>;
   constexpr int TK = T::BK, SWZ = T::SWZ, COLS = T::COLS, BQ = T::BQ, STAGES = T::STAGES;
   extern __shared__ __align__(1024) uint8_t fsm[];
@@ -476,6 +489,9 @@ flash_bf16_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__
       lsum[r] += __shfl_xor_sync(0xffffffffu, lsum[r], 2);
       const float den = fmaxf(lsum[r], 1e-30f);
       const int row = row0 + 8 * r;
+      // the backward's row statistics, in natural units: m is in log2 units
+      if (lse != nullptr && (l & 3) == 0 && row < Sq)
+        lse[((long long)b * gridDim.y + h) * Sq + row] = m[r] * LN2 + logf(lsum[r]);
       if (row < Sq) {
         __nv_bfloat16* orow = ob + (long long)row * os.s + 2 * (l % 4);
 #pragma unroll
@@ -514,7 +530,8 @@ bool map_bhsd(CUtensorMap* map, MapDims* md, const void* ptr, int B, int heads, 
 }
 
 template <int DQK, int DV>
-int launch_bf16_d(const void* q, const void* k, const void* v, void* o, int B, int H, int KvH,
+int launch_bf16_d(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
+                  int KvH,
                   int Sq, int Sk, const long long* st, float scale, int causal, int window,
                   int kv_len, cudaStream_t stream) {
   using T = WgTile<DQK, DV>;
@@ -534,9 +551,9 @@ int launch_bf16_d(const void* q, const void* k, const void* v, void* o, int B, i
   }
   const Strides os{st[9], st[10], st[11]};
   dim3 grid((Sq + T::BQ - 1) / T::BQ, H, B);
-  kernel<<<grid, T::THREADS, T::SMEM, stream>>>(tq, tk, tv, mq, mk, mv, (__nv_bfloat16*)o, os,
-                                                H / KvH, Sq, Sk, scale * LOG2E, causal, window,
-                                                kv_len);
+  kernel<<<grid, T::THREADS, T::SMEM, stream>>>(tq, tk, tv, mq, mk, mv, (__nv_bfloat16*)o, lse,
+                                                os, H / KvH, Sq, Sk, scale * LOG2E, causal,
+                                                window, kv_len);
   return (int)cudaGetLastError();
 }
 
@@ -553,11 +570,14 @@ bool bad_shape(int B, int H, int KvH, int Sq, int Sk, int kv_len) {
 // values in `strides`, in the order q, k, v, o — with the head dim contiguous.
 // float32: rows 16-byte aligned; bfloat16: q, k, v 16-byte aligned with
 // strides of whole 16 bytes (TMA's rule), o's rows 4-byte aligned.  `window`
-// <= 0 means none; keys at positions >= `kv_len` are masked.  D is 16, 32, 64,
-// 128 or 256 (or 192 with Dv 128).  They launch on `stream` and return cudaGetLastError()
+// <= 0 means none; keys at positions >= `kv_len` are masked.  `lse`, where not
+// null, takes each query row's log-sum-exp of its scaled scores, m + log l in
+// natural units, (B,H,Sq) float32 contiguous: the statistics the backward
+// (flash_attention_bwd.cu) needs.  D is 16, 32, 64, 128 or 256 (or 192 with Dv
+// 128).  They launch on `stream` and return cudaGetLastError()
 // (cudaErrorInvalidValue for a shape they do not take).
 extern "C" int launch_flash_attention_f32(const void* q, const void* k, const void* v, void* o,
-                                          int B, int H, int KvH, int Sq, int Sk, int D,
+                                          float* lse, int B, int H, int KvH, int Sq, int Sk, int D,
                                           int Dv, const long long* strides, float scale,
                                           int causal, int window, int kv_len, void* stream) {
   // built for D == Dv only: the caller pads a pair with D != Dv to one head dim
@@ -566,17 +586,17 @@ extern "C" int launch_flash_attention_f32(const void* q, const void* k, const vo
   float* fo = (float*)o;
   cudaStream_t s = (cudaStream_t)stream;
   switch (D) {
-    case 16: return launch_f32_d<16>(fq, fk, fv, fo, B, H, KvH, Sq, Sk, strides, scale, causal, window, kv_len, s);
-    case 32: return launch_f32_d<32>(fq, fk, fv, fo, B, H, KvH, Sq, Sk, strides, scale, causal, window, kv_len, s);
-    case 64: return launch_f32_d<64>(fq, fk, fv, fo, B, H, KvH, Sq, Sk, strides, scale, causal, window, kv_len, s);
-    case 128: return launch_f32_d<128>(fq, fk, fv, fo, B, H, KvH, Sq, Sk, strides, scale, causal, window, kv_len, s);
-    case 256: return launch_f32_d<256>(fq, fk, fv, fo, B, H, KvH, Sq, Sk, strides, scale, causal, window, kv_len, s);
+    case 16: return launch_f32_d<16>(fq, fk, fv, fo, lse, B, H, KvH, Sq, Sk, strides, scale, causal, window, kv_len, s);
+    case 32: return launch_f32_d<32>(fq, fk, fv, fo, lse, B, H, KvH, Sq, Sk, strides, scale, causal, window, kv_len, s);
+    case 64: return launch_f32_d<64>(fq, fk, fv, fo, lse, B, H, KvH, Sq, Sk, strides, scale, causal, window, kv_len, s);
+    case 128: return launch_f32_d<128>(fq, fk, fv, fo, lse, B, H, KvH, Sq, Sk, strides, scale, causal, window, kv_len, s);
+    case 256: return launch_f32_d<256>(fq, fk, fv, fo, lse, B, H, KvH, Sq, Sk, strides, scale, causal, window, kv_len, s);
   }
   return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int launch_flash_attention_bf16_wgmma(const void* q, const void* k, const void* v,
-                                                 void* o, int B, int H, int KvH, int Sq, int Sk,
+                                                 void* o, float* lse, int B, int H, int KvH, int Sq, int Sk,
                                                  int D, int Dv, const long long* strides,
                                                  float scale, int causal, int window,
                                                  int kv_len, void* stream) {
@@ -588,14 +608,14 @@ extern "C" int launch_flash_attention_bf16_wgmma(const void* q, const void* k, c
   // the pairs with D != Dv are BF16_PAIRS of kernels/flash_attention.py (a
   // test holds the two lists equal)
   if (D == 192 && Dv == 128)
-    return launch_bf16_d<192, 128>(q, k, v, o, B, H, KvH, Sq, Sk, strides, scale, causal, window, kv_len, s);
+    return launch_bf16_d<192, 128>(q, k, v, o, lse, B, H, KvH, Sq, Sk, strides, scale, causal, window, kv_len, s);
   if (Dv != D) return (int)cudaErrorInvalidValue;
   switch (D) {
-    case 16: return launch_bf16_d<16, 16>(q, k, v, o, B, H, KvH, Sq, Sk, strides, scale, causal, window, kv_len, s);
-    case 32: return launch_bf16_d<32, 32>(q, k, v, o, B, H, KvH, Sq, Sk, strides, scale, causal, window, kv_len, s);
-    case 64: return launch_bf16_d<64, 64>(q, k, v, o, B, H, KvH, Sq, Sk, strides, scale, causal, window, kv_len, s);
-    case 128: return launch_bf16_d<128, 128>(q, k, v, o, B, H, KvH, Sq, Sk, strides, scale, causal, window, kv_len, s);
-    case 256: return launch_bf16_d<256, 256>(q, k, v, o, B, H, KvH, Sq, Sk, strides, scale, causal, window, kv_len, s);
+    case 16: return launch_bf16_d<16, 16>(q, k, v, o, lse, B, H, KvH, Sq, Sk, strides, scale, causal, window, kv_len, s);
+    case 32: return launch_bf16_d<32, 32>(q, k, v, o, lse, B, H, KvH, Sq, Sk, strides, scale, causal, window, kv_len, s);
+    case 64: return launch_bf16_d<64, 64>(q, k, v, o, lse, B, H, KvH, Sq, Sk, strides, scale, causal, window, kv_len, s);
+    case 128: return launch_bf16_d<128, 128>(q, k, v, o, lse, B, H, KvH, Sq, Sk, strides, scale, causal, window, kv_len, s);
+    case 256: return launch_bf16_d<256, 256>(q, k, v, o, lse, B, H, KvH, Sq, Sk, strides, scale, causal, window, kv_len, s);
   }
   return (int)cudaErrorInvalidValue;
 }

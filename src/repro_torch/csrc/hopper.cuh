@@ -1,8 +1,8 @@
 // Hopper building blocks shared by the hand-written kernels: shared-memory
 // addresses, cp.async, mbarriers, TMA loads and tensor maps, wgmma's
 // shared-memory descriptors and its m64nNk16 bf16 products (both operands from
-// shared memory, or A from registers).  Included by matmul.cu and
-// flash_attention.cu; `_build.csrc_source` splices it into their text, so its
+// shared memory, or A from registers).  Included by the hand-written sources
+// of csrc/; `_build.csrc_source` splices it into their text, so its
 // edits enter their hashes and rebuild them.
 #pragma once
 #include <cstdint>

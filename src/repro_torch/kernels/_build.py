@@ -170,6 +170,19 @@ def on_device(device, launcher, *args) -> int:
         return launcher(*args, torch.cuda.current_stream(device).cuda_stream)
 
 
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise before any launch where autograd would need the kernel's
+    gradient (grad enabled, an input that requires it) and the kernel has no
+    backward: on the card its result would carry no ``grad_fn``, and the
+    gradient would be lost without a word."""
+    import torch
+
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{what}: no backward kernel on the card yet, so its inputs' gradients would be "
+            "dropped (ROADMAP.md queue A, item 8b)")
+
+
 def check_launch(rc: int, what: str) -> None:
     """Raise on a launch that the runtime refused (too many threads, too
     much shared memory, ...): such a kernel never runs, and a later

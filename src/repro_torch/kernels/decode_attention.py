@@ -37,7 +37,10 @@ workspace does not grow: a call that needs more raises ``RuntimeError``
 naming the size — run that call once eagerly before capturing.
 
 CUDA tensors launch the kernel or raise; CPU tensors take the plain version
-(``ref.decode_attention_ref``).
+(``ref.decode_attention_ref``).  There is no backward kernel yet: on
+the card, under grad with an input that requires it, the call raises
+``NotImplementedError`` before any launch (ROADMAP queue A, item 8b); the
+CPU's plain version is differentiable.
 """
 
 from __future__ import annotations
@@ -164,6 +167,7 @@ def _call(q, k, v, length, scale, normalize):
     sc = scale if scale is not None else D ** -0.5
     if q.device.type != "cuda":
         return decode_attention_ref(q, k, v, length, scale=sc, normalize=normalize)
+    _build.refuse_grad("decode_attention", q, k, v)
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _SYMBOL:
         raise TypeError(f"decode_attention takes float32 or bfloat16, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")

@@ -37,6 +37,15 @@ of the true D, with the output cut back to Dv.
 
 CUDA tensors launch the kernel or raise; CPU tensors take the plain version
 (``ref.flash_attention_ref``).
+
+Gradients.  Where autograd needs them (grad enabled, an input that requires
+grad), the call goes through ``FlashAttention``, a ``torch.autograd.Function``:
+its forward is the same launch with each row's log-sum-exp written beside the
+output (``lse``), and its backward is the backward kernel S2
+(``flash_attention_bwd``) on the card, the plain backward
+(``ref.flash_attention_bwd_ref``) on the CPU.  S2 takes D == Dv only: on the
+card a pair with D != Dv raises ``NotImplementedError`` under grad, before any
+launch, and never returns a result that drops the gradient.
 """
 
 from __future__ import annotations
@@ -49,6 +58,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from . import flash_attention_bwd as _bwd
 from .ref import flash_attention_ref
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
@@ -74,7 +84,7 @@ def _launcher(dtype: torch.dtype):
         lib = _build.load_library(*_build.csrc_source("flash_attention.cu"))
         _launchers[dtype] = _build.bind(
             lib, _SYMBOL[dtype],
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p, ctypes.c_float]
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p, ctypes.c_float]
             + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     return _launchers[dtype]
 
@@ -136,7 +146,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     defaults to D ** -0.5.
     Returns (B, H, Sq, Dv) in q's dtype — on the card a (B,H,Sq,Dv) view of
     a contiguous (B,Sq,H,Dv) tensor, the model's layout (of a (B,Sq,H,Dk)
-    one where the head dims are padded to the kernel's Dk)."""
+    one where the head dims are padded to the kernel's Dk) — differentiable
+    where autograd needs it (``FlashAttention``)."""
     B, H, Sq, D = q.shape
     _, KvH, Sk, _ = k.shape
     Dv = v.shape[-1]
@@ -155,25 +166,62 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: with window={window} and kv_len={n_keys}, query "
                          f"rows {n_keys + window - 1}..{Sq - 1} see no key")
     sc = scale if scale is not None else D ** -0.5
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        if q.device.type == "cuda" and D != Dv:
+            _build.refuse_grad(f"flash_attention with head dims (D {D}, Dv {Dv})", q, k, v)
+        return FlashAttention.apply(q, k, v, causal, window, sc, kv_len)
+    return _forward(q, k, v, causal, window, sc, kv_len, with_lse=False)[0]
+
+
+def _forward(q, k, v, causal, window, sc, kv_len, *, with_lse: bool):
+    """(out, lse or None): the plain version on the CPU, else one launch."""
     if q.device.type != "cuda":
+        if with_lse:
+            return flash_attention_ref(q, k, v, causal=causal, window=window, scale=sc,
+                                       kv_len=kv_len, return_lse=True)
         return flash_attention_ref(q, k, v, causal=causal, window=window, scale=sc,
-                                   kv_len=kv_len)
+                                   kv_len=kv_len), None
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _SYMBOL:
         raise TypeError(f"flash_attention takes float32 or bfloat16, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     if not (q.device == k.device == v.device):
         raise ValueError(f"operands on different devices: {q.device}, {k.device}, {v.device}")
+    B, H, Sq, D = q.shape
+    _, KvH, Sk, _ = k.shape
+    Dv = v.shape[-1]
     Dk, Dvk = kernel_dims(D, Dv, q.dtype)
     q, k = kernel_operands(Dk, q, k)
     v, = kernel_operands(Dvk, v)
     out = torch.empty((B, Sq, H, Dvk), dtype=q.dtype, device=q.device).transpose(1, 2)
+    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) if with_lse
+           else None)
     strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                                        *out.stride()[:3])
     global launches
     rc = _build.on_device(q.device, _launcher(q.dtype), q.data_ptr(), k.data_ptr(),
-                          v.data_ptr(), out.data_ptr(), B, H, KvH, Sq, Sk, Dk, Dvk, strides, sc,
-                          int(causal), window or 0, kv_len or Sk)
+                          v.data_ptr(), out.data_ptr(), lse.data_ptr() if with_lse else None,
+                          B, H, KvH, Sq, Sk, Dk, Dvk, strides, sc, int(causal), window or 0,
+                          kv_len or Sk)
     _build.check_launch(rc, KERNEL[q.dtype])
     launches += 1
     by_shape[(B, H, KvH, Sq, Sk, D, Dv, bool(causal))] += 1
-    return out[..., :Dv]
+    return out[..., :Dv], lse
+
+
+class FlashAttention(torch.autograd.Function):
+    """K3 with its gradient: the forward keeps q, k, v, the output and each
+    row's log-sum-exp; the backward is ``flash_attention_bwd`` (S2 on the
+    card, the plain backward on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale, kv_len):
+        out, lse = _forward(q, k, v, causal, window, scale, kv_len, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.masks = dict(causal=causal, window=window, scale=scale, kv_len=kv_len)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _bwd.flash_attention_bwd(q, k, v, out, lse, dout, **ctx.masks)
+        return dq, dk, dv, None, None, None, None

@@ -18,6 +18,9 @@ dtype (``check_schedule``): tiles divide the (padded) dims and rows are
 multiples of 16 up to 256) and a ring of at least 3 stages within shared
 memory; float32 adds the block's thread and register limits, 16-byte copies
 (bn and bk multiples of 4) and its ring of 3 slabs within shared memory.
+There is no backward kernel: on the card, under grad with an input that
+requires it, the call raises ``NotImplementedError`` before any launch
+(ROADMAP queue A, item 8b).
 """
 
 from __future__ import annotations
@@ -162,6 +165,7 @@ def matmul(x: torch.Tensor, y: torch.Tensor, *, bm: int = 128, bn: int = 128,
         raise ValueError(f"operands on different devices: {x.device}, {y.device}")
     if x.device.type != "cuda":
         return matmul_ref(x, y)         # the plain version has no tiles
+    _build.refuse_grad("matmul", x, y)
     bm, bn, bk = min(bm, M), min(bn, N), min(bk, K)
     errs = check_schedule(M, N, K, bm, bn, bk, x.element_size())
     if errs:

@@ -29,35 +29,81 @@ def _groups(H: int, KvH: int, who: str) -> int:
     return H // KvH
 
 
-def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                        causal: bool = True, window: Optional[int] = None,
-                        scale: Optional[float] = None,
-                        kv_len: Optional[int] = None) -> torch.Tensor:
-    """q (B,H,Sq,D); k (B,KvH,Sk,D); v (B,KvH,Sk,Dv) (kernel layout).  Keys
-    at positions ``>= kv_len`` are masked, as are keys after the query
-    (``causal``) and ``window`` or more positions before it.  ``scale``
-    defaults to D ** -0.5.  Returns (B,H,Sq,Dv) in q's dtype."""
-    B, H, Sq, D = q.shape
-    KvH, Sk = k.shape[1], k.shape[2]
-    G = _groups(H, KvH, "flash_attention")
-    sc = scale if scale is not None else D ** -0.5
-    qf = (q.float() * sc).reshape(B, KvH, G, Sq, D)
-    s = torch.einsum("bhgqd,bhkd->bhgqk", qf, k.float())
-    q_pos = torch.arange(Sq, device=q.device)[:, None]
-    k_pos = torch.arange(Sk, device=q.device)[None, :]
-    valid = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+def _visible(Sq: int, Sk: int, causal: bool, window: Optional[int], kv_len: Optional[int],
+             device) -> torch.Tensor:
+    """(Sq, Sk) bool: the (query, key) pairs the masks of K3 leave."""
+    q_pos = torch.arange(Sq, device=device)[:, None]
+    k_pos = torch.arange(Sk, device=device)[None, :]
+    valid = torch.ones((Sq, Sk), dtype=torch.bool, device=device)
     if causal:
         valid &= k_pos <= q_pos
     if window is not None:
         valid &= k_pos > q_pos - window
     if kv_len is not None:
         valid &= k_pos < kv_len
-    s = torch.where(valid, s, NEG_INF)
+    return valid
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: Optional[int] = None,
+                        scale: Optional[float] = None,
+                        kv_len: Optional[int] = None, return_lse: bool = False):
+    """q (B,H,Sq,D); k (B,KvH,Sk,D); v (B,KvH,Sk,Dv) (kernel layout).  Keys
+    at positions ``>= kv_len`` are masked, as are keys after the query
+    (``causal``) and ``window`` or more positions before it.  ``scale``
+    defaults to D ** -0.5.  Returns (B,H,Sq,Dv) in q's dtype and, with
+    ``return_lse``, each row's log-sum-exp of its scaled scores, m + log l
+    (B,H,Sq) float32, which the backward takes.  The arithmetic is float32
+    (float64 for float64 inputs)."""
+    B, H, Sq, D = q.shape
+    KvH, Sk = k.shape[1], k.shape[2]
+    G = _groups(H, KvH, "flash_attention")
+    sc = scale if scale is not None else D ** -0.5
+    acc = torch.promote_types(q.dtype, torch.float32)
+    qf = (q.to(acc) * sc).reshape(B, KvH, G, Sq, D)
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qf, k.to(acc))
+    s = torch.where(_visible(Sq, Sk, causal, window, kv_len, q.device), s, NEG_INF)
     m = s.amax(-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(-1, keepdim=True)
-    o = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float()) / torch.clamp(l, min=1e-30)
-    return o.reshape(B, H, Sq, v.shape[-1]).to(q.dtype)
+    o = torch.einsum("bhgqk,bhkd->bhgqd", p, v.to(acc)) / torch.clamp(l, min=1e-30)
+    o = o.reshape(B, H, Sq, v.shape[-1]).to(q.dtype)
+    if return_lse:
+        return o, (m + torch.log(l)).reshape(B, H, Sq)
+    return o
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
+                            causal: bool = True, window: Optional[int] = None,
+                            scale: Optional[float] = None, kv_len: Optional[int] = None):
+    """The gradient of ``flash_attention_ref`` written out, in float32: the
+    ground truth of the backward kernel (S2) and the backward the CPU takes.
+    q, o, do (B,H,Sq,·); k, v (B,KvH,Sk,·); lse (B,H,Sq) from the forward.
+    With s = scale q.k and P = exp(s - lse), 0 where the forward's masks
+    (``causal``, ``window``, ``kv_len``) cut the pair:
+    dV = P^T dO, dP = dO V^T, Delta = rowsum(dO o O), dS = P o (dP - Delta),
+    dQ = scale dS K, dK = scale dS^T Q; a KV head's dK and dV sum over its
+    group's G query heads.  Returns (dq, dk, dv) in the dtypes of q, k, v
+    (float64 arithmetic for float64 inputs)."""
+    B, H, Sq, D = q.shape
+    KvH, Sk, Dv = k.shape[1], k.shape[2], v.shape[-1]
+    G = _groups(H, KvH, "flash_attention_bwd")
+    sc = scale if scale is not None else D ** -0.5
+    acc = torch.promote_types(q.dtype, torch.float32)
+    qf = q.to(acc).reshape(B, KvH, G, Sq, D)
+    dof = do.to(acc).reshape(B, KvH, G, Sq, Dv)
+    kf, vf = k.to(acc), v.to(acc)
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qf * sc, kf)
+    p = torch.where(_visible(Sq, Sk, causal, window, kv_len, q.device),
+                    torch.exp(s - lse.to(acc).reshape(B, KvH, G, Sq, 1)), 0.0)
+    dv = torch.einsum("bhgqk,bhgqd->bhkd", p, dof)
+    dp = torch.einsum("bhgqd,bhkd->bhgqk", dof, vf)
+    delta = (dof * o.to(acc).reshape(B, KvH, G, Sq, Dv)).sum(-1, keepdim=True)
+    ds = p * (dp - delta)
+    dq = torch.einsum("bhgqk,bhkd->bhgqd", ds, kf) * sc
+    dk = torch.einsum("bhgqk,bhgqd->bhkd", ds, qf) * sc
+    return dq.reshape(B, H, Sq, D).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -9,7 +9,10 @@ in shared memory, and each warp replays its steps from its incoming carry.
 Ragged S and D are masked inside the kernel; nothing is padded.
 
 CUDA tensors launch the kernel or raise; CPU tensors take the plain version
-(``ref.rglru_scan_ref``, one step at a time).
+(``ref.rglru_scan_ref``, one step at a time).  There is no backward kernel yet: on
+the card, under grad with an input that requires it, the call raises
+``NotImplementedError`` before any launch (ROADMAP queue A, item 8b); the
+CPU's plain version is differentiable.
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                          "must be one (B,S,D) shape")
     if a.device.type != "cuda":
         return rglru_scan_ref(a, b)[0]
+    _build.refuse_grad("rglru_scan", a, b)
     if a.dtype != torch.float32 or b.dtype != torch.float32:
         raise TypeError(f"rglru_scan takes float32, got {a.dtype}, {b.dtype}")
     if b.device != a.device:

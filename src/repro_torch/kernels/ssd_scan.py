@@ -24,7 +24,10 @@ given each scratch tensor's element count and refuses (cudaErrorInvalidValue)
 a call whose scratch is smaller than its own layout needs.
 
 CUDA tensors launch the kernels or raise; CPU tensors take the plain version
-(``ref.ssd_scan_ref``, the recurrence one position at a time).
+(``ref.ssd_scan_ref``, the recurrence one position at a time).  There is no backward kernel yet: on
+the card, under grad with an input that requires it, the call raises
+``NotImplementedError`` before any launch (ROADMAP queue A, item 8b); the
+CPU's plain version is differentiable.
 """
 
 from __future__ import annotations
@@ -87,6 +90,7 @@ def ssd_scan(x: torch.Tensor, dA: torch.Tensor, Bc: torch.Tensor, Cc: torch.Tens
     if x.device.type != "cuda":
         y, _ = ssd_scan_ref(x.transpose(1, 2), dA.transpose(1, 2), Bc, Cc)
         return y.transpose(1, 2)
+    _build.refuse_grad("ssd_scan", x, dA, Bc, Cc)
     if not all(t.dtype == torch.float32 for t in (x, dA, Bc, Cc)):
         raise TypeError(f"ssd_scan takes float32, got {x.dtype}, {dA.dtype}, "
                         f"{Bc.dtype}, {Cc.dtype}")

@@ -1,1 +1,2 @@
-"""Entry points: ``serve`` (continuous-batching ``Engine``)."""
+"""Entry points: ``serve`` (continuous-batching ``Engine``) and ``train``
+(the training driver with checkpoints and restarts)."""

@@ -31,6 +31,7 @@ import math
 from typing import Any
 
 import torch
+import torch.utils.checkpoint
 
 from .._device import resolve_device
 from ..configs.base import ModelCfg, Segment
@@ -208,13 +209,29 @@ def init_segment(gen: torch.Generator, seg: Segment, cfg: ModelCfg):
 
 def segment_forward(params, x, seg: Segment, cfg: ModelCfg, *, positions=None, memory=None,
                     causal=True):
-    """Loop over the segment's repeats.  Returns (x, aux_sum)."""
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for r in range(seg.repeats):
+    """Loop over the segment's repeats.  Returns (x, aux_sum).
+
+    Under ``cfg.remat == "block"``, where autograd records the forward, each
+    repeat of the pattern (the reference's scanned body) runs under
+    ``torch.utils.checkpoint``: only its input is kept, and its forward runs
+    again in the backward.  The result is the same either way."""
+
+    def body(x, aux, layer_params):
         for pos, kind in enumerate(seg.pattern):
-            x, a = block_forward(_take(params[pos], r), x, kind, seg.ffn_at(pos), cfg,
+            x, a = block_forward(layer_params[pos], x, kind, seg.ffn_at(pos), cfg,
                                  positions=positions, memory=memory, causal=causal)
             aux = aux + a
+        return x, aux
+
+    remat = cfg.remat == "block" and torch.is_grad_enabled()
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for r in range(seg.repeats):
+        layer_params = [_take(p, r) for p in params]
+        if remat:
+            x, aux = torch.utils.checkpoint.checkpoint(body, x, aux, layer_params,
+                                                       use_reentrant=False)
+        else:
+            x, aux = body(x, aux, layer_params)
     return x, aux
 
 

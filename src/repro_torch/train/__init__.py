@@ -1,1 +1,1 @@
-"""Step factories: ``make_prefill_step`` and ``make_serve_step``."""
+"""Step factories: ``make_train_step``, ``make_prefill_step`` and ``make_serve_step``."""

@@ -1,11 +1,16 @@
-"""Prefill and decode step functions.
+"""Train, prefill and decode step functions.
 
+  * ``make_train_step``  — fwd+bwd, microbatch gradient accumulation,
+    global-norm clip, AdamW.
   * ``make_prefill_step`` — forward logits at full sequence length.
   * ``make_serve_step``  — one decode step (new token) against the KV cache.
 
-The training step belongs to a later slice (ROADMAP.md queue A, item 8).
-Both factories take ``device=`` (``None``: the CUDA device; raises where
-there is none) and return a function that moves its token inputs there.
+The factories take ``device=`` (``None``: the CUDA device; raises where
+there is none) and return a function that moves its batch there.  Gradients
+come from ``torch.autograd.grad``; on the card the attention's go through the
+flash-attention kernel's backward (S2).  The int8-compressed cross-pod
+all-reduce and the pinning of gradients to the parameters' sharding go with
+the mesh (ROADMAP.md queue A, item 9).
 """
 
 from __future__ import annotations
@@ -14,9 +19,127 @@ from typing import Optional
 
 import torch
 
+from .. import _tree
 from .._device import resolve_device
 from ..configs.base import ModelCfg
 from ..models import transformer
+from ..optim.adamw import OptCfg, adamw_update, init_opt_state
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+
+
+def make_loss_fn(cfg: ModelCfg):
+    """``loss_fn(params, batch) -> (loss, metrics)``: the mean cross-entropy
+    over the unmasked positions plus the forward's aux loss.  The target
+    logit is a ``gather`` where the reference multiplies by a one-hot and
+    sums; that sum adds one value to zeros, so the two are equal exactly.
+    The row maximum is detached, as the reference stops its gradient."""
+
+    def loss_fn(params, batch):
+        logits, aux = transformer.lm_forward(params, batch, cfg)
+        labels = batch["labels"].long()
+        mask = batch.get("loss_mask")
+        if mask is None:
+            mask = torch.ones(labels.shape, dtype=torch.float32, device=labels.device)
+        lf = logits.float()
+        m = lf.amax(-1).detach()
+        lse = m + torch.log(torch.exp(lf - m[..., None]).sum(-1))
+        tgt = lf.gather(-1, labels[..., None])[..., 0]
+        denom = torch.clamp(mask.sum(), min=1.0)
+        xent = ((lse - tgt) * mask).sum() / denom
+        return xent + aux, {"xent": xent, "aux": aux,
+                            "accuracy": ((logits.argmax(-1) == labels) * mask).sum() / denom}
+
+    return loss_fn
+
+
+# ---------------------------------------------------------------------------
+# train step
+# ---------------------------------------------------------------------------
+
+
+def init_train_state(seed: int, cfg: ModelCfg, *, device=None):
+    """Parameters from ``transformer.init_lm(seed, cfg)`` on ``device``
+    (``None``: the CUDA device) and a fresh AdamW state."""
+    params = transformer.init_lm(seed, cfg, device=device)
+    return {"params": params, "opt": init_opt_state(params)}
+
+
+def make_grad_fn(cfg: ModelCfg, num_microbatches: int = 1):
+    """``grad_fn(params, batch) -> (loss, metrics, grads)``, the gradient
+    half of the train step: one pass, or ``num_microbatches`` passes over
+    equal slices of the batch whose gradients are summed into float32 zeros
+    (the reference's ``lax.scan``) and averaged, as are the loss and the
+    metrics.  ``batch`` holds tensors already on the parameters' device."""
+    loss_fn = make_loss_fn(cfg)
+
+    def value_and_grad(params, batch):
+        leaves = [p.detach().requires_grad_() for p in _tree.leaves(params)]
+        with torch.enable_grad():
+            loss, metrics = loss_fn(_tree.unflatten(params, leaves), batch)
+            grads = torch.autograd.grad(loss, leaves)
+        return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+                _tree.unflatten(params, list(grads)))
+
+    def grad_fn(params, batch):
+        if num_microbatches <= 1:
+            return value_and_grad(params, batch)
+        mbs = [{k: v.chunk(num_microbatches)[i] for k, v in batch.items()}
+               for i in range(num_microbatches)]
+        loss_sum = torch.zeros((), dtype=torch.float32, device=batch["tokens"].device)
+        grad_acc = _tree.map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                                   device=p.device), params)
+        per_mb = []
+        for mb in mbs:
+            loss, metrics, grads = value_and_grad(params, mb)
+            grad_acc = _tree.map(lambda a, g: a + g.to(a.dtype), grad_acc, grads)
+            loss_sum = loss_sum + loss
+            per_mb.append(metrics)
+        inv = 1.0 / num_microbatches
+        metrics = {k: torch.stack([m[k] for m in per_mb]).mean() for k in per_mb[0]}
+        return loss_sum * inv, metrics, _tree.map(lambda g: g * inv, grad_acc)
+
+    return grad_fn
+
+
+def make_train_step(
+    cfg: ModelCfg,
+    opt_cfg: OptCfg = OptCfg(),
+    num_microbatches: int = 1,
+    grad_compression: Optional[str] = None,   # None | "int8" (cross-pod)
+    mesh=None,
+    constrain_grads: bool = False,            # pin grads to param sharding
+    *,
+    device=None,
+):
+    """``train_step(state, batch) -> (new_state, metrics)``; the state is
+    ``{"params", "opt"}`` and is not updated in place.  ``batch`` holds
+    numpy arrays or tensors; they are moved to ``device``."""
+    if grad_compression == "int8":
+        raise NotImplementedError("int8 gradient compression is not ported yet "
+                                  "(ROADMAP.md queue A, item 9)")
+    dev = resolve_device(device)
+    grad_fn = make_grad_fn(cfg, num_microbatches)
+
+    def train_step(state, batch):
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        params = state["params"]
+        loss, metrics, grads = grad_fn(params, batch)
+        # constrain_grads pins the gradients to the parameters' sharding under
+        # a mesh (item 9); on one device it is the identity
+        new_params, new_opt, opt_metrics = adamw_update(grads, state["opt"], params, opt_cfg)
+        metrics = dict(metrics, loss=loss, **opt_metrics)
+        return {"params": new_params, "opt": new_opt}, metrics
+
+    return train_step
+
+
+# ---------------------------------------------------------------------------
+# inference steps
+# ---------------------------------------------------------------------------
 
 
 def make_prefill_step(cfg: ModelCfg, *, device=None):

@@ -1464,3 +1464,159 @@ def test_slice9_model_on_card_equals_the_cpu(arch):
                           for k in s.pattern * s.repeats)
             assert dec.launches - before_dec == attends * eng.decode_calls
     assert done["card"] == done["cpu"]
+
+
+# -- training: the flash kernel's backward (S2), the refusals under grad ------------------
+
+# the shapes of chip_smoke.py's S2 rows: B, Sq, Sk, H, KvH, D, dtype, causal, window
+BWD_CASES_CARD = [
+    (4, 2048, 2048, 32, 4, 64, "bfloat16", True, None),     # tinyllama-1.1b's training step
+    (4, 128, 128, 10, 5, 64, "float32", True, None),        # TINYLM's (the example)
+    (2, 512, 512, 16, 2, 128, "bfloat16", True, None),      # D 128
+    (2, 512, 512, 16, 1, 256, "bfloat16", True, None),      # D 256, group 16
+    (2, 512, 512, 16, 16, 64, "bfloat16", True, None),      # group 1
+    (2, 1024, 1024, 16, 2, 64, "bfloat16", True, 256),      # a window
+    (2, 384, 640, 8, 2, 64, "float32", False, None),        # non-causal, Sq != Sk
+    (2, 2, 130, 4, 2, 80, "bfloat16", False, None),          # D 80 padded to 128, tiny Sq
+]
+BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}             # of each tensor's largest |plain|
+
+
+def bwd_operands(dev, B, Sq, Sk, H, KvH, D, dtype, seed=0):
+    """(q, k, v, dO) in the kernels' (B,H,S,D) layout as views of model-layout
+    tensors; the queries 4x normal, so that |o| is of order 1."""
+    g = torch.Generator().manual_seed(seed)
+    mk = lambda shape, s=1.0: (torch.randn(shape, generator=g) * s).to(dev, DTYPES[dtype])
+    q = mk((B, Sq, H, D), 4.0).transpose(1, 2)
+    k, v = (mk((B, Sk, KvH, D)).transpose(1, 2) for _ in range(2))
+    return q, k, v, mk((B, Sq, H, D)).transpose(1, 2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,Sq,Sk,H,KvH,D,dtype,causal,window", BWD_CASES_CARD)
+def test_flash_attention_bwd_kernel_matches_plain_on_card(B, Sq, Sk, H, KvH, D, dtype, causal,
+                                                         window):
+    from repro_torch.kernels import flash_attention_bwd as fab
+    dev = _cuda_or_skip()
+    q, k, v, do = bwd_operands(dev, B, Sq, Sk, H, KvH, D, dtype)
+    kw = dict(causal=causal, window=window)
+    o, lse = fa._forward(q, k, v, causal, window, D ** -0.5, None, with_lse=True)
+    before = fab.launches
+    got = fab.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert fab.launches == before + 1
+    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= BWD_TOL[dtype] * float(w.float().abs().max()), (name, err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("Sq,Sk,H,KvH,D,window", FLASH_CASES_CARD)
+def test_flash_attention_lse_equals_plain_on_card(Sq, Sk, H, KvH, D, window, dtype):
+    """K3's row statistics, m + log l, against the plain forward's."""
+    dev = _cuda_or_skip()
+    q, k, v = (t.transpose(1, 2) for t in _on(dev, dtype, *attention_operands(
+        (2, Sq, H, D), (2, Sk, KvH, D), dtype)))
+    out, lse = fa._forward(q, k, v, True, window, D ** -0.5, None, with_lse=True)
+    plain, want = ref.flash_attention_ref(q, k, v, window=window, return_lse=True)
+    assert lse.shape == (2, H, Sq) and lse.dtype == torch.float32
+    np.testing.assert_allclose(lse.cpu().numpy(), want.cpu().numpy(), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(out.float().cpu().numpy(), plain.float().cpu().numpy(),
+                               **tol(dtype))
+
+
+@pytest.mark.gpu
+def test_flash_attention_grads_through_ops_mha_on_card():
+    """Under grad ``ops.mha`` runs K3 with its lse and S2 in the backward;
+    the gradients equal autograd of the plain forward on the card."""
+    from repro_torch.kernels import flash_attention_bwd as fab
+    dev = _cuda_or_skip()
+    q, k, v, do = (t.transpose(1, 2).contiguous().requires_grad_()
+                   for t in bwd_operands(dev, 2, 200, 200, 8, 2, 64, "float32", seed=3))
+    before = (fa.launches, fab.launches)
+    out = ops.mha(q, k, v)
+    assert out.grad_fn is not None
+    got = torch.autograd.grad(out, (q, k, v), do.detach())
+    assert (fa.launches, fab.launches) == (before[0] + 1, before[1] + 1)
+    plain = ref.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                    v.transpose(1, 2)).transpose(1, 2)
+    want = torch.autograd.grad(plain, (q, k, v), do.detach())
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().max())
+
+
+@pytest.mark.gpu
+def test_kernels_without_a_backward_refuse_grad_on_card():
+    """K2, K4, K5, K6 and K3's (192, 128) pair raise under grad before any
+    launch; without grad (or with no input that requires it) they run."""
+    dev = _cuda_or_skip()
+    counters = (mm, dec, ssd_k, rg, fa)
+    before = [m.launches for m in counters]
+    x = torch.randn(64, 64, device=dev, requires_grad=True)
+    q1 = torch.randn(2, 8, 64, device=dev, requires_grad=True)
+    cache = torch.randn(2, 32, 2, 64, device=dev)
+    xs = torch.randn(1, 32, 2, 8, device=dev, requires_grad=True)
+    dA = -torch.rand(1, 32, 2, device=dev)
+    bc = torch.randn(1, 32, 8, device=dev)
+    a = torch.rand(1, 16, 8, device=dev, requires_grad=True)
+    qm = torch.randn(1, 64, 4, 192, device=dev, dtype=torch.bfloat16, requires_grad=True)
+    km = torch.randn(1, 64, 4, 192, device=dev, dtype=torch.bfloat16)
+    vm = torch.randn(1, 64, 4, 128, device=dev, dtype=torch.bfloat16)
+    calls = {
+        "matmul": lambda: ops.matmul(x, x),
+        "decode_attention": lambda: ops.decode(q1, cache, cache, 16),
+        "ssd_scan": lambda: ops.ssd_scan(xs, dA, bc, bc),
+        "rglru_scan": lambda: ops.rglru_scan(a, a),
+        "flash_attention with head dims (D 192, Dv 128)": lambda: ops.mha(qm, km, vm),
+    }
+    for name, call in calls.items():
+        with pytest.raises(NotImplementedError, match="item 8b"):
+            call()
+    assert [m.launches for m in counters] == before
+    with torch.no_grad():
+        for call in calls.values():
+            assert call().grad_fn is None
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_smoke_train_step_on_card_equals_the_cpu():
+    """tinyllama's smoke config (float32: K3 ``flash_f32`` and S2 in float32,
+    at D 16) on the card against the CPU from one state, every leaf float32
+    (a bfloat16 weight would round apart by one unit where the float32
+    gradients straddle a boundary): the gradients, each leaf within 1e-5 of
+    its largest magnitude, then one train step as ``chip_smoke.py`` takes it
+    (lr 3e-4, warmup 2), each parameter leaf within 1e-4 of its largest
+    magnitude.  AdamW's first step is about lr times the sign of each
+    gradient, so an element whose gradient is float32 noise may step apart
+    on the two sides: the step's tolerance is the gradients' times ten."""
+    from repro_torch import _tree
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.kernels import flash_attention_bwd as fab
+    from repro_torch.optim.adamw import OptCfg
+    from repro_torch.train.steps import init_train_state, make_grad_fn, make_train_step
+    dev = _cuda_or_skip()
+    cfg = get_smoke_config("tinyllama-1.1b")
+    state = _tree.map(lambda t: t.float() if t.dtype == torch.bfloat16 else t,
+                      init_train_state(0, cfg, device="cpu"))
+    batch = make_batch(cfg, ShapeCfg("t", seq_len=64, global_batch=4, kind="train"))
+    tensors = {k: torch.as_tensor(v) for k, v in batch.items()}
+    before = (fa.launches, fab.launches)
+    _, _, g_card = make_grad_fn(cfg)(_to(state["params"], dev), _to(tensors, dev))
+    torch.cuda.synchronize()
+    assert (fa.launches - before[0], fab.launches - before[1]) == (cfg.n_layers, cfg.n_layers)
+    _, _, g_cpu = make_grad_fn(cfg)(state["params"], tensors)
+    for got, want in zip(_tree.leaves(g_card), _tree.leaves(g_cpu)):
+        err = float((got.cpu() - want).abs().max())
+        assert err <= 1e-5 * float(want.abs().max())
+    opt = OptCfg(lr=3e-4, warmup_steps=2, decay_steps=8)
+    card, m_card = make_train_step(cfg, opt, device=dev)(_to(state, dev), batch)
+    cpu, m_cpu = make_train_step(cfg, opt, device="cpu")(state, batch)
+    np.testing.assert_allclose(float(m_card["loss"]), float(m_cpu["loss"]), rtol=1e-5)
+    for got, want in zip(_tree.leaves(card["params"]), _tree.leaves(cpu["params"])):
+        err = float((got.cpu() - want).abs().max())
+        assert err <= 1e-4 * float(want.abs().max())

@@ -81,11 +81,13 @@ stimulus copied to the card and laid out there, the results copied back)
 and the state words a lane their byte bound counts; a loop nest's large
 size is nested under its paper row, held to its plain version on 16 lanes
 spread over the batch, on the CPU (``plain_on``).  The S2 rows
-(``flash_attention_bwd[...]``) carry each output's error and the backward of
-SDPA as ``library_ms``.  Output: one JSON object per line (``env``,
+(``flash_attention_bwd[...]``) name the kernels of the route that ran
+(``flash_attention.bwd_route``: bfloat16 on the tensor cores below head dim
+256), and carry each output's error and the backward of SDPA as
+``library_ms``.  Output: one JSON object per line (``env``,
 ``build``, ``k1_without_staging``, ``main_path``, ``differential``, then
 ``serve``, ``prefill``, ``consistency`` and ``profile`` for each model,
-the four training lines, ``kernels``), the card's
+the training lines, ``kernels``), the card's
 name and power limit as ``nvidia-smi`` gives them, and a last line
 ``{"ok": true, "device": {...}}``.  Any mismatch or failure exits non-zero
 before that line.  A ``phases`` line gives the host seconds of each group of
@@ -102,6 +104,7 @@ import inspect
 import io
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -317,6 +320,9 @@ TRAIN_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_train"
 # full width cut to the first layers, as the consistency checks hold bf16
 # (each leaf's relative L2 error at most 3x the bf16 plain path's)
 GRAD_CUT_LAYERS, GRAD_B, GRAD_S = 2, 2, 1024
+# and deepseek-v2-lite's dense MLA layers alike (K3 and S2 at (192, 128)), at
+# the MLA S2 row's shape: 2 x 2048 tokens
+MLA_GRAD_B, MLA_GRAD_S = 2, 2048
 # the examples/train_tinylm_torch.py run: 40 steps, a failure injected at 12
 EXAMPLE_STEPS, EXAMPLE_FAIL_AT = 40, 12
 
@@ -1498,21 +1504,25 @@ def phase_kernels_k6(device) -> list[dict]:
 
 
 def s2_case(case: str, B, Sq, Sk, H, KvH, D, dtype, device, g, *, causal=True,
-            window=None) -> dict:
+            window=None, Dv=None) -> dict:
     """S2 (``flash_attention_bwd``: three launches a call) against its plain
     version and against the backward of SDPA on the same inputs: q, k, v as
-    (B,H,S,D) views of model-layout tensors, the queries ``PEAKED_Q`` times
-    normal; o and lse from K3's forward; dO normal."""
+    (B,H,S,·) views of model-layout tensors, v of ``Dv`` head dims (D unless
+    given), the queries ``PEAKED_Q`` times normal; o and lse from K3's
+    forward; dO normal."""
+    Dv = D if Dv is None else Dv
     q = (seeded((B, Sq, H, D), dtype, device, g) * PEAKED_Q).transpose(1, 2)
     k = seeded((B, Sk, KvH, D), dtype, device, g).transpose(1, 2)
-    v = seeded((B, Sk, KvH, D), dtype, device, g).transpose(1, 2)
-    do = seeded((B, Sq, H, D), dtype, device, g).transpose(1, 2)
+    v = seeded((B, Sk, KvH, Dv), dtype, device, g).transpose(1, 2)
+    do = seeded((B, Sq, H, Dv), dtype, device, g).transpose(1, 2)
     kw = dict(causal=causal, window=window)
     o, lse = fa._forward(q, k, v, causal, window, D ** -0.5, None, with_lse=True)
+    route = fa.bwd_route(D, Dv, dtype)[0]
     got = fab.flash_attention_bwd(q, k, v, o, lse, do, **kw)
     torch.cuda.synchronize()
     want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
-    name = (f"flash_attention_bwd[{case} {B}x{Sq}x{Sk} H{H}/{KvH} D{D} {dtype_name(dtype)}"
+    name = (f"flash_attention_bwd[{case} {B}x{Sq}x{Sk} H{H}/{KvH} D{D}"
+            f"{f' Dv{Dv}' if Dv != D else ''} {dtype_name(dtype)}"
             f"{'' if causal else ' non-causal'}{f' window {window}' if window else ''}]")
 
     def held(what: str, parts) -> dict:
@@ -1534,11 +1544,13 @@ def s2_case(case: str, B, Sq, Sk, H, KvH, D, dtype, device, g, *, causal=True,
     if window is not None:
         valid &= k_pos > q_pos - window
     pairs = int(valid.sum())
-    # five products over the pairs the masks leave (S, dP, dV, dK, dQ), a
-    # multiply-add each; q, k, v, o, dO and lse read once, dq, dk, dv written
-    flops = 2.0 * 5 * B * H * pairs * D
+    # five products over the pairs the masks leave, a multiply-add each: S, dK
+    # and dQ of depth or width D, dP and dV of Dv; q, k, dq, dk of D and v, o,
+    # dO, dv of Dv, and lse, read or written once
+    flops = 2.0 * B * H * pairs * (3 * D + 2 * Dv)
     es = q.element_size()
-    nbytes = (4 * B * H * Sq * D + 4 * B * KvH * Sk * D) * es + 4 * B * H * Sq
+    nbytes = ((2 * B * H * Sq + 2 * B * KvH * Sk) * D
+              + (2 * B * H * Sq + 2 * B * KvH * Sk) * Dv) * es + 4 * B * H * Sq
     bound_ms, bound_by = bound(flops, nbytes, dtype)
     ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
     out = None
@@ -1559,8 +1571,8 @@ def s2_case(case: str, B, Sq, Sk, H, KvH, D, dtype, device, g, *, causal=True,
         "name": name, "route": "cuda", "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
         "replaces": "src/repro/models/attention.py:63 (no TPU kernel: XLA's autodiff of the "
                     "plain flash_attention)",
-        "kernel": "/".join(fab.KERNELS),
-        "shape": {"B": B, "Sq": Sq, "Sk": Sk, "H": H, "KvH": KvH, "D": D,
+        "kernel": "/".join(fa.BWD_KERNELS[route]), "kernel_route": route,
+        "shape": {"B": B, "Sq": Sq, "Sk": Sk, "H": H, "KvH": KvH, "D": D, "Dv": Dv,
                   "dtype": dtype_name(dtype), "causal": causal, "window": window,
                   "q_scale": PEAKED_Q},
         "launches": None, "max_abs_err": max(errs.values()), "max_abs_err_by_output": errs,
@@ -1585,20 +1597,25 @@ def s2_case(case: str, B, Sq, Sk, H, KvH, D, dtype, device, g, *, causal=True,
 def s2_shape_key(row: dict) -> tuple:
     """The ``by_shape`` key of the calls an S2 row stands for."""
     sh = row["shape"]
-    return (sh["B"], sh["H"], sh["KvH"], sh["Sq"], sh["Sk"], sh["D"], sh["causal"])
+    return (sh["B"], sh["H"], sh["KvH"], sh["Sq"], sh["Sk"], sh["D"], sh["Dv"], sh["causal"])
 
 
 def phase_kernels_s2(device) -> list[dict]:
     """S2 at the shapes the training paths run it at — tinyllama-1.1b's
-    step in bfloat16, the example's TINYLM in float32 — then checks no main
-    path counts: head dims 128 and 256, groups 1 and 16, a window, a
-    non-causal call with Sq != Sk."""
+    step in bfloat16, the example's TINYLM in float32, deepseek-v2-lite's
+    MLA (192, 128) in bfloat16 — then checks no main path counts: head dims
+    128 and 256 (the latter on the CUDA cores), groups 1 and 16, a window, a
+    non-causal call with Sq != Sk, D != Dv in float32 (padded)."""
     g = torch.Generator(device="cpu").manual_seed(SEED + 9)
     a = get_config(ARCH).attn
     t = train_example().TINYLM.attn
+    m = get_config(DEEPSEEK).attn
+    dqk = m.nope_head_dim + m.rope_head_dim
     rows = [s2_case("train", TRAIN_B, TRAIN_S, TRAIN_S, a.n_heads, a.n_kv_heads, a.d_head,
                     BF16, device, g),
-            s2_case("example", 4, 128, 128, t.n_heads, t.n_kv_heads, t.d_head, F32, device, g)]
+            s2_case("example", 4, 128, 128, t.n_heads, t.n_kv_heads, t.d_head, F32, device, g),
+            s2_case("MLA train", MLA_GRAD_B, MLA_GRAD_S, MLA_GRAD_S, m.n_heads, m.n_kv_heads,
+                    dqk, BF16, device, g, Dv=m.v_head_dim)]
     rows[0]["checks"] = [
         s2_case("D 128", 2, 512, 512, 16, 2, 128, BF16, device, g),
         s2_case("D 256, group 16", 2, 512, 512, 16, 1, 256, BF16, device, g),
@@ -1606,6 +1623,8 @@ def phase_kernels_s2(device) -> list[dict]:
         s2_case("window", 2, 1024, 1024, 16, 2, 64, BF16, device, g, window=256),
         s2_case("non-causal", 2, 384, 640, 8, 2, 64, F32, device, g, causal=False),
         s2_case("D 80, padded to 128", 2, 2, 130, 4, 2, 80, BF16, device, g, causal=False),
+        s2_case("D != Dv, padded to 64", 1, 64, 96, 4, 2, 48, F32, device, g, causal=False,
+                Dv=32),
     ]
     return rows
 
@@ -1999,8 +2018,9 @@ def train_example():
 
 def train_launches(cfg) -> dict:
     """K3 and S2 launches of one train step: a forward over every attention
-    layer, again in the backward under remat="block", and S2 once a layer."""
-    n = layers(cfg)["attn"]
+    or MLA layer, again in the backward under remat="block", and S2 once a
+    layer."""
+    n = layers(cfg)["attn"] + layers(cfg)["mla"]
     return {"flash_attention": n * (2 if cfg.remat == "block" else 1),
             "flash_attention_bwd": n}
 
@@ -2071,7 +2091,8 @@ def phase_train(device) -> dict:
            "params": transformer.param_count(params), "param_bytes": param_bytes(params),
            "state_bytes": param_bytes(run.state), "checkpoint_bytes_on_disk": ckpt_bytes,
            "free_disk_bytes_before": free_disk, "restore_seconds": restore_s,
-           "losses": run.losses, "grad_norms": [m["grad_norm"] for m in run.metrics],
+           "losses": run.losses,
+           "grad_norms": [m["grad_norm"] for m in run.metrics],
            "lrs": [m["lr"] for m in run.metrics],
            "step_seconds": times, "step_seconds_median_2_5": step_s,
            "tokens_per_s": TRAIN_B * TRAIN_S / step_s, "seconds": run.seconds,
@@ -2106,9 +2127,14 @@ def train_step_profile(cfg, state, device) -> dict:
                        key=lambda kv: -kv[1])
     busy = sum(t for _, t in by_kernel)
     of = lambda names: sum(t for k, t in by_kernel if any(n in k for n in names))
+    s2_names = {n for ns in fa.BWD_KERNELS.values() for n in ns}
+    s2_ms = of(s2_names)
     return {"wall_ms": wall_ms, "device_ms": busy if busy else "not measured",
             "device_idle_share": 1 - busy / wall_ms if busy else "not measured",
-            "s2_ms": of(fab.KERNELS), "k3_ms": of(["flash_bf16_wgmma", "flash_f32"]),
+            "s2_ms": s2_ms, "s2_share": s2_ms / busy if busy else "not measured",
+            "s2_ms_by_kernel": {n: sum(t for k, t in by_kernel if re.search(rf"\b{n}[<(]", k))
+                                for n in sorted(s2_names)},
+            "k3_ms": of(["flash_bf16_wgmma", "flash_f32"]),
             "top_kernels_ms": [[k[:80], t] for k, t in by_kernel[:10]]}
 
 
@@ -2163,22 +2189,25 @@ def plain_attention():
         ops.mha = real
 
 
-def phase_train_grads(device) -> dict:
-    """tinyllama-1.1b at full width, cut to its first layers: the bfloat16
-    gradients through K3 and S2 against float32 plain ones on the same
-    weights and batch.  Each leaf's relative L2 error may be at most 3x the
-    bfloat16 plain path's (the rule of the consistency checks)."""
-    full = get_config(ARCH)
+def phase_train_grads(device, arch: str = ARCH, B: int = GRAD_B, S: int = GRAD_S) -> dict:
+    """``arch`` at full width, cut to its first segment's first layers
+    (tinyllama-1.1b's attention; deepseek-v2-lite's dense MLA layers, K3 and
+    S2 at (192, 128)): the bfloat16 gradients through K3 and S2 against
+    float32 plain ones on the same weights and batch.  Each leaf's relative
+    L2 error may be at most 3x the bfloat16 plain path's (the rule of the
+    consistency checks)."""
+    full = get_config(arch)
     cfg = full.scaled(segments=(Segment(full.segments[0].pattern, GRAD_CUT_LAYERS,
                                         full.segments[0].ffn),))
     params = init_train_state(SEED + 10, cfg, device=device)["params"]
     batch = {k: torch.as_tensor(v, device=device) for k, v in make_batch(
-        cfg, ShapeCfg("grads", GRAD_S, GRAD_B, "train"), step=1).items()}
+        cfg, ShapeCfg("grads", S, B, "train"), step=1).items()}
     zero_counts()
     _, _, kernel = make_grad_fn(cfg)(params, batch)
     torch.cuda.synchronize()
-    n = counts()
-    expect("train grads, kernel path", n, **train_launches(cfg))
+    n, shapes = counts(), {"flash_attention": dict(fa.by_shape),
+                           "flash_attention_bwd": dict(fab.by_shape)}
+    expect(f"train grads {arch}, kernel path", n, **train_launches(cfg))
     with plain_attention():
         _, _, plain16 = make_grad_fn(cfg)(params, batch)
         _, _, plain32 = make_grad_fn(cfg.scaled(dtype="float32"))(as_float32(params), batch)
@@ -2189,18 +2218,19 @@ def phase_train_grads(device) -> dict:
         p_err = rel(_tree.with_paths(plain16)[key], want)
         leaves[key] = {"kernel_bf16_vs_plain_f32": k_err, "plain_bf16_vs_plain_f32": p_err}
         if not k_err <= CONSIST_NOISE * p_err:
-            fail(f"train grads: {key}: the kernel's bf16 gradient is {k_err} from float32, "
-                 f"> {CONSIST_NOISE} x the bf16 plain path's {p_err}")
-    out = {"arch": cfg.name, "layers": cfg.n_layers, "batch": GRAD_B, "seq": GRAD_S,
+            fail(f"train grads {arch}: {key}: the kernel's bf16 gradient is {k_err} from "
+                 f"float32, > {CONSIST_NOISE} x the bf16 plain path's {p_err}")
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "batch": B, "seq": S,
            "cut": f"the first {GRAD_CUT_LAYERS} layers, full width", "launches": n,
+           "launches_by_shape": {k: printable(v) for k, v in shapes.items()},
            "limit": f"{CONSIST_NOISE} x the bf16 plain path's relative L2 error",
            "worst_ratio": max(v["kernel_bf16_vs_plain_f32"] / v["plain_bf16_vs_plain_f32"]
                               for v in leaves.values()),
            "leaves": leaves}
     del kernel, plain16, plain32, params
     torch.cuda.empty_cache()
-    emit("train_grads", out)
-    return out
+    emit(f"train_grads[{arch}]", out)
+    return {"launches": n, "shapes": shapes}
 
 
 def phase_train_example(device) -> dict:
@@ -2319,10 +2349,12 @@ def main() -> None:
         trained = phase_train(device)
         phase_train_card_vs_cpu(device)
         phase_train_grads(device)
+        mla_grads = phase_train_grads(device, DEEPSEEK, MLA_GRAD_B, MLA_GRAD_S)
         example = phase_train_example(device)
-    # S2's rows: the full-width step's calls, the example's calls, each all
-    # of its phase's; K3 at the training shape: the full-width step's
-    for row, ran in ((s2_rows[0], trained), (s2_rows[1], example)):
+    # S2's rows: the full-width step's calls, the example's calls and
+    # deepseek's MLA gradients', each all of its phase's; K3 at the training
+    # shape: the full-width step's
+    for row, ran in ((s2_rows[0], trained), (s2_rows[1], example), (s2_rows[2], mla_grads)):
         by_shape = ran["shapes"]["flash_attention_bwd"]
         row["launches"] = by_shape.get(s2_shape_key(row), 0)
         if row["launches"] != ran["launches"]["flash_attention_bwd"]:

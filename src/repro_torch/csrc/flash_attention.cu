@@ -316,22 +316,6 @@ struct WgTile {
   static_assert(SMEM <= SMEM_LIMIT, "the tiles do not fit a block's shared memory");
 };
 
-// Which dim (1..3) of a tensor map holds the head, the position and the batch:
-// the map orders them by stride.
-struct MapDims {
-  int h, s, b;
-};
-
-__device__ __forceinline__ void tma_load_bhsd(uint32_t dst, const CUtensorMap* map, MapDims md,
-                                              int col, int h, int s, int b, uint32_t bar) {
-  int c[4];
-  c[0] = col;
-  c[md.h] = h;
-  c[md.s] = s;
-  c[md.b] = b;
-  tma_load_4d(dst, map, c[0], c[1], c[2], c[3], bar);
-}
-
 template <int DQK, int DV>
 __global__ void __launch_bounds__(WgTile<DQK, DV>::THREADS, 1)
 flash_bf16_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
@@ -501,32 +485,6 @@ flash_bf16_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__
       }
     }
   }
-}
-
-// A tensor map of a (B, heads, S, D) bf16 view with element strides st (batch,
-// head, position), boxes of COLS head dims x `rows` positions: dims 1..3 are
-// head, position and batch in order of their strides.
-bool map_bhsd(CUtensorMap* map, MapDims* md, const void* ptr, int B, int heads, int S, int D,
-              const long long* st, int cols, int rows, int swz) {
-  const long long stride[3] = {st[1], st[2], st[0]}, extent[3] = {heads, S, B};
-  int order[3] = {0, 1, 2};
-  for (int i = 1; i < 3; ++i)
-    for (int j = i; j > 0 && stride[order[j]] < stride[order[j - 1]]; --j) {
-      const int x = order[j];
-      order[j] = order[j - 1];
-      order[j - 1] = x;
-    }
-  long long dims[4] = {D, 0, 0, 0}, bytes[3];
-  int box[4] = {cols, 1, 1, 1}, at[3];
-  for (int i = 0; i < 3; ++i) {
-    const int a = order[i];
-    dims[i + 1] = extent[a];
-    bytes[i] = stride[a] * 2;
-    if (a == 1) box[i + 1] = rows;
-    at[a] = i + 1;
-  }
-  *md = MapDims{at[0], at[1], at[2]};
-  return make_map_4d(map, ptr, dims, bytes, box, swz);
 }
 
 template <int DQK, int DV>

@@ -1,7 +1,8 @@
 // Hopper building blocks shared by the hand-written kernels: shared-memory
 // addresses, cp.async, mbarriers, TMA loads and tensor maps, wgmma's
 // shared-memory descriptors and its m64nNk16 bf16 products (both operands from
-// shared memory, or A from registers).  Included by the hand-written sources
+// shared memory, or A from registers), and the tensor maps of (B, heads, S, D)
+// views that the attention kernels load by TMA.  Included by the hand-written sources
 // of csrc/; `_build.csrc_source` splices it into their text, so its
 // edits enter their hashes and rebuild them.
 #pragma once
@@ -22,6 +23,11 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" :: "r"(dst), "l"(src));
 }
 
+// A 4-byte cp.async of `bytes` (4, or 0 for zeros) from src
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" :: "r"(dst), "l"(src), "r"(bytes));
+}
+
 // -- mbarriers ------------------------------------------------------------------
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
@@ -35,6 +41,12 @@ __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
 
 __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
+}
+
+// An arrival on `bar`, one of its expected count, made when this thread's
+// cp.async copies so far have landed
+__device__ __forceinline__ void mbar_arrive_cp_async(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" :: "r"(bar) : "memory");
 }
 
 __device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
@@ -101,7 +113,6 @@ __device__ __forceinline__ void wgmma_commit() {
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
-
 // d (m64 x N, f32) += A (m64 x k16) * B (k16 x N), bf16 in.  wgmma_ss reads A
 // K-major from shared memory and B K-major (trans_b 0) or N-major (trans_b 1,
 // the transpose bit); wgmma_rs takes A from registers, four 32-bit registers
@@ -346,6 +357,33 @@ __device__ __forceinline__ void wgmma_rs<128>(float* d, const uint32_t* a, uint6
 }
 
 template <>
+__device__ __forceinline__ void wgmma_rs<192>(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
 __device__ __forceinline__ void wgmma_rs<256>(float* d, const uint32_t* a, uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
@@ -376,6 +414,24 @@ __device__ __forceinline__ void wgmma_rs<256>(float* d, const uint32_t* a, uint6
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// Which dim (1..3) of a tensor map holds the head, the position and the batch:
+// the map orders them by stride (`map_bhsd`).
+struct MapDims {
+  int h, s, b;
+};
+
+// A TMA load of the box at head dim `col`, head h, position s, batch b of a
+// map made by `map_bhsd`.
+__device__ __forceinline__ void tma_load_bhsd(uint32_t dst, const CUtensorMap* map, MapDims md,
+                                              int col, int h, int s, int b, uint32_t bar) {
+  int c[4];
+  c[0] = col;
+  c[md.h] = h;
+  c[md.s] = s;
+  c[md.b] = b;
+  tma_load_4d(dst, map, c[0], c[1], c[2], c[3], bar);
 }
 
 // -- tensor maps (host) -----------------------------------------------------------
@@ -444,6 +500,32 @@ bool make_map_4d(CUtensorMap* map, const void* ptr, const long long* dims,
              elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle_mode(swz),
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
          CUDA_SUCCESS;
+}
+
+// A tensor map of a (B, heads, S, D) bf16 view with element strides st (batch,
+// head, position), boxes of `cols` head dims x `rows` positions: dims 1..3 are
+// head, position and batch in order of their strides.
+bool map_bhsd(CUtensorMap* map, MapDims* md, const void* ptr, int B, int heads, int S, int D,
+              const long long* st, int cols, int rows, int swz) {
+  const long long stride[3] = {st[1], st[2], st[0]}, extent[3] = {heads, S, B};
+  int order[3] = {0, 1, 2};
+  for (int i = 1; i < 3; ++i)
+    for (int j = i; j > 0 && stride[order[j]] < stride[order[j - 1]]; --j) {
+      const int x = order[j];
+      order[j] = order[j - 1];
+      order[j - 1] = x;
+    }
+  long long dims[4] = {D, 0, 0, 0}, bytes[3];
+  int box[4] = {cols, 1, 1, 1}, at[3];
+  for (int i = 0; i < 3; ++i) {
+    const int a = order[i];
+    dims[i + 1] = extent[a];
+    bytes[i] = stride[a] * 2;
+    if (a == 1) box[i + 1] = rows;
+    at[a] = i + 1;
+  }
+  *md = MapDims{at[0], at[1], at[2]};
+  return make_map_4d(map, ptr, dims, bytes, box, swz);
 }
 
 }  // namespace

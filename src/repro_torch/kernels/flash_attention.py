@@ -43,9 +43,10 @@ grad), the call goes through ``FlashAttention``, a ``torch.autograd.Function``:
 its forward is the same launch with each row's log-sum-exp written beside the
 output (``lse``), and its backward is the backward kernel S2
 (``flash_attention_bwd``) on the card, the plain backward
-(``ref.flash_attention_bwd_ref``) on the CPU.  S2 takes D == Dv only: on the
-card a pair with D != Dv raises ``NotImplementedError`` under grad, before any
-launch, and never returns a result that drops the gradient.
+(``ref.flash_attention_bwd_ref``) on the CPU.  ``bwd_route`` names the
+backward kernel a call takes: bfloat16 runs on the tensor cores for the
+forward's pairs below head dim 256 (MLA's (192, 128) among them), head dim
+256 and float32 (padded to one head dim where D != Dv) on the CUDA cores.
 """
 
 from __future__ import annotations
@@ -112,6 +113,28 @@ def kernel_dims(D: int, Dv: int, dtype: torch.dtype) -> tuple[int, int]:
                      f"(D {D}, Dv {Dv}); its pairs with D != Dv are {BF16_PAIRS}")
 
 
+#: the backward kernels of each route, in launch order (``bwd_route``)
+BWD_KERNELS = {"wgmma": ("flash_bwd_delta", "flash_bwd_dkdv_wgmma", "flash_bwd_dq_wgmma"),
+               "cuda_cores": ("flash_bwd_delta", "flash_bwd_dkdv", "flash_bwd_dq")}
+#: the head dims (D = Dv) the tensor-core backward is built for, beside BF16_PAIRS
+BWD_WGMMA_HEAD_DIMS = (16, 32, 64, 128)
+
+
+def bwd_route(D: int, Dv: int, dtype: torch.dtype) -> tuple[str, int, int]:
+    """``(route, Dk, Dvk)``: the backward kernels (a key of ``BWD_KERNELS``)
+    that a call of head dims (D, Dv) in ``dtype`` takes, and the head dims
+    they run it at (``kernel_dims``, whose ``ValueError`` a bfloat16 pair that
+    is not built raises).  bfloat16 takes the tensor cores at the dims of
+    ``BWD_WGMMA_HEAD_DIMS`` and ``BF16_PAIRS``, the CUDA cores at 256;
+    float32 takes the CUDA cores."""
+    if dtype not in _SYMBOL:
+        raise TypeError(f"flash_attention_bwd takes float32 or bfloat16, got {dtype}")
+    Dk, Dvk = kernel_dims(D, Dv, dtype)
+    if dtype == torch.bfloat16 and (Dk in BWD_WGMMA_HEAD_DIMS or (Dk, Dvk) in BF16_PAIRS):
+        return "wgmma", Dk, Dvk
+    return "cuda_cores", Dk, Dvk
+
+
 def rows_readable(t: torch.Tensor) -> bool:
     """The kernels read rows 16 bytes at a time: the last dim contiguous,
     every other stride a whole number of 16 bytes, the data 16-byte aligned."""
@@ -167,8 +190,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"rows {n_keys + window - 1}..{Sq - 1} see no key")
     sc = scale if scale is not None else D ** -0.5
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        if q.device.type == "cuda" and D != Dv:
-            _build.refuse_grad(f"flash_attention with head dims (D {D}, Dv {Dv})", q, k, v)
         return FlashAttention.apply(q, k, v, causal, window, sc, kv_len)
     return _forward(q, k, v, causal, window, sc, kv_len, with_lse=False)[0]
 

@@ -73,7 +73,9 @@ def make_grad_fn(cfg: ModelCfg, num_microbatches: int = 1):
     half of the train step: one pass, or ``num_microbatches`` passes over
     equal slices of the batch whose gradients are summed into float32 zeros
     (the reference's ``lax.scan``) and averaged, as are the loss and the
-    metrics.  ``batch`` holds tensors already on the parameters' device."""
+    metrics.  ``batch`` holds tensors already on the parameters' device; a
+    batch that ``num_microbatches`` does not divide raises ``ValueError``, as
+    the reference's reshape refuses it."""
     loss_fn = make_loss_fn(cfg)
 
     def value_and_grad(params, batch):
@@ -87,7 +89,11 @@ def make_grad_fn(cfg: ModelCfg, num_microbatches: int = 1):
     def grad_fn(params, batch):
         if num_microbatches <= 1:
             return value_and_grad(params, batch)
-        mbs = [{k: v.chunk(num_microbatches)[i] for k, v in batch.items()}
+        for k, v in batch.items():
+            if v.shape[0] % num_microbatches:
+                raise ValueError(f"make_grad_fn: {k} holds {v.shape[0]} sequences, which "
+                                 f"{num_microbatches} microbatches do not divide")
+        mbs = [{k: v.unflatten(0, (num_microbatches, -1))[i] for k, v in batch.items()}
                for i in range(num_microbatches)]
         loss_sum = torch.zeros((), dtype=torch.float32, device=batch["tokens"].device)
         grad_acc = _tree.map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
@@ -117,10 +123,12 @@ def make_train_step(
 ):
     """``train_step(state, batch) -> (new_state, metrics)``; the state is
     ``{"params", "opt"}`` and is not updated in place.  ``batch`` holds
-    numpy arrays or tensors; they are moved to ``device``."""
-    if grad_compression == "int8":
-        raise NotImplementedError("int8 gradient compression is not ported yet "
-                                  "(ROADMAP.md queue A, item 9)")
+    numpy arrays or tensors; they are moved to ``device``.  As in the
+    reference, ``grad_compression="int8"`` compresses only across a mesh's
+    ``pod`` axis; without one the step is the plain one."""
+    if grad_compression == "int8" and mesh is not None and "pod" in mesh.axis_names:
+        raise NotImplementedError("int8 gradient compression across the pod axis is not "
+                                  "ported yet (ROADMAP.md queue A, item 9)")
     dev = resolve_device(device)
     grad_fn = make_grad_fn(cfg, num_microbatches)
 

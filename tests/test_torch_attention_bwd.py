@@ -12,6 +12,9 @@ another order (the backward rebuilds P from the forward's log-sum-exp where
 autodiff keeps it).  ``gradcheck`` runs the Function in float64.
 """
 
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -154,3 +157,75 @@ def test_no_grad_call_keeps_the_plain_forward():
     with_grad = fa.flash_attention(qg, k, v)
     assert isinstance(with_grad.grad_fn, torch.autograd.function.BackwardCFunction)
     assert torch.equal(plain, with_grad.detach())
+
+
+# -- the backward's route and a value head dim of its own ---------------------------------
+
+
+@pytest.mark.parametrize("D, Dv, dtype, want", [
+    (64, 64, torch.bfloat16, ("wgmma", 64, 64)),          # tinyllama's training shape
+    (16, 16, torch.bfloat16, ("wgmma", 16, 16)),
+    (32, 32, torch.bfloat16, ("wgmma", 32, 32)),
+    (128, 128, torch.bfloat16, ("wgmma", 128, 128)),
+    (80, 80, torch.bfloat16, ("wgmma", 128, 128)),         # padded to the next head dim
+    (192, 128, torch.bfloat16, ("wgmma", 192, 128)),       # MLA: its own instantiation
+    (256, 256, torch.bfloat16, ("cuda_cores", 256, 256)),  # dK, dV would not fit a warpgroup
+    (200, 200, torch.bfloat16, ("cuda_cores", 256, 256)),
+    (64, 64, torch.float32, ("cuda_cores", 64, 64)),       # float32 keeps its CUDA-core kernel
+    (192, 128, torch.float32, ("cuda_cores", 256, 256)),   # padded to one head dim
+    (48, 32, torch.float32, ("cuda_cores", 64, 64)),
+])
+def test_bwd_route_of_each_call(D, Dv, dtype, want):
+    route = fa.bwd_route(D, Dv, dtype)
+    assert route == want and route[0] in fa.BWD_KERNELS
+
+
+@pytest.mark.parametrize("D, Dv, dtype, error, match", [
+    (48, 32, torch.bfloat16, ValueError, r"\(D 48, Dv 32\)"),   # a pair that is not built
+    (128, 192, torch.bfloat16, ValueError, r"\(D 128, Dv 192\)"),
+    (260, 260, torch.bfloat16, ValueError, "multiple of 8 up to 256"),
+    (60, 60, torch.float32, ValueError, "multiple of 8 up to 256"),
+    (64, 64, torch.float16, TypeError, "float32 or bfloat16"),
+])
+def test_bwd_route_refuses_what_no_kernel_takes(D, Dv, dtype, error, match):
+    with pytest.raises(error, match=match):
+        fa.bwd_route(D, Dv, dtype)
+
+
+def test_bwd_routes_are_what_the_source_builds():
+    """The tensor-core launcher's dispatch instantiates exactly
+    ``BWD_WGMMA_HEAD_DIMS`` and ``BF16_PAIRS``, and each route's kernels are
+    defined in the source."""
+    src = (Path(fa.__file__).parent.parent / "csrc" / "flash_attention_bwd.cu").read_text()
+    built = {(int(d), int(dv)) for d, dv in re.findall(r"launch_wgmma_d<(\d+), (\d+)>\(q", src)}
+    assert {pair for pair in built if pair[0] != pair[1]} == set(fa.BF16_PAIRS)
+    assert {d for d, dv in built if d == dv} == set(fa.BWD_WGMMA_HEAD_DIMS)
+    for names in fa.BWD_KERNELS.values():
+        for name in names:
+            assert re.search(rf"^{name}\(", src, re.M), name
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KvH,causal,window,kv_len", [
+    (2, 16, 16, 4, 4, True, None, None),
+    (1, 24, 24, 8, 2, True, None, None),     # group 4
+    (1, 12, 20, 4, 2, False, None, None),    # non-causal, Sq != Sk
+    (2, 21, 21, 4, 2, True, 5, None),        # a window
+    (1, 10, 14, 4, 2, False, None, 9),       # kv_len
+])
+def test_function_backward_with_a_value_dim_of_its_own(B, Sq, Sk, H, KvH, causal, window,
+                                                       kv_len):
+    """D 48 against Dv 32 under grad (what MLA's smoke config runs): the
+    Function's gradients equal autograd through the plain forward, each of
+    its own head dim."""
+    rng = np.random.default_rng(7)
+    q, k, v = (torch.tensor(rng.standard_normal(s), dtype=torch.float32, requires_grad=True)
+               for s in ((B, H, Sq, 48), (B, KvH, Sk, 48), (B, KvH, Sk, 32)))
+    do = torch.tensor(rng.standard_normal((B, H, Sq, 32)), dtype=torch.float32)
+    kw = dict(causal=causal, window=window, kv_len=kv_len, scale=0.17)
+    out = fa.flash_attention(q, k, v, **kw)
+    assert isinstance(out.grad_fn, torch.autograd.function.BackwardCFunction)
+    got = torch.autograd.grad(out, (q, k, v), do)
+    want = torch.autograd.grad(ref.flash_attention_ref(q, k, v, **kw), (q, k, v), do)
+    for g, w, t in zip(got, want, (q, k, v)):
+        assert g.shape == t.shape
+        np.testing.assert_allclose(g.numpy(), w.numpy(), **TOL)

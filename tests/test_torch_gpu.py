@@ -1468,43 +1468,58 @@ def test_slice9_model_on_card_equals_the_cpu(arch):
 
 # -- training: the flash kernel's backward (S2), the refusals under grad ------------------
 
-# the shapes of chip_smoke.py's S2 rows: B, Sq, Sk, H, KvH, D, dtype, causal, window
+# the shapes of chip_smoke.py's S2 rows and more:
+# B, Sq, Sk, H, KvH, D, Dv, dtype, causal, window, kv_len
 BWD_CASES_CARD = [
-    (4, 2048, 2048, 32, 4, 64, "bfloat16", True, None),     # tinyllama-1.1b's training step
-    (4, 128, 128, 10, 5, 64, "float32", True, None),        # TINYLM's (the example)
-    (2, 512, 512, 16, 2, 128, "bfloat16", True, None),      # D 128
-    (2, 512, 512, 16, 1, 256, "bfloat16", True, None),      # D 256, group 16
-    (2, 512, 512, 16, 16, 64, "bfloat16", True, None),      # group 1
-    (2, 1024, 1024, 16, 2, 64, "bfloat16", True, 256),      # a window
-    (2, 384, 640, 8, 2, 64, "float32", False, None),        # non-causal, Sq != Sk
-    (2, 2, 130, 4, 2, 80, "bfloat16", False, None),          # D 80 padded to 128, tiny Sq
+    (4, 2048, 2048, 32, 4, 64, 64, "bfloat16", True, None, None),   # tinyllama-1.1b's step
+    (4, 128, 128, 10, 5, 64, 64, "float32", True, None, None),      # TINYLM's (the example)
+    (2, 2048, 2048, 16, 16, 192, 128, "bfloat16", True, None, None),  # deepseek's MLA step
+    (2, 512, 512, 16, 2, 128, 128, "bfloat16", True, None, None),   # D 128
+    (2, 512, 512, 16, 1, 256, 256, "bfloat16", True, None, None),   # D 256 (CUDA cores), group 16
+    (2, 512, 512, 16, 16, 64, 64, "bfloat16", True, None, None),    # group 1
+    (2, 300, 300, 8, 1, 64, 64, "bfloat16", True, None, None),      # group 8, ragged
+    (2, 1024, 1024, 16, 2, 64, 64, "bfloat16", True, 256, None),    # a window
+    (2, 1024, 1024, 16, 2, 128, 128, "bfloat16", True, 256, None),  # a window at D 128
+    (2, 200, 130, 8, 2, 128, 128, "bfloat16", False, None, None),   # ragged Sq -> Sk, non-causal
+    (2, 256, 256, 4, 2, 16, 16, "bfloat16", True, None, None),      # head dims 16 and 32
+    (2, 256, 256, 4, 2, 32, 32, "bfloat16", True, None, None),
+    (1, 120, 130, 4, 2, 80, 80, "bfloat16", False, None, 100),      # D 80 padded, kv_len
+    (2, 384, 640, 8, 2, 64, 64, "float32", False, None, None),      # non-causal, Sq != Sk
+    (2, 2, 130, 4, 2, 80, 80, "bfloat16", False, None, None),        # D 80 padded, tiny Sq
+    (1, 64, 96, 4, 2, 48, 32, "float32", False, None, None),        # D != Dv in float32, padded
 ]
 BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}             # of each tensor's largest |plain|
 
 
-def bwd_operands(dev, B, Sq, Sk, H, KvH, D, dtype, seed=0):
-    """(q, k, v, dO) in the kernels' (B,H,S,D) layout as views of model-layout
-    tensors; the queries 4x normal, so that |o| is of order 1."""
+def bwd_operands(dev, B, Sq, Sk, H, KvH, D, dtype, seed=0, Dv=None):
+    """(q, k, v, dO) in the kernels' (B,H,S,·) layout as views of model-layout
+    tensors, v and dO of ``Dv`` head dims (D unless given); the queries 4x
+    normal, so that |o| is of order 1."""
+    Dv = D if Dv is None else Dv
     g = torch.Generator().manual_seed(seed)
     mk = lambda shape, s=1.0: (torch.randn(shape, generator=g) * s).to(dev, DTYPES[dtype])
     q = mk((B, Sq, H, D), 4.0).transpose(1, 2)
-    k, v = (mk((B, Sk, KvH, D)).transpose(1, 2) for _ in range(2))
-    return q, k, v, mk((B, Sq, H, D)).transpose(1, 2)
+    k, v = mk((B, Sk, KvH, D)).transpose(1, 2), mk((B, Sk, KvH, Dv)).transpose(1, 2)
+    return q, k, v, mk((B, Sq, H, Dv)).transpose(1, 2)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,Sq,Sk,H,KvH,D,dtype,causal,window", BWD_CASES_CARD)
-def test_flash_attention_bwd_kernel_matches_plain_on_card(B, Sq, Sk, H, KvH, D, dtype, causal,
-                                                         window):
+@pytest.mark.parametrize("B,Sq,Sk,H,KvH,D,Dv,dtype,causal,window,kv_len", BWD_CASES_CARD)
+def test_flash_attention_bwd_kernel_matches_plain_on_card(B, Sq, Sk, H, KvH, D, Dv, dtype,
+                                                         causal, window, kv_len):
+    """S2 against the plain backward, one call on the route ``bwd_route``
+    names (bfloat16 on the tensor cores below head dim 256)."""
     from repro_torch.kernels import flash_attention_bwd as fab
     dev = _cuda_or_skip()
-    q, k, v, do = bwd_operands(dev, B, Sq, Sk, H, KvH, D, dtype)
-    kw = dict(causal=causal, window=window)
-    o, lse = fa._forward(q, k, v, causal, window, D ** -0.5, None, with_lse=True)
+    q, k, v, do = bwd_operands(dev, B, Sq, Sk, H, KvH, D, dtype, Dv=Dv)
+    kw = dict(causal=causal, window=window, kv_len=kv_len)
+    o, lse = fa._forward(q, k, v, causal, window, D ** -0.5, kv_len, with_lse=True)
+    route = fa.bwd_route(D, Dv, DTYPES[dtype])[0]
     before = fab.launches
     got = fab.flash_attention_bwd(q, k, v, o, lse, do, **kw)
     torch.cuda.synchronize()
     assert fab.launches == before + 1
+    assert route == ("wgmma" if dtype == "bfloat16" and D < 256 else "cuda_cores")
     want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert g.shape == w.shape and g.dtype == w.dtype
@@ -1549,11 +1564,39 @@ def test_flash_attention_grads_through_ops_mha_on_card():
 
 
 @pytest.mark.gpu
-def test_kernels_without_a_backward_refuse_grad_on_card():
-    """K2, K4, K5, K6 and K3's (192, 128) pair raise under grad before any
-    launch; without grad (or with no input that requires it) they run."""
+def test_mla_pair_trains_through_ops_mha_on_card():
+    """Under grad ``ops.mha`` at MLA's (192, 128) in bfloat16 launches K3 and
+    S2 once each (S2 on the tensor cores), and its gradients equal autograd
+    of the plain forward on the card, each within 2e-2 of its largest
+    magnitude."""
+    from repro_torch.kernels import flash_attention_bwd as fab
     dev = _cuda_or_skip()
-    counters = (mm, dec, ssd_k, rg, fa)
+    q, k, v, do = (t.transpose(1, 2).contiguous() for t in bwd_operands(
+        dev, 2, 384, 384, 16, 16, 192, "bfloat16", seed=5, Dv=128))
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    scale = 192 ** -0.5
+    before = (fa.launches, fab.launches)
+    out = ops.mha(q, k, v, scale=scale)
+    assert out.grad_fn is not None and out.shape == (2, 384, 16, 128)
+    got = torch.autograd.grad(out, (q, k, v), do)
+    torch.cuda.synchronize()
+    assert (fa.launches, fab.launches) == (before[0] + 1, before[1] + 1)
+    assert fa.bwd_route(192, 128, torch.bfloat16)[0] == "wgmma"
+    plain = ref.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                    scale=scale).transpose(1, 2)
+    want = torch.autograd.grad(plain, (q, k, v), do)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= BWD_TOL["bfloat16"] * float(w.float().abs().max()), (name, err)
+
+
+@pytest.mark.gpu
+def test_kernels_without_a_backward_refuse_grad_on_card():
+    """K2, K4, K5 and K6 raise under grad before any launch; without grad
+    (or with no input that requires it) they run."""
+    dev = _cuda_or_skip()
+    counters = (mm, dec, ssd_k, rg)
     before = [m.launches for m in counters]
     x = torch.randn(64, 64, device=dev, requires_grad=True)
     q1 = torch.randn(2, 8, 64, device=dev, requires_grad=True)
@@ -1562,15 +1605,11 @@ def test_kernels_without_a_backward_refuse_grad_on_card():
     dA = -torch.rand(1, 32, 2, device=dev)
     bc = torch.randn(1, 32, 8, device=dev)
     a = torch.rand(1, 16, 8, device=dev, requires_grad=True)
-    qm = torch.randn(1, 64, 4, 192, device=dev, dtype=torch.bfloat16, requires_grad=True)
-    km = torch.randn(1, 64, 4, 192, device=dev, dtype=torch.bfloat16)
-    vm = torch.randn(1, 64, 4, 128, device=dev, dtype=torch.bfloat16)
     calls = {
         "matmul": lambda: ops.matmul(x, x),
         "decode_attention": lambda: ops.decode(q1, cache, cache, 16),
         "ssd_scan": lambda: ops.ssd_scan(xs, dA, bc, bc),
         "rglru_scan": lambda: ops.rglru_scan(a, a),
-        "flash_attention with head dims (D 192, Dv 128)": lambda: ops.mha(qm, km, vm),
     }
     for name, call in calls.items():
         with pytest.raises(NotImplementedError, match="item 8b"):

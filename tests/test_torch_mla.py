@@ -186,6 +186,31 @@ def test_flash_attention_ref_with_a_value_dim_of_its_own_is_the_reference_layer(
     np.testing.assert_array_equal(mha.numpy(), o.transpose(1, 2).numpy())
 
 
+def test_mla_forward_gradients_match_reference_vjp():
+    """The MLA layer under grad (``ops.mha`` with q and k of nope + rope dims
+    against v of v dims, through ``FlashAttention`` and the plain backward on
+    the CPU) against ``jax.vjp`` of the reference's ``mla_forward``: the
+    gradients of the hidden input and of every projection, from float32
+    copies of the reference's weights, to 2e-5 (the forward's tolerance
+    above)."""
+    cfg, ref_cfg, params, _ = reference_model()
+    p = {k: jnp.asarray(v, jnp.float32) for k, v in jax.device_get(layer(params)).items()}
+    x = hidden(cfg, 5)
+    do = np.random.default_rng(6).normal(size=x.shape).astype(np.float32)
+    out, vjp = jax.vjp(lambda p, x: ref_mla.mla_forward(p, x, ref_cfg), p, jnp.asarray(x))
+    want_p, want_x = vjp(jnp.asarray(do))
+    tp = {k: torch.tensor(np.asarray(v)).requires_grad_() for k, v in p.items()}
+    tx = torch.as_tensor(x).requires_grad_()
+    got = mla.mla_forward(tp, tx, cfg)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(out), rtol=2e-5, atol=2e-5)
+    names = sorted(tp)
+    grads = torch.autograd.grad(got, [tx] + [tp[k] for k in names], torch.as_tensor(do))
+    np.testing.assert_allclose(grads[0].numpy(), np.asarray(want_x), rtol=2e-5, atol=2e-5)
+    for name, g in zip(names, grads[1:]):
+        np.testing.assert_allclose(g.numpy(), np.asarray(want_p[name]), rtol=2e-5, atol=2e-5,
+                                   err_msg=name)
+
+
 @pytest.mark.parametrize("D, Dv, dtype, want", [
     (192, 128, torch.bfloat16, (192, 128)),     # MLA at full width: its own instantiation
     (192, 128, torch.float32, (256, 256)),      # float32: both padded to one head dim

@@ -225,15 +225,89 @@ def test_remat_block_runs_each_block_forward_twice():
     assert len(calls) == 2 * cfg.n_layers
 
 
+class _PodMesh:
+    """A stand-in for a mesh with a ``pod`` axis: the step reads only its
+    ``axis_names``."""
+
+    axis_names = ("pod", "data")
+
+
 def test_train_step_options_for_the_mesh_are_refused_or_identities():
-    cfg = registry.get_smoke_config("tinyllama-1.1b")
+    """int8 compression runs the plain step where there is no ``pod`` axis,
+    as the reference does (``repro/train/steps.py:130``), and equals the
+    reference's step from one float32 state; across a ``pod`` axis it is
+    refused until item 9.  ``constrain_grads`` is the identity on one
+    device."""
+    arch = "tinyllama-1.1b"
+    cfg = registry.get_smoke_config(arch)
     with pytest.raises(NotImplementedError, match="item 9"):
-        steps.make_train_step(cfg, grad_compression="int8", device="cpu")
-    state = steps.init_train_state(0, cfg, device="cpu")
-    b = batch_of("tinyllama-1.1b", 0)
-    a, ma = steps.make_train_step(cfg, device="cpu")(state, b)
-    c, mc = steps.make_train_step(cfg, constrain_grads=True, device="cpu")(state, b)
-    assert all(torch.equal(x, y) for x, y in zip(_tree.leaves(a), _tree.leaves(c)))
+        steps.make_train_step(cfg, grad_compression="int8", mesh=_PodMesh(), device="cpu")
+    state = float32_state(arch)
+    pstate = compat.state_from_reference(jax.device_get(state), "cpu")
+    b = batch_of(arch, 0)
+    want, w_metrics = jax.jit(ref_steps.make_train_step(
+        ref_registry.get_smoke_config(arch), ref_adamw.OptCfg(**OPT),
+        grad_compression="int8"))(state, {k: jnp.asarray(v) for k, v in b.items()})
+    a, ma = steps.make_train_step(cfg, adamw.OptCfg(**OPT), device="cpu")(pstate, b)
+    runs = [steps.make_train_step(cfg, adamw.OptCfg(**OPT), grad_compression="int8",
+                                  mesh=mesh, device="cpu")(pstate, b)
+            for mesh in (None, type("NoPod", (), {"axis_names": ("data",)})())]
+    runs.append(steps.make_train_step(cfg, adamw.OptCfg(**OPT), constrain_grads=True,
+                                      device="cpu")(pstate, b))
+    for c, mc in runs:
+        assert all(torch.equal(x, y) for x, y in zip(_tree.leaves(a), _tree.leaves(c)))
+        assert all(torch.equal(ma[k], mc[k]) for k in ma)
+    for k, v in w_metrics.items():
+        np.testing.assert_allclose(float(ma[k]), float(v), **TOL, err_msg=k)
+    got = flat(a)
+    for key, w in flat(want).items():
+        if not key.startswith("params/"):
+            np.testing.assert_allclose(got[key], w, **TOL, err_msg=key)
+    assert_params_close({k: v for k, v in flat(want).items() if k.startswith("params/")}, got,
+                        OPT["lr"], 1)
+
+
+@pytest.mark.parametrize("n_seq, microbatches", [(5, 2), (6, 4)])
+def test_microbatches_that_do_not_divide_the_batch_are_refused(n_seq, microbatches):
+    """5 sequences in 2 microbatches, or 6 in 4: the reference's reshape
+    refuses the batch, and so does the port, before any pass."""
+    arch = "tinyllama-1.1b"
+    b = make_batch(ref_registry.get_smoke_config(arch),
+                   ShapeCfg("smoke", seq_len=16, global_batch=n_seq, kind="train"))
+    state = float32_state(arch)
+    with pytest.raises(TypeError, match="reshape"):
+        ref_steps.make_train_step(ref_registry.get_smoke_config(arch),
+                                  num_microbatches=microbatches)(
+            state, {k: jnp.asarray(v) for k, v in b.items()})
+    pstate = compat.state_from_reference(jax.device_get(state), "cpu")
+    with pytest.raises(ValueError, match=f"{microbatches} microbatches do not divide"):
+        steps.make_train_step(registry.get_smoke_config(arch), num_microbatches=microbatches,
+                              device="cpu")(pstate, b)
+
+
+def test_microbatches_of_a_divisible_batch_match_the_reference():
+    """4 sequences in 2 microbatches of 2: the loss, the metrics and the
+    gradients equal the reference's (``make_grad_fn`` against
+    ``jax.value_and_grad`` over the reference's microbatched step)."""
+    arch = "tinyllama-1.1b"
+    b = make_batch(ref_registry.get_smoke_config(arch),
+                   ShapeCfg("smoke", seq_len=16, global_batch=4, kind="train"))
+    state = float32_state(arch)
+    pstate = compat.state_from_reference(jax.device_get(state), "cpu")
+    want, w_metrics = jax.jit(ref_steps.make_train_step(
+        ref_registry.get_smoke_config(arch), ref_adamw.OptCfg(**OPT), num_microbatches=2))(
+        state, {k: jnp.asarray(v) for k, v in b.items()})
+    got, g_metrics = steps.make_train_step(registry.get_smoke_config(arch),
+                                           adamw.OptCfg(**OPT), num_microbatches=2,
+                                           device="cpu")(pstate, b)
+    for k, v in w_metrics.items():
+        np.testing.assert_allclose(float(g_metrics[k]), float(v), **TOL, err_msg=k)
+    g = flat(got)
+    for key, w in flat(want).items():
+        if not key.startswith("params/"):
+            np.testing.assert_allclose(g[key], w, **TOL, err_msg=key)
+    assert_params_close({k: v for k, v in flat(want).items() if k.startswith("params/")}, g,
+                        OPT["lr"], 1)
 
 
 def test_train_entry_points_raise_where_there_is_no_cuda():

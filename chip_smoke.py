@@ -47,11 +47,16 @@ PyTorch version on the card, then drives:
   flash attention (again in the backward, under remat) and its backward
   through the flash kernel's backward (S2) — then every gradient leaf finite
   and non-zero, the last checkpoint restored equal to the live state and a
-  profiled step; one float32 smoke step on the card against the CPU
-  (``train_card_vs_cpu``); the bfloat16 kernel gradients of the first two
-  layers at full width against float32 plain ones (``train_grads``); and
-  ``examples/train_tinylm_torch.py`` for 40 steps with a failure injected
-  (``train_example``);
+  profiled step; one float32 smoke step on the card against the CPU for
+  tinyllama, Mamba-2 and RecurrentGemma (``train_card_vs_cpu[<arch>]``:
+  K3 and S2, K5 and its backward S3, K6 and its backward S4); the bfloat16
+  kernel gradients of the first two layers at full width against float32
+  plain ones (``train_grads``); ``examples/train_tinylm_torch.py`` for 40
+  steps with a failure injected (``train_example``); and every other arch
+  at full width, its depth cut where the functional AdamW step would not
+  fit the card (``train[<arch>]``: a checked warm-up gradient and two timed
+  steps of 2 x 2048 tokens, Mamba-2's 4 x 2048, llama-3.2-vision-90b's
+  gradients only, each with its launches by kernel and a profiled step);
 * the designer's differential check (``differential``): the design lowered
   to RTL (``generate_verilog``) and run on the cycle-accurate simulator's
   kernel generated per design, on 4096 stimulus vectors — the reference's
@@ -84,10 +89,14 @@ spread over the batch, on the CPU (``plain_on``).  The S2 rows
 (``flash_attention_bwd[...]``) name the kernels of the route that ran
 (``flash_attention.bwd_route``: bfloat16 on the tensor cores below head dim
 256), and carry each output's error and the backward of SDPA as
-``library_ms``.  Output: one JSON object per line (``env``,
+``library_ms``.  The S3 rows (``ssd_scan_bwd[...]``, the SSD scan's
+backward, six kernels a call) and S4 rows (``rglru_scan_bwd[...]``) carry
+each output's error against the float64 plain backward, ``device_ms``,
+S3's kernels' device times a call, and ``library_ms`` null.  Output: one
+JSON object per line (``env``,
 ``build``, ``k1_without_staging``, ``main_path``, ``differential``, then
 ``serve``, ``prefill``, ``consistency`` and ``profile`` for each model,
-the training lines, ``kernels``), the card's
+the training lines, ``phases``, ``kernels``), the card's
 name and power limit as ``nvidia-smi`` gives them, and a last line
 ``{"ok": true, "device": {...}}``.  Any mismatch or failure exits non-zero
 before that line.  A ``phases`` line gives the host seconds of each group of
@@ -142,12 +151,12 @@ from repro_torch.kernels import ssd_scan as ssd_k  # noqa: E402
 from repro_torch import _tree  # noqa: E402
 from repro_torch.checkpoint.store import restore  # noqa: E402
 from repro_torch.configs.base import ShapeCfg  # noqa: E402
-from repro_torch.configs.registry import get_smoke_config  # noqa: E402
+from repro_torch.configs.registry import get_smoke_config, list_archs  # noqa: E402
 from repro_torch.data.pipeline import make_batch  # noqa: E402
 from repro_torch.launch import train as train_driver  # noqa: E402
 from repro_torch.launch.serve import Engine, make_requests, serve_requests  # noqa: E402
 from repro_torch.models import mla, ssd, transformer  # noqa: E402
-from repro_torch.optim.adamw import OptCfg  # noqa: E402
+from repro_torch.optim.adamw import OptCfg, adamw_update, fixed_by_gradients  # noqa: E402
 from repro_torch.train.steps import (init_train_state, make_grad_fn,  # noqa: E402
                                      make_prefill_step, make_train_step)
 
@@ -323,6 +332,28 @@ GRAD_CUT_LAYERS, GRAD_B, GRAD_S = 2, 2, 1024
 # and deepseek-v2-lite's dense MLA layers alike (K3 and S2 at (192, 128)), at
 # the MLA S2 row's shape: 2 x 2048 tokens
 MLA_GRAD_B, MLA_GRAD_S = 2, 2048
+# every other arch trained at full width (phase_train_archs), 2 x 2048 tokens
+# a step (Mamba-2 4 x 2048, the S3 row's shape).  The step is functional: as
+# it ends the old and the new state are both alive, with the gradients and
+# their clipped copy (24 bytes a parameter), and AdamW's float32 temporaries
+# of the largest leaf (about 20 bytes an element).  Depth is cut to whole
+# repeats of a segment's pattern (0 drops a segment) so that this stays
+# under about 65 GB of the card's 80: qwen2-7b 4 of 28 layers,
+# qwen2.5-14b 1 of 48 (its 0.78 B-element embedding alone takes 15.6 GB of
+# temporaries), qwen2-moe 3 of 24, deepseek-v2-lite its dense layer and 3
+# MoE layers, recurrentgemma-9b one (rglru, rglru, local_attn) group (its
+# tied 1.05 B-element embedding: 21 GB of temporaries).  mamba2-780m,
+# smollm-360m and seamless-m4t-medium run whole.
+TRAIN_ARCHS = ("mamba2-780m", "recurrentgemma-9b", "smollm-360m", "qwen2-7b", "qwen2.5-14b",
+               MOE, DEEPSEEK, SEAMLESS, VISION)
+TRAIN_CUT = {"qwen2-7b": (4,), "qwen2.5-14b": (1,), MOE: (3,), DEEPSEEK: (1, 3),
+             RGEMMA: (1, 0), VISION: (1,)}
+TRAIN_ARCH_SHAPE = {MAMBA: (4, 2048)}
+# llama-3.2-vision-90b: its one serving group (6.39 B parameters) takes its
+# gradients only; the step's 24 bytes a parameter would be 153 GB, and even
+# one layer (2.97 B) needs some 92 GB with its two 1.05 B-element vocab leaves
+GRAD_ONLY = {VISION: "the AdamW step of one group needs over 153 GB (24 bytes a parameter, "
+                     "before AdamW's float32 temporaries); one layer alone about 92 GB"}
 # the examples/train_tinylm_torch.py run: 40 steps, a failure injected at 12
 EXAMPLE_STEPS, EXAMPLE_FAIL_AT = 40, 12
 
@@ -491,7 +522,8 @@ def phase_build(device) -> tuple[dict, list[dict]]:
     compiled = {}
     pending = [_build.start_build(*_build.csrc_source(src))
                for src in ("matmul.cu", "flash_attention.cu", "flash_attention_bwd.cu",
-                           "decode_attention.cu", "ssd_scan.cu", "rglru_scan.cu")]
+                           "decode_attention.cu", "ssd_scan.cu", "ssd_scan_bwd.cu",
+                           "rglru_scan.cu")]
     for dname, gal, paper, large in ALL_DESIGNS:
         for tag, size in (("paper", paper), ("large", large)):
             module, name, fn, _ = compile_design(gal, size, device)
@@ -1371,8 +1403,8 @@ def k5_case(case: str, B, S, H, P, N, Q, device, g, rates=(0.01, 0.5)) -> dict:
     }
 
 
-def stage_profile(fn, calls: int = 5) -> dict:
-    """K5's kernels as ``torch.profiler`` traces ``calls`` calls: each
+def stage_profile(fn, stages=ssd_k.STAGES, calls: int = 5) -> dict:
+    """K5's kernels (or ``stages``) as ``torch.profiler`` traces ``calls`` calls: each
     kernel's device time and launches a call, and the launches a call in all
     (``cuda_launches_per_call``).  The traced calls follow a step of as many
     calls that the profiler runs and discards (its warm-up), since the first
@@ -1388,10 +1420,10 @@ def stage_profile(fn, calls: int = 5) -> dict:
                 fn()
             torch.cuda.synchronize()
             prof.step()
-    times = {stage: 0.0 for stage in ssd_k.STAGES}
-    counts = {stage: 0 for stage in ssd_k.STAGES}
+    times = {stage: 0.0 for stage in stages}
+    counts = {stage: 0 for stage in stages}
     for e in prof.key_averages():
-        for stage in ssd_k.STAGES:
+        for stage in stages:
             if stage in e.key and e.self_device_time_total > 0:
                 times[stage] += e.self_device_time_total / calls / 1e3
                 counts[stage] += e.count
@@ -1497,6 +1529,161 @@ def phase_kernels_k6(device) -> list[dict]:
             k6_case("consistency", *CONSIST[RGEMMA], D, device, g)]
     rows[0]["checks"] = [k6_case("ragged", 2, 1000, 4000, device, g)] + [
         k6_case("test_rglru_scan", 2, S, d, device, g) for S, d in [(64, 32), (100, 48), (128, 8)]]
+    return rows
+
+
+# -- the scans' backwards (S3, S4) ----------------------------------------------------
+
+
+def ssd_bwd_flops(B, S, H, P, N, Q) -> float:
+    """Operations of the SSD scan's gradients, chunk by chunk (q positions,
+    p = q (q + 1) / 2 causal pairs), per head: dy x^T over the pairs and the
+    pairs' weights times dy into dx (C B^T is the forward's, kept), the
+    weighted pairs into dB and into dC; in every chunk after the first the
+    state gradient's increment (C o exp(cum))^T dy and exp(cum) dy h_c^T into
+    dC, in every chunk before the last B G into dx and x G^T into dB.
+    Element-wise terms of q P or fewer operations per head are left out, so
+    the count stays a lower bound."""
+    starts = list(range(0, S, Q))
+    total = 0.0
+    for i, c0 in enumerate(starts):
+        q = min(Q, S - c0)
+        pairs = q * (q + 1) / 2
+        per_head = pairs * (2.0 * P + 2.0 * P + 4.0 * N)
+        per_head += 2.0 * q * N * P * (2 * (i > 0) + 2 * (i < len(starts) - 1))
+        total += B * H * per_head
+    return total
+
+
+def s3_case(case: str, B, S, H, P, N, Q, device, g, rates=(0.001, 0.02)) -> dict:
+    """S3 against its plain backward (the recurrence walked back one position
+    at a time, in float64) on the same inputs: x, B, C and dy normal, decay
+    logs uniform in [-rates[1], -rates[0]] (Mamba-2's slow decays unless a
+    case asks otherwise), y and the scratch from K5's forward on the card.
+    Each of dx, ddA, dB, dC within ``SCAN_TOL`` of its largest |plain|."""
+    lo, hi = rates
+    x = seeded((B, S, H, P), F32, device, g)
+    dA = -(torch.rand((B, S, H), generator=g) * (hi - lo) + lo).to(device)
+    Bc, Cc = (seeded((B, S, N), F32, device, g) for _ in range(2))
+    dy = seeded((B, S, H, P), F32, device, g)
+    xk, dAk, dyk = x.transpose(1, 2), dA.transpose(1, 2), dy.transpose(1, 2)
+    y, scratch = ssd_k._forward(xk, dAk, Bc, Cc, Q)
+    kernel = lambda: ssd_k.ssd_scan_bwd(xk, dAk, Bc, Cc, y, dyk, scratch, chunk=Q)
+    before = ssd_k.bwd_launches
+    got = kernel()
+    torch.cuda.synchronize()
+    if ssd_k.bwd_launches != before + 1:
+        fail(f"ssd_scan_bwd counted {ssd_k.bwd_launches - before} launches for one call")
+    want = ref.ssd_scan_bwd_ref(*(t.double() for t in (x, dA, Bc, Cc, dy)))
+    name = f"ssd_scan_bwd[{case} {B}x{S} H{H} P{P} N{N} Q{Q} float32]"
+    errs, plain = {}, {}
+    model_layout = (got[0].transpose(1, 2), got[1].transpose(1, 2), got[2], got[3])
+    for part, a, b in zip(("dx", "ddA", "dB", "dC"), model_layout, want):
+        errs[part] = float((a.double() - b).abs().max())
+        plain[part] = float(b.abs().max())
+        limit = SCAN_TOL * plain[part]
+        if a.shape != b.shape or not errs[part] <= limit:
+            fail(f"{name}: {part} max |difference| {errs[part]} outside "
+                 f"{SCAN_TOL} x max |plain| = {limit}")
+    del want
+    kept = sum(int(np.prod(shape)) for shape in ssd_k.scratch_shapes(B, H, S, P, N, Q).values())
+    # x, y, dy, dx; dA, ddA; B, C, dB, dC; the forward's scratch, all float32
+    nbytes = (4 * B * S * H * P + 2 * B * S * H + 4 * B * S * N + kept) * 4
+    bound_ms, bound_by = bound(ssd_bwd_flops(B, S, H, P, N, min(Q, S)), nbytes, F32,
+                               TF32X3_FLOPS)
+    device_ms, why = graph_ms(kernel)
+    profile = stage_profile(kernel, ssd_k.BWD_STAGES)
+    row = {
+        "name": name, "route": "cuda", "source": "src/repro_torch/csrc/ssd_scan_bwd.cu",
+        "replaces": "src/repro/models/ssd.py:80 (no TPU kernel: XLA's autodiff of the jnp SSD "
+                    "core under jax.value_and_grad)",
+        "shape": {"B": B, "S": S, "H": H, "P": P, "N": N, "chunk": Q, "dtype": "float32",
+                  "decay_logs": [-hi, -lo]},
+        "launches": None, "max_abs_err": max(errs.values()), "max_abs_err_by_output": errs,
+        "max_abs_plain_by_output": plain,
+        "err_over_limit_by_output": {k: errs[k] / (SCAN_TOL * plain[k]) for k in errs},
+        "tolerance": f"{SCAN_TOL} * max|plain| per output (plain in float64)",
+        "ms": time_ms(kernel, 5),
+        "device_ms": device_ms, **({"device_ms_note": why} if why else {}),
+        **profile,
+        "plain_ms": time_ms(lambda: ref.ssd_scan_bwd_ref(x, dA, Bc, Cc, dy), 1),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None,                    # no one PyTorch call computes the gradients
+    }
+    del got, model_layout, scratch, y
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_kernels_s3(device) -> list[dict]:
+    """S3 at Mamba-2's training shape (4 x 2048, H 48, P 64, N 128, chunk
+    256) with its slow decays, then checks: one chunk, two chunks, a ragged
+    S, the training shape at the reference test's decay logs, and 1 x 8192
+    (ddA sums dy.y - dx.x from the end of the sequence, so its error grows
+    with S)."""
+    g = torch.Generator(device="cpu").manual_seed(SEED + 12)
+    cfg = get_config(MAMBA)
+    _, H, P, N = ssd.dims(cfg)
+    Q = cfg.ssd.chunk
+    B, S = TRAIN_ARCH_SHAPE[MAMBA]
+    rows = [s3_case("train", B, S, H, P, N, Q, device, g)]
+    rows[0]["checks"] = [s3_case("one chunk", B, 200, H, P, N, Q, device, g),
+                         s3_case("two chunks", B, 512, H, P, N, Q, device, g),
+                         s3_case("ragged", B, 2000, H, P, N, Q, device, g),
+                         s3_case("train, fast decays", B, S, H, P, N, Q, device, g,
+                                 rates=(0.01, 0.5)),
+                         s3_case("long", 1, 8192, H, P, N, Q, device, g)]
+    return rows
+
+
+def s4_case(case: str, B, S, D, device, g) -> dict:
+    """S4 against its plain backward in float64 on the kernel's own h: a
+    uniform in [0.5, 0.999], b and dh normal; da and db within ``SCAN_TOL``
+    of their largest |plain|."""
+    a = (torch.rand((B, S, D), generator=g) * 0.499 + 0.5).to(device)
+    b, dh = (seeded((B, S, D), F32, device, g) for _ in range(2))
+    h = ops.rglru_scan(a, b)
+    kernel = lambda: rg.rglru_scan_bwd(a, h, dh)
+    before = rg.bwd_launches
+    got = kernel()
+    torch.cuda.synchronize()
+    if rg.bwd_launches != before + 1:
+        fail(f"rglru_scan_bwd counted {rg.bwd_launches - before} launches for one call")
+    want = ref.rglru_scan_bwd_ref(a.double(), h.double(), dh.double())
+    name = f"rglru_scan_bwd[{case} {B}x{S}x{D} float32]"
+    errs, plain = {}, {}
+    for part, x, w in zip(("da", "db"), got, want):
+        errs[part] = float((x.double() - w).abs().max())
+        plain[part] = float(w.abs().max())
+        if not errs[part] <= SCAN_TOL * plain[part]:
+            fail(f"{name}: {part} max |difference| {errs[part]} outside "
+                 f"{SCAN_TOL} x max |plain|")
+    bound_ms, bound_by = bound(3.0 * B * S * D, 5 * B * S * D * 4, F32)
+    return {
+        "name": name, "route": "cuda", "source": "src/repro_torch/csrc/rglru_scan.cu",
+        "replaces": "src/repro/models/rglru.py:94 (no TPU kernel: XLA's autodiff of the "
+                    "reference's associative_scan)",
+        "kernel": "rglru_bwd_kernel", "shape": {"B": B, "S": S, "D": D, "dtype": "float32"},
+        "launches": None, "max_abs_err": max(errs.values()), "max_abs_err_by_output": errs,
+        "max_abs_plain_by_output": plain,
+        "err_over_limit_by_output": {k: errs[k] / (SCAN_TOL * plain[k]) for k in errs},
+        "tolerance": f"{SCAN_TOL} * max|plain| per output (plain in float64)",
+        "ms": time_ms(kernel, 20), "device_ms": graph_ms(kernel)[0],
+        "plain_ms": time_ms(lambda: ref.rglru_scan_bwd_ref(a, h, dh), 2),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None,                    # no one PyTorch call computes the gradients
+    }
+
+
+def phase_kernels_s4(device) -> list[dict]:
+    """S4 at RecurrentGemma's training shape (2 x 2048, d_rnn 4096), then
+    checks: its prefill's 2 x 4096, ragged S and D, one round."""
+    g = torch.Generator(device="cpu").manual_seed(SEED + 13)
+    D = get_config(RGEMMA).rglru.d_rnn
+    rows = [s4_case("train", *TRAIN_ARCH_SHAPE.get(RGEMMA, (2, 2048)), D, device, g)]
+    rows[0]["checks"] = [s4_case("2 x 4096", *PREFILL[RGEMMA], D, device, g),
+                         s4_case("ragged", 2, 1000, 4000, device, g),
+                         s4_case("one round", 2, 100, 48, device, g)]
     return rows
 
 
@@ -1631,21 +1818,25 @@ def phase_kernels_s2(device) -> list[dict]:
 
 # -- serving ------------------------------------------------------------------------
 
-KERNELS = {"lower_to_cuda": to_cuda, "matmul": mm, "flash_attention": fa,
-           "flash_attention_bwd": fab, "decode_attention": dec, "ssd_scan": ssd_k,
-           "rglru_scan": rg, "rtl_sim": sim_cuda}
+# each kernel's launch counter: the module that counts it and the attribute
+# (S3 and S4 count on the module of their forward)
+KERNELS = {"lower_to_cuda": (to_cuda, "launches"), "matmul": (mm, "launches"),
+           "flash_attention": (fa, "launches"), "flash_attention_bwd": (fab, "launches"),
+           "decode_attention": (dec, "launches"), "ssd_scan": (ssd_k, "launches"),
+           "ssd_scan_bwd": (ssd_k, "bwd_launches"), "rglru_scan": (rg, "launches"),
+           "rglru_scan_bwd": (rg, "bwd_launches"), "rtl_sim": (sim_cuda, "launches")}
 
 
 def zero_counts() -> None:
-    for module in KERNELS.values():
-        module.launches = 0
+    for module, attr in KERNELS.values():
+        setattr(module, attr, 0)
     fa.by_shape.clear()
     fab.by_shape.clear()
     dec.by_shape.clear()
 
 
 def counts() -> dict:
-    return {name: module.launches for name, module in KERNELS.items()}
+    return {name: getattr(module, attr) for name, (module, attr) in KERNELS.items()}
 
 
 def shape_counts() -> dict:
@@ -2017,12 +2208,16 @@ def train_example():
 
 
 def train_launches(cfg) -> dict:
-    """K3 and S2 launches of one train step: a forward over every attention
-    or MLA layer, again in the backward under remat="block", and S2 once a
-    layer."""
-    n = layers(cfg)["attn"] + layers(cfg)["mla"]
-    return {"flash_attention": n * (2 if cfg.remat == "block" else 1),
-            "flash_attention_bwd": n}
+    """Launches of one gradient: K3 over every self-attention, MLA,
+    cross-attention and encoder layer's forward, again in the backward under
+    remat="block", and S2 once a layer; K5 and S3 over the SSD layers, K6
+    and S4 over the RG-LRU layers, alike."""
+    n = layers(cfg)
+    attn, remat = n["attn"] + n["mla"] + n["cross"] + n["enc"], 2 if cfg.remat == "block" else 1
+    out = {"flash_attention": attn * remat, "flash_attention_bwd": attn,
+           "ssd_scan": n["ssd"] * remat, "ssd_scan_bwd": n["ssd"],
+           "rglru_scan": n["rglru"] * remat, "rglru_scan_bwd": n["rglru"]}
+    return {k: v for k, v in out.items() if v}
 
 
 def states_equal(a, b) -> bool:
@@ -2138,37 +2333,202 @@ def train_step_profile(cfg, state, device) -> dict:
             "top_kernels_ms": [[k[:80], t] for k, t in by_kernel[:10]]}
 
 
-def phase_train_card_vs_cpu(device) -> dict:
-    """One train step of tinyllama's smoke config (float32) on the card
-    (K3 ``flash_f32`` and S2) against the same step on the CPU (the plain
-    versions) from one state made on the host, every leaf float32 (the
-    config's bfloat16 projection weights too: a bfloat16 leaf rounds apart
-    by one unit where the two sides' float32 gradients straddle a rounding
-    boundary): each parameter leaf within 1e-4 of its largest magnitude."""
-    cfg = get_smoke_config(ARCH)
+def phase_train_card_vs_cpu(device, arch: str) -> dict:
+    """One train step of the arch's smoke config (float32) on the card (K3
+    ``flash_f32`` and S2, K5 and S3, K6 and S4, by its layers) against the
+    CPU (the plain versions) from one state made on the host, every leaf
+    float32 (the config's bfloat16 projection weights too: a bfloat16 leaf
+    rounds apart by one unit where the two sides' float32 gradients straddle
+    a rounding boundary), in ``make_train_step``'s two halves, each side from
+    its own gradients: the loss (rtol 1e-5) and the gradients, each leaf
+    within 1e-5 of its largest magnitude; then each parameter leaf within
+    1e-4 of its largest magnitude at every element whose step the gradient
+    check fixes (``adamw.fixed_by_gradients``; at most 1 % are left out).
+    The row gives the count left out by leaf and the left-out element that
+    stepped furthest apart, with its gradient on both sides."""
+    cfg = get_smoke_config(arch)
     state = _tree.map(lambda t: t.float() if t.dtype == torch.bfloat16 else t,
                       init_train_state(SEED, cfg, device="cpu"))
-    batch = make_batch(cfg, ShapeCfg("smoke", 64, 4, "train"), step=0)
+    batch = {k: torch.as_tensor(v) for k, v in make_batch(
+        cfg, ShapeCfg("smoke", 64, 4, "train"), step=0).items()}
     opt = OptCfg(**TRAIN_OPT)
+    on_card = _tree.map(lambda t: t.to(device), state)
     zero_counts()
-    card, m_card = make_train_step(cfg, opt, device=device)(
-        _tree.map(lambda t: t.to(device), state), batch)
+    loss_card, _, g_card = make_grad_fn(cfg)(on_card["params"],
+                                              {k: v.to(device) for k, v in batch.items()})
+    card, _, _ = adamw_update(g_card, on_card["opt"], on_card["params"], opt)
     torch.cuda.synchronize()
     n = counts()
-    expect("train card vs cpu", n, **train_launches(cfg))
-    cpu, m_cpu = make_train_step(cfg, opt, device="cpu")(state, batch)
-    worst = 0.0
-    for key, want in _tree.with_paths(cpu["params"]).items():
-        got = _tree.with_paths(card["params"])[key].cpu().float()
-        err = float((got - want.float()).abs().max()) / float(want.float().abs().max())
-        worst = max(worst, err)
-        if not err <= 1e-4:
-            fail(f"train card vs cpu: {key} differs by {err} of its largest magnitude")
+    expect(f"train card vs cpu {arch}", n, **train_launches(cfg))
+    loss_cpu, _, g_cpu = make_grad_fn(cfg)(state["params"], batch)
+    cpu, _, _ = adamw_update(g_cpu, state["opt"], state["params"], opt)
+    if not abs(float(loss_card) - float(loss_cpu)) <= 1e-5 * abs(float(loss_cpu)):
+        fail(f"train card vs cpu {arch}: loss {float(loss_card)} against {float(loss_cpu)}")
+    fixed = _tree.with_paths(fixed_by_gradients(g_cpu, state["opt"], state["params"], opt))
+    left_out = {key: int((~m).sum()) for key, m in fixed.items() if not m.all()}
+    n_params = sum(m.numel() for m in fixed.values())
+    if not sum(left_out.values()) <= 0.01 * n_params:
+        fail(f"train card vs cpu {arch}: the step check leaves out {sum(left_out.values())} "
+             f"of {n_params} elements (limit 1 %)")
+    worst = {"gradient": 0.0, "param": 0.0}
+    apart = {"step_err_over_max": 0.0}
+    g_card, g_cpu = _tree.with_paths(g_card), _tree.with_paths(g_cpu)
+    for key, want in g_cpu.items():
+        scale = float(want.abs().max())
+        err = float((g_card[key].cpu() - want).abs().max())
+        if not err <= 1e-5 * scale:
+            fail(f"train card vs cpu {arch}: gradient {key} differs by {err} against a "
+                 f"largest magnitude of {scale} (limit 1e-5 of it)")
+        worst["gradient"] = max(worst["gradient"], err / scale if scale else 0.0)
+    card = _tree.with_paths(card)
+    for key, want in _tree.with_paths(cpu).items():
+        scale = float(want.abs().max())
+        diff = (card[key].cpu() - want).abs()
+        err = float((diff * fixed[key]).max())
+        if not err <= 1e-4 * scale:
+            fail(f"train card vs cpu {arch}: param {key} differs by {err} against a largest "
+                 f"magnitude of {scale} where the gradient check fixes its step (limit 1e-4 "
+                 f"of it)")
+        if not scale:
+            continue
+        worst["param"] = max(worst["param"], err / scale)
+        out = diff * ~fixed[key] / scale
+        if float(out.max()) > apart["step_err_over_max"]:
+            i = int(out.argmax())
+            apart = {"leaf": key, "step_err_over_max": float(out.max()),
+                     "g_card": float(g_card[key].flatten()[i]),
+                     "g_cpu": float(g_cpu[key].flatten()[i]),
+                     "leaf_max_abs_g_cpu": float(g_cpu[key].abs().max())}
     out = {"arch": cfg.name, "dtype": cfg.dtype, "batch": 4, "seq": 64,
-           "loss_card": float(m_card["loss"]), "loss_cpu": float(m_cpu["loss"]),
-           "worst_param_err_over_max": worst, "limit": 1e-4, "launches": n}
-    emit("train_card_vs_cpu", out)
+           "loss_card": float(loss_card), "loss_cpu": float(loss_cpu),
+           "worst_gradient_err_over_max": worst["gradient"], "gradient_limit": 1e-5,
+           "worst_param_err_over_max": worst["param"], "limit": 1e-4,
+           "step_left_out": sum(left_out.values()), "step_elements": n_params,
+           "step_left_out_by_leaf": left_out, "step_left_out_furthest_apart": apart,
+           "launches": n}
+    emit(f"train_card_vs_cpu[{arch}]", out)
     return out
+
+
+def train_config(arch: str):
+    """The arch's config as ``phase_train_archs`` trains it: full width, its
+    depth cut where ``TRAIN_CUT`` says (repeats per segment, 0 drops one),
+    and the cut in words (None for the whole model)."""
+    cfg = get_config(arch)
+    if arch not in TRAIN_CUT:
+        return cfg, None
+    segs = tuple(Segment(s.pattern, r, s.ffn) for s, r in zip(cfg.segments, TRAIN_CUT[arch]) if r)
+    kept = cfg.scaled(segments=segs)
+    return kept, (f"{kept.n_layers} of {cfg.n_layers} layers: "
+                  + ", ".join(f"{r} x {'+'.join(s.pattern)}" for s, r in
+                              zip(cfg.segments, TRAIN_CUT[arch])))
+
+
+def step_shares(fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: its wall time, the device's
+    busy time and idle share, its six largest kernels, and the device time of
+    each kernel family (S2, K3, K5, S3, K6, S4) and its share; ``not
+    measured`` where the trace holds no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = [(e.key, e.self_device_time_total / 1e3) for e in prof.key_averages()
+              if e.self_device_time_total > 0]
+    busy = sum(t for _, t in events)
+    if not busy:
+        return {"wall_ms": wall, "device_ms": "not measured"}
+    # each family's kernel names as patterns (a template argument as the
+    # profiler may spell it: <true> or <(bool)1>)
+    families = {"s2": sorted({n for ns in fa.BWD_KERNELS.values() for n in ns}),
+                "k3": ["flash_bf16_wgmma", "flash_f32"],
+                "k5": ["ssd_chunk_cb", r"ssd_chunk_state<(false|\(bool\)0)>", "ssd_state_pass",
+                       "ssd_chunk_scan"],
+                "s3": [r"ssd_chunk_state<(true|\(bool\)1)>", r"ssd_bwd_\w+"],
+                "k6": ["rglru_kernel"], "s4": ["rglru_bwd_kernel"]}
+    out = {"wall_ms": wall, "device_ms": busy, "device_idle_share": 1 - busy / wall,
+           "top_kernels_ms": [[k[:80], t] for k, t in sorted(events, key=lambda e: -e[1])[:6]]}
+    for fam, names in families.items():
+        pattern = re.compile(rf"(?<!\w)(?:{'|'.join(names)})(?!\w)")
+        ms = sum(t for k, t in events if pattern.search(k))
+        out[f"{fam}_ms"], out[f"{fam}_share"] = ms, ms / busy
+    return out
+
+
+def phase_train_archs(device) -> dict:
+    """Every arch but tinyllama (whose ``train`` phase runs it whole) at full
+    width, bfloat16 with remat as its config has it, its depth cut where
+    ``TRAIN_CUT`` says: a warm-up gradient (every leaf checked finite and
+    non-zero), then two timed AdamW steps (``make_train_step``) on the
+    synthetic stream, no checkpoints; the launches by kernel, and a profiled
+    step's device time by kernel family.  ``GRAD_ONLY`` archs run the
+    gradient three times and no step.  Returns each arch's launches."""
+    ran = {}
+    for arch in TRAIN_ARCHS:
+        cfg, cut = train_config(arch)
+        B, S = TRAIN_ARCH_SHAPE.get(arch, (2, 2048))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        state = ({"params": transformer.init_lm(SEED, cfg, device=device)} if arch in GRAD_ONLY
+                 else init_train_state(SEED, cfg, device=device))
+        if arch in CROSS_ARCHS:
+            open_gates(state["params"], SEED + 1)
+        init_s = time.perf_counter() - t0
+        batches = [{k: torch.as_tensor(v, device=device) for k, v in make_batch(
+            cfg, ShapeCfg("train", S, B, "train"), step=i).items()} for i in range(3)]
+        grad_fn = make_grad_fn(cfg)
+        zero_counts()
+        t0 = time.perf_counter()
+        loss, _, grads = grad_fn(state["params"], batches[0])
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        if not bool(torch.isfinite(loss)):
+            fail(f"train {arch}: the loss {float(loss)} is not finite")
+        leaves = _tree.with_paths(grads)
+        for key, gl in leaves.items():
+            if not bool(torch.isfinite(gl).all()) or float(gl.float().abs().max()) == 0.0:
+                fail(f"train {arch}: gradient {key} is not finite or all zero")
+        del grads
+        if arch in GRAD_ONLY:
+            step = lambda st, b: (st, {"loss": grad_fn(st["params"], b)[0]})
+        else:
+            step = make_train_step(cfg, OptCfg(**TRAIN_OPT), device=device)
+        times, losses = [], [float(loss)]
+        for b in batches[1:]:
+            t0 = time.perf_counter()
+            state, m = step(state, b)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(m["loss"]))
+        n = counts()
+        expect(f"train {arch}", n, **{k: 3 * v for k, v in train_launches(cfg).items()})
+        if not all(np.isfinite(losses)):
+            fail(f"train {arch}: losses {losses}")
+        peak = torch.cuda.max_memory_allocated(device)
+        shares = step_shares(lambda: step(state, batches[2]))
+        row = {"arch": arch, "layers": cfg.n_layers, "cut": cut or "none (whole model)",
+               "d_model": cfg.d_model, "dtype": cfg.dtype, "remat": cfg.remat,
+               "batch": B, "seq": S, "params": transformer.param_count(state["params"]),
+               "state_bytes": param_bytes(state), "init_seconds": init_s,
+               "warm_gradient_seconds": warm_s,
+               "timed": "gradients only" if arch in GRAD_ONLY else "AdamW steps",
+               "step_seconds": times, "step_seconds_mean": float(np.mean(times)),
+               "tokens_per_s": B * S / float(np.mean(times)), "losses": losses,
+               "peak_bytes": peak, "launches": n,
+               "gradients": f"{len(leaves)} leaves, each finite and non-zero",
+               "profiled_step": shares}
+        if arch in GRAD_ONLY:
+            row["why_gradients_only"] = GRAD_ONLY[arch]
+        emit(f"train[{arch}]", row)
+        ran[arch] = {"launches": n, "shape": (B, S)}
+        del state, batches, step
+    torch.cuda.empty_cache()
+    return ran
 
 
 @contextlib.contextmanager
@@ -2296,6 +2656,8 @@ def main() -> None:
         k3_moe, k4_moe = phase_kernels_moe(device)
         k3_mla = phase_kernels_mla(device)
         cross_rows = phase_kernels_cross(device)
+    with timed("kernels S3, S4"):
+        s3_rows, s4_rows = phase_kernels_s3(device), phase_kernels_s4(device)
     with timed("kernels S2"):
         s2_rows = phase_kernels_s2(device)
         a = get_config(ARCH).attn
@@ -2347,10 +2709,21 @@ def main() -> None:
     # the training paths, each with the counts at 0 just before it
     with timed("train"):
         trained = phase_train(device)
-        phase_train_card_vs_cpu(device)
+        for arch in list_archs():
+            phase_train_card_vs_cpu(device, arch)
         phase_train_grads(device)
         mla_grads = phase_train_grads(device, DEEPSEEK, MLA_GRAD_B, MLA_GRAD_S)
         example = phase_train_example(device)
+    # every other arch at full width, each with the counts at 0 just before it
+    with timed("train archs"):
+        archs = phase_train_archs(device)
+    # S3's and S4's rows: the full-width Mamba-2 and RecurrentGemma steps'
+    # launches, every one at the row's shape
+    for row, arch, kernel in ((s3_rows[0], MAMBA, "ssd_scan_bwd"),
+                              (s4_rows[0], RGEMMA, "rglru_scan_bwd")):
+        if archs[arch]["shape"] != (row["shape"]["B"], row["shape"]["S"]):
+            fail(f"{row['name']}: {arch} trained at {archs[arch]['shape']}")
+        row["launches"] = archs[arch]["launches"][kernel]
     # S2's rows: the full-width step's calls, the example's calls and
     # deepseek's MLA gradients', each all of its phase's; K3 at the training
     # shape: the full-width step's
@@ -2405,7 +2778,7 @@ def main() -> None:
                      f"{[shape_key(row) for row in pair]}")
         rows += k3 + k4
     rows += (k3_rows + k4_rows + k5_rows + k6_rows + k3_256 + k4_256 + k3_moe + k4_moe
-             + k3_mla + s1_rows + [k3_train] + s2_rows)
+             + k3_mla + s1_rows + [k3_train] + s2_rows + s3_rows + s4_rows)
     for row in rows:
         if row["launches"] <= 0:
             fail(f"the main path never launched {row['name']}")

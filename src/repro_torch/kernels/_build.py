@@ -174,13 +174,15 @@ def refuse_grad(what: str, *tensors) -> None:
     """Raise before any launch where autograd would need the kernel's
     gradient (grad enabled, an input that requires it) and the kernel has no
     backward: on the card its result would carry no ``grad_fn``, and the
-    gradient would be lost without a word."""
+    gradient would be lost without a word.  K2 (the HIR binding's matmul)
+    and K4 (decode attention) take it: no training path runs either; every
+    kernel a train step runs (K3, K5, K6) has its backward."""
     import torch
 
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise NotImplementedError(
-            f"{what}: no backward kernel on the card yet, so its inputs' gradients would be "
-            "dropped (ROADMAP.md queue A, item 8b)")
+            f"{what}: no backward kernel on the card, so its inputs' gradients would be "
+            "dropped (no training path runs it)")
 
 
 def check_launch(rc: int, what: str) -> None:

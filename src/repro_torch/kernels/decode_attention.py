@@ -37,10 +37,10 @@ workspace does not grow: a call that needs more raises ``RuntimeError``
 naming the size — run that call once eagerly before capturing.
 
 CUDA tensors launch the kernel or raise; CPU tensors take the plain version
-(``ref.decode_attention_ref``).  There is no backward kernel yet: on
-the card, under grad with an input that requires it, the call raises
-``NotImplementedError`` before any launch (ROADMAP queue A, item 8b); the
-CPU's plain version is differentiable.
+(``ref.decode_attention_ref``).  There is no backward kernel (decode
+steps do not train): on the card, under grad with an input that requires
+it, the call raises ``NotImplementedError`` before any launch; the CPU's
+plain version is differentiable.
 """
 
 from __future__ import annotations

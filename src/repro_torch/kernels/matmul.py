@@ -18,9 +18,9 @@ dtype (``check_schedule``): tiles divide the (padded) dims and rows are
 multiples of 16 up to 256) and a ring of at least 3 stages within shared
 memory; float32 adds the block's thread and register limits, 16-byte copies
 (bn and bk multiples of 4) and its ring of 3 slabs within shared memory.
-There is no backward kernel: on the card, under grad with an input that
-requires it, the call raises ``NotImplementedError`` before any launch
-(ROADMAP queue A, item 8b).
+There is no backward kernel (no training path runs it): on the card, under
+grad with an input that requires it, the call raises ``NotImplementedError``
+before any launch.
 """
 
 from __future__ import annotations

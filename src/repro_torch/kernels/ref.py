@@ -16,6 +16,7 @@ from typing import Optional, Union
 import torch
 
 NEG_INF = -1e30
+_SEGMENT = 64           # positions ssd_scan_bwd_ref replays at a time
 
 
 def matmul_ref(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -155,11 +156,77 @@ def ssd_scan_ref(xdt: torch.Tensor, dA: torch.Tensor, Bc: torch.Tensor, Cc: torc
 def rglru_scan_ref(a: torch.Tensor, b: torch.Tensor, h0: Optional[torch.Tensor] = None):
     """The diagonal linear recurrence ``h_t = a_t * h_{t-1} + b_t`` one step
     at a time, the ground truth of K6.  a, b (B,S,D); the carry is float32
-    from ``h0`` or zero.  Returns (h (B,S,D) in a's dtype, the final h)."""
-    h = (torch.zeros_like(a[:, 0], dtype=torch.float32) if h0 is None else h0.float())
-    af, bf = a.float(), b.float()
+    (float64 for float64 inputs) from ``h0`` or zero.  Returns (h (B,S,D) in
+    a's dtype, the final h)."""
+    acc = torch.promote_types(a.dtype, torch.float32)
+    h = torch.zeros_like(a[:, 0], dtype=acc) if h0 is None else h0.to(acc)
+    af, bf = a.to(acc), b.to(acc)
     hs = []
     for t in range(a.shape[1]):
         h = af[:, t] * h + bf[:, t]
         hs.append(h)
     return torch.stack(hs, 1).to(a.dtype), h
+
+
+def ssd_scan_bwd_ref(xdt: torch.Tensor, dA: torch.Tensor, Bc: torch.Tensor, Cc: torch.Tensor,
+                     dy: torch.Tensor):
+    """The gradient of ``ssd_scan_ref`` from h = 0 written out, one position
+    at a time: the ground truth of the SSD scan's backward kernel (S3) and
+    the backward the CPU takes.  Shapes as ``ssd_scan_ref``'s, dy (B,S,H,P).
+    Walking t down from S-1, with dh (B,H,N,P) the gradient of h_t:
+    ``dh_t = C_t dy_t^T + exp(dA_{t+1}) dh_{t+1}``, ``dx_t = B_t^T dh_t``,
+    ``dB_t = sum_h dh_t x_t^T``, ``dC_t = sum_h h_t dy_t``,
+    ``ddA_t = exp(dA_t) <dh_t, h_{t-1}>``.  The forward's states are
+    replayed: it keeps h every ``_SEGMENT`` positions and forms one
+    segment's again as the walk reaches it, so that it holds some 100 states
+    at Mamba-2's 2048 positions rather than all of them.  Returns (dx, ddA, dB, dC) in the dtypes of
+    xdt, dA, Bc, Cc; float32 arithmetic (float64 for float64 inputs)."""
+    B, S, H, P = xdt.shape
+    N = Bc.shape[-1]
+    acc = torch.promote_types(xdt.dtype, torch.float32)
+    x, a, Bf, Cf, g = (t.to(acc) for t in (xdt, dA, Bc, Cc, dy))
+    a = torch.exp(a)                                                       # (B,S,H)
+
+    def step(h, t):
+        return h * a[:, t, :, None, None] + torch.einsum("bn,bhp->bhnp", Bf[:, t], x[:, t])
+
+    h = torch.zeros((B, H, N, P), dtype=acc, device=xdt.device)
+    marks = []                                  # h_{s0 - 1} at each segment's start s0
+    for t in range(S):
+        if t % _SEGMENT == 0:
+            marks.append(h)
+        h = step(h, t)
+    dx, dB, dC = torch.empty_like(x), torch.empty_like(Bf), torch.empty_like(Cf)
+    ddA = torch.empty_like(a)
+    dh = torch.zeros_like(h)
+    for s0 in reversed(range(0, S, _SEGMENT)):
+        hs = [marks[s0 // _SEGMENT]]             # hs[i] = h_{s0 + i - 1}
+        for t in range(s0, min(s0 + _SEGMENT, S)):
+            hs.append(step(hs[-1], t))
+        for t in reversed(range(s0, min(s0 + _SEGMENT, S))):
+            dh = torch.einsum("bn,bhp->bhnp", Cf[:, t], g[:, t]) + (
+                dh * a[:, t + 1, :, None, None] if t + 1 < S else 0.0)
+            dx[:, t] = torch.einsum("bn,bhnp->bhp", Bf[:, t], dh)
+            dB[:, t] = torch.einsum("bhnp,bhp->bn", dh, x[:, t])
+            dC[:, t] = torch.einsum("bhnp,bhp->bn", hs[t - s0 + 1], g[:, t])
+            ddA[:, t] = a[:, t] * (dh * hs[t - s0]).sum((-2, -1))
+    return dx.to(xdt.dtype), ddA.to(dA.dtype), dB.to(Bc.dtype), dC.to(Cc.dtype)
+
+
+def rglru_scan_bwd_ref(a: torch.Tensor, h: torch.Tensor, dh: torch.Tensor):
+    """The gradient of ``rglru_scan_ref`` from h = 0, one step at a time in
+    float32 (float64 for float64 inputs): the ground truth of the RG-LRU
+    scan's backward kernel (S4) and the backward the CPU takes.  a, h (the
+    forward's output) and dh (B,S,D).  Walking t down from S-1:
+    ``g_t = dh_t + a_{t+1} g_{t+1}``, ``db_t = g_t``, ``da_t = g_t h_{t-1}``
+    with h_{-1} = 0.  Returns (da, db) in a's dtype."""
+    acc = torch.promote_types(a.dtype, torch.float32)
+    af, hf, dhf = a.to(acc), h.to(acc), dh.to(acc)
+    g = torch.zeros_like(af[:, 0])
+    gs = []
+    for t in reversed(range(a.shape[1])):
+        g = dhf[:, t] + (af[:, t + 1] * g if t + 1 < a.shape[1] else 0.0)
+        gs.append(g)
+    db = torch.stack(gs[::-1], 1)
+    da = db * torch.cat([torch.zeros_like(hf[:, :1]), hf[:, :-1]], 1)
+    return da.to(a.dtype), db.to(a.dtype)

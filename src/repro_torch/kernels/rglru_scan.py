@@ -9,10 +9,15 @@ in shared memory, and each warp replays its steps from its incoming carry.
 Ragged S and D are masked inside the kernel; nothing is padded.
 
 CUDA tensors launch the kernel or raise; CPU tensors take the plain version
-(``ref.rglru_scan_ref``, one step at a time).  There is no backward kernel yet: on
-the card, under grad with an input that requires it, the call raises
-``NotImplementedError`` before any launch (ROADMAP queue A, item 8b); the
-CPU's plain version is differentiable.
+(``ref.rglru_scan_ref``, one step at a time).
+
+Gradients.  Where autograd needs them (grad enabled, an input that requires
+grad), the call goes through ``RglruScan``, a ``torch.autograd.Function``: its
+forward is the same launch and keeps a and h; its backward is S4
+(``rglru_bwd_kernel`` in the same source: the recurrence of the gradient
+walked from the end of the sequence by the forward's blocked design, counted
+by ``bwd_launches``) on the card and the plain backward
+(``ref.rglru_scan_bwd_ref``) on the CPU.
 """
 
 from __future__ import annotations
@@ -22,21 +27,29 @@ import ctypes
 import torch
 
 from . import _build
-from .ref import rglru_scan_ref
+from .ref import rglru_scan_bwd_ref, rglru_scan_ref
 
 #: kernel launches made by ``rglru_scan``
 launches = 0
+#: launches of the backward kernel
+bwd_launches = 0
 
 _SYMBOL = "launch_rglru_scan_f32"
+_BWD_SYMBOL = "launch_rglru_scan_bwd_f32"
 _launchers: dict = {}
+_P, _I = ctypes.c_void_p, ctypes.c_int
+#: each launcher's argument types
+_ARGTYPES = {
+    _SYMBOL: [_P] * 3 + [_I] * 3 + [_P] * 2,
+    _BWD_SYMBOL: [_P] * 5 + [_I] * 3 + [_P] * 2,
+}
 
 
-def _launcher():
-    if _SYMBOL not in _launchers:
+def _launcher(symbol: str = _SYMBOL):
+    if symbol not in _launchers:
         lib = _build.load_library(*_build.csrc_source("rglru_scan.cu"))
-        _launchers[_SYMBOL] = _build.bind(lib, _SYMBOL, [ctypes.c_void_p] * 3
-                                          + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2)
-    return _launchers[_SYMBOL]
+        _launchers[symbol] = _build.bind(lib, symbol, _ARGTYPES[symbol])
+    return _launchers[symbol]
 
 
 def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -45,15 +58,26 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.ndim != 3 or a.shape != b.shape:
         raise ValueError(f"rglru_scan: a {tuple(a.shape)} and b {tuple(b.shape)} "
                          "must be one (B,S,D) shape")
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        return RglruScan.apply(a, b)
+    return _forward(a, b)
+
+
+def _check_card(*tensors) -> None:
+    if not all(t.dtype == torch.float32 for t in tensors):
+        raise TypeError("rglru_scan takes float32, got "
+                        + ", ".join(str(t.dtype) for t in tensors))
+    if not all(t.device == tensors[0].device for t in tensors):
+        raise ValueError("rglru_scan: operands on different devices: "
+                         + ", ".join(str(t.device) for t in tensors))
+    if any(t.stride(-1) != 1 for t in tensors):
+        raise ValueError("rglru_scan: the channel dim of every operand must be contiguous")
+
+
+def _forward(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.device.type != "cuda":
         return rglru_scan_ref(a, b)[0]
-    _build.refuse_grad("rglru_scan", a, b)
-    if a.dtype != torch.float32 or b.dtype != torch.float32:
-        raise TypeError(f"rglru_scan takes float32, got {a.dtype}, {b.dtype}")
-    if b.device != a.device:
-        raise ValueError(f"operands on different devices: {a.device}, {b.device}")
-    if a.stride(-1) != 1 or b.stride(-1) != 1:
-        raise ValueError("rglru_scan: the channel dim of a and b must be contiguous")
+    _check_card(a, b)
     B, S, D = a.shape
     h = torch.empty((B, S, D), dtype=a.dtype, device=a.device)
     strides = (ctypes.c_longlong * 6)(*a.stride()[:2], *b.stride()[:2], *h.stride()[:2])
@@ -63,3 +87,39 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     _build.check_launch(rc, _SYMBOL)
     launches += 1
     return h
+
+
+def rglru_scan_bwd(a: torch.Tensor, h: torch.Tensor, dh: torch.Tensor):
+    """The gradients (da, db) of ``rglru_scan``'s inputs from dh (B,S,D),
+    given a and the forward's output h.  S4 on the card, the plain backward
+    on the CPU."""
+    if a.device.type != "cuda":
+        return rglru_scan_bwd_ref(a, h, dh)
+    if dh.stride(-1) != 1:
+        dh = dh.contiguous()
+    _check_card(a, h, dh)
+    B, S, D = a.shape
+    da, db = (torch.empty((B, S, D), dtype=a.dtype, device=a.device) for _ in range(2))
+    strides = (ctypes.c_longlong * 10)(*(s for t in (a, h, dh, da, db) for s in t.stride()[:2]))
+    global bwd_launches
+    rc = _build.on_device(a.device, _launcher(_BWD_SYMBOL), a.data_ptr(), h.data_ptr(),
+                          dh.data_ptr(), da.data_ptr(), db.data_ptr(), B, S, D, strides)
+    _build.check_launch(rc, _BWD_SYMBOL)
+    bwd_launches += 1
+    return da, db
+
+
+class RglruScan(torch.autograd.Function):
+    """K6 with its gradient: the forward keeps a and h; the backward is
+    ``rglru_scan_bwd`` (S4 on the card, the plain backward on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        h = _forward(a, b)
+        ctx.save_for_backward(a, h)
+        return h
+
+    @staticmethod
+    def backward(ctx, dh):
+        a, h = ctx.saved_tensors
+        return rglru_scan_bwd(a, h, dh)

@@ -85,6 +85,24 @@ def adamw_update(grads, opt_state, params, cfg: OptCfg):
     return _pick(out, 0), new_state, {"grad_norm": gnorm, "lr": lr}
 
 
+def fixed_by_gradients(grads, opt_state, params, cfg: OptCfg, grad_tol: float = 1e-5,
+                       step_tol: float = 1e-4):
+    """The tree of masks of the elements whose new value ``adamw_update``
+    fixes to within ``step_tol`` of its leaf's largest new magnitude for
+    every gradient within ``grad_tol`` of its leaf's largest |g|: moving
+    every gradient to either end of that band moves such an element by no
+    more.  An element whose gradient is exactly 0 is always kept.  Two
+    devices whose gradients agree to ``grad_tol`` take one step at these
+    elements.  Elsewhere the step is not fixed: the first step moves an
+    element by lr g / (|g| + eps), so the band leaves its sign free where |g|
+    lies within it, and near |g| = eps a small change of g moves it far."""
+    new, lo, hi = (adamw_update(_tree.map(lambda g: g + end * grad_tol * g.abs().max(), grads),
+                                opt_state, params, cfg)[0] for end in (0, -1, 1))
+    return _tree.map(lambda g, p, a, b: ((b.float() - a.float()).abs()
+                                         <= step_tol * p.float().abs().max()) | (g == 0),
+                     grads, new, lo, hi)
+
+
 def _pick(tree, i: int):
     """Item ``i`` of each (param, m, v) triple at the leaves of ``tree``."""
     if isinstance(tree, dict):

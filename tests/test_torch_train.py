@@ -150,6 +150,37 @@ def test_adamw_update_matches_reference_and_decays_stacked_leaves():
     assert torch.equal(moved["bias"], pp["bias"])
 
 
+@pytest.mark.parametrize("arch", ["mamba2-780m", "qwen2.5-14b"])
+def test_fixed_by_gradients_keeps_only_steps_that_float_noise_cannot_move(arch):
+    """``adamw.fixed_by_gradients`` on two sets of gradients that agree far
+    inside its 1e-5 band: the arch's smoke gradients taken in float32 and in
+    float64 (rounded to float32), from one float32 state.  At every element
+    it keeps, AdamW's first steps on the two sets are within 1e-4 of the
+    leaf's largest magnitude; it leaves out every non-zero element whose
+    gradient's sign the band leaves free, and at most 1 % of all."""
+    cfg = registry.get_smoke_config(arch)
+    state = _tree.map(lambda t: t.float() if t.dtype == torch.bfloat16 else t,
+                      steps.init_train_state(0, cfg, device="cpu"))
+    batch = {k: torch.as_tensor(v) for k, v in
+             make_batch(cfg, ShapeCfg("t", seq_len=64, global_batch=4, kind="train")).items()}
+    grad_fn = steps.make_grad_fn(cfg)
+    _, _, g32 = grad_fn(state["params"], batch)
+    _, _, g64 = grad_fn(_tree.map(lambda t: t.double() if t.is_floating_point() else t,
+                                  state["params"]), batch)
+    opt = adamw.OptCfg(lr=3e-4, warmup_steps=2, decay_steps=8)
+    fixed = adamw.fixed_by_gradients(g32, state["opt"], state["params"], opt)
+    a, b = (adamw.adamw_update(g, state["opt"], state["params"], opt)[0]
+            for g in (g32, _tree.map(lambda t: t.float(), g64)))
+    n_out = n_all = 0
+    for g, keep, pa, pb in zip(*map(_tree.leaves, (g32, fixed, a, b))):
+        err = float(((pa - pb).abs() * keep).max())
+        assert err <= 1e-4 * float(pa.abs().max()), (err, float(pa.abs().max()))
+        free = (g.abs() <= 1e-5 * g.abs().max()) & (g != 0)
+        assert not (free & keep).any()
+        n_out, n_all = n_out + int((~keep).sum()), n_all + keep.numel()
+    assert n_out <= 0.01 * n_all, (n_out, n_all)
+
+
 # -- the gradients and the train step ----------------------------------------------
 
 

@@ -92,9 +92,10 @@ spread over the batch, on the CPU (``plain_on``).  The S2 rows
 ``library_ms``.  The S3 rows (``ssd_scan_bwd[...]``, the SSD scan's
 backward, six kernels a call) and S4 rows (``rglru_scan_bwd[...]``) carry
 each output's error against the float64 plain backward, ``device_ms``,
-S3's kernels' device times a call, and ``library_ms`` null.  Output: one
-JSON object per line (``env``,
-``build``, ``k1_without_staging``, ``main_path``, ``differential``, then
+S3's kernels' device times a call (its training row also their registers
+and spills), and ``library_ms`` null; S3's bound counts its products with
+B and C once over the heads' sum.  Output: one JSON object per line
+(``env``, ``build``, ``k1_without_staging``, ``main_path``, ``differential``, then
 ``serve``, ``prefill``, ``consistency`` and ``profile`` for each model,
 the training lines, ``phases``, ``kernels``), the card's
 name and power limit as ``nvidia-smi`` gives them, and a last line
@@ -1537,21 +1538,22 @@ def phase_kernels_k6(device) -> list[dict]:
 
 def ssd_bwd_flops(B, S, H, P, N, Q) -> float:
     """Operations of the SSD scan's gradients, chunk by chunk (q positions,
-    p = q (q + 1) / 2 causal pairs), per head: dy x^T over the pairs and the
-    pairs' weights times dy into dx (C B^T is the forward's, kept), the
-    weighted pairs into dB and into dC; in every chunk after the first the
-    state gradient's increment (C o exp(cum))^T dy and exp(cum) dy h_c^T into
-    dC, in every chunk before the last B G into dx and x G^T into dB.
-    Element-wise terms of q P or fewer operations per head are left out, so
-    the count stays a lower bound."""
+    p = q (q + 1) / 2 causal pairs).  Per head: dy x^T over the pairs and the
+    pairs' weights times dy into dx (C B^T is the forward's, kept); in every
+    chunk after the first the state gradient's increment (C o exp(cum))^T dy
+    and exp(cum) dy h_c^T into dC, in every chunk before the last B G into dx
+    and x G^T into dB.  Once per chunk, since B and C are shared by the
+    heads: the pairs' weights summed over the heads (W) times C into dB and
+    times B into dC.  Element-wise terms of q P or fewer operations per head
+    are left out, so the count stays a lower bound."""
     starts = list(range(0, S, Q))
     total = 0.0
     for i, c0 in enumerate(starts):
         q = min(Q, S - c0)
         pairs = q * (q + 1) / 2
-        per_head = pairs * (2.0 * P + 2.0 * P + 4.0 * N)
+        per_head = pairs * (2.0 * P + 2.0 * P)
         per_head += 2.0 * q * N * P * (2 * (i > 0) + 2 * (i < len(starts) - 1))
-        total += B * H * per_head
+        total += B * (H * per_head + pairs * 4.0 * N)
     return total
 
 
@@ -1627,6 +1629,7 @@ def phase_kernels_s3(device) -> list[dict]:
     Q = cfg.ssd.chunk
     B, S = TRAIN_ARCH_SHAPE[MAMBA]
     rows = [s3_case("train", B, S, H, P, N, Q, device, g)]
+    rows[0]["ptxas"] = ptxas_rows("ssd_scan_bwd.cu")
     rows[0]["checks"] = [s3_case("one chunk", B, 200, H, P, N, Q, device, g),
                          s3_case("two chunks", B, 512, H, P, N, Q, device, g),
                          s3_case("ragged", B, 2000, H, P, N, Q, device, g),

@@ -128,22 +128,16 @@ __device__ __forceinline__ void zero(float (&acc)[NJ][4]) {
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
 }
 
-// total, a warp's 16 rows x 8 NJ columns (NJ m16n8 tiles; element e of tile j
-// at row g + 8 (e / 2), column 8 j + 2 t + e % 2, g = lane / 4, t = lane % 4),
-// += A (16 x K) B (K x 8 NJ) in 3xTF32. afetch(half, k): A at row g + 8 half,
-// column k; bfetch(k, j): B at row k, column 8 j + g. The tensor cores round
-// each mma's sum toward zero against its largest addend, so every mma into a
-// running sum biases it by up to an ulp of that sum: the step's hi.hi and its
-// small lo.hi + hi.lo go into fresh accumulators of their own, which are then
-// added to `total` in f32, to nearest, rows g and g + 8 weighted by r0 and r1.
-template <int K, int NJ, typename FA, typename FB>
-__device__ __forceinline__ void mma3(float (&total)[NJ][4], FA afetch, FB bfetch,
-                                     float r0 = 1.f, float r1 = 1.f) {
+// The three TF32 passes of A (16 x K) B (K x 8 NJ) for a warp's 16 rows x 8 NJ
+// columns (NJ m16n8 tiles; element e of tile j at row g + 8 (e / 2), column
+// 8 j + 2 t + e % 2, g = lane / 4, t = lane % 4): big += A.hi B.hi and
+// small += A.lo B.hi + A.hi B.lo. afetch(half, k): A at row g + 8 half,
+// column k; bfetch(k, j): B at row k, column 8 j + g. UNROLL steps of 8 k are
+// unrolled (by default all of them up to K 32, else none).
+template <int K, int NJ, int UNROLL = (K <= 32 ? K / 8 : 1), typename FA, typename FB>
+__device__ __forceinline__ void mma3_passes(float (&big)[NJ][4], float (&small)[NJ][4],
+                                            FA afetch, FB bfetch) {
   const int t = threadIdx.x & 3;
-  float big[NJ][4], small[NJ][4];
-  zero(big);
-  zero(small);
-  constexpr int UNROLL = K <= 32 ? K / 8 : 1;
 #pragma unroll (UNROLL)
   for (int k0 = 0; k0 < K; k0 += 8) {
     uint32_t ah[4], al[4];
@@ -161,6 +155,20 @@ __device__ __forceinline__ void mma3(float (&total)[NJ][4], FA afetch, FB bfetch
       mma_tf32(big[j], ah, b0.x, b1.x);
     }
   }
+}
+
+// total += A B in 3xTF32, as mma3_passes lays them out. The tensor cores round
+// each mma's sum toward zero against its largest addend, so every mma into a
+// running sum biases it by up to an ulp of that sum: the step's hi.hi and its
+// small lo.hi + hi.lo go into fresh accumulators of their own, which are then
+// added to `total` in f32, to nearest, rows g and g + 8 weighted by r0 and r1.
+template <int K, int NJ, int UNROLL = (K <= 32 ? K / 8 : 1), typename FA, typename FB>
+__device__ __forceinline__ void mma3(float (&total)[NJ][4], FA afetch, FB bfetch,
+                                     float r0 = 1.f, float r1 = 1.f) {
+  float big[NJ][4], small[NJ][4];
+  zero(big);
+  zero(small);
+  mma3_passes<K, NJ, UNROLL>(big, small, afetch, bfetch);
 #pragma unroll
   for (int j = 0; j < NJ; ++j)
 #pragma unroll

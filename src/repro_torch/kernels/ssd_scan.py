@@ -33,7 +33,10 @@ states entering each chunk, the chunks' decays), and its backward is S3
 (``csrc/ssd_scan_bwd.cu``: ``BWD_STAGES``, six launches from three chunks on,
 one count of ``bwd_launches`` a call) on the card and the plain backward
 (``ref.ssd_scan_bwd_ref``) on the CPU.  S3 takes K5's scratch as the forward
-left it; its own (``bwd_scratch_shapes``) comes from ``torch.empty``.
+left it; its own (``bwd_scratch_shapes``, in ``BWD_SCRATCH_DTYPES``) comes
+from ``torch.empty``.  S3 sums the heads before its products with B and C,
+which the heads share: the (B, nc, QP, QP) ``w`` holds that sum, laid out as
+C Bᵀ.
 """
 
 from __future__ import annotations
@@ -56,8 +59,8 @@ CUDA_LAUNCHES_PER_CALL = len(STAGES)
 
 #: the backward's kernels (S3), in launch order; a call of one chunk skips
 #: the first two, of two chunks the second
-BWD_STAGES = ("ssd_chunk_state", "ssd_bwd_state_pass", "ssd_bwd_dx", "ssd_bwd_dbc",
-              "ssd_bwd_head_sum", "ssd_bwd_ddA")
+BWD_STAGES = ("ssd_chunk_state", "ssd_bwd_state_pass", "ssd_bwd_dx", "ssd_bwd_w", "ssd_bwd_dbc",
+              "ssd_bwd_ddA")
 
 #: calls of ``ssd_scan`` that reached the card (one a call, whatever the stages)
 launches = 0
@@ -71,7 +74,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 #: each launcher's source and argument types
 _BINDINGS = {
     _SYMBOL: ("ssd_scan.cu", [_P] * 8 + [_I] * 6 + [_P] * 3),
-    _BWD_SYMBOL: ("ssd_scan_bwd.cu", [_P] * 15 + [_I] * 6 + [_P] * 3),
+    _BWD_SYMBOL: ("ssd_scan_bwd.cu", [_P] * 17 + [_I] * 6 + [_P] * 3),
 }
 
 
@@ -94,11 +97,21 @@ def scratch_shapes(B: int, H: int, S: int, P: int, N: int, Q: int) -> dict:
             "decays": (B, H, nc) if nc > 1 else (0,)}
 
 
+#: the dtype of each tensor of ``bwd_scratch_shapes``
+BWD_SCRATCH_DTYPES = {"gst": torch.float32, "w": torch.float32, "cum": torch.float64,
+                      "r": torch.float64}
+
+
 def bwd_scratch_shapes(B: int, H: int, S: int, P: int, N: int, Q: int) -> dict:
-    """float32 scratch of the backward beside the forward's: the states'
-    gradients (B, H, nc, N, PS), only where there are two chunks or more, and
-    each head's part of dB and dC (2, B, H, S, N)."""
-    return {"gst": scratch_shapes(B, H, S, P, N, Q)["states"], "parts": (2, B, H, S, N)}
+    """Scratch of the backward beside the forward's: the states' gradients
+    (B, H, nc, N, PS), only where there are two chunks or more; W, the heads'
+    weighted dy xᵀ summed, (B, nc, QP, QP) as C Bᵀ; each chunk's cumulative
+    decay logs (B, H, nc, QP); and dy·y − dx·x per position, one partial per
+    64 columns of P, (B, H, nP, S)."""
+    nc = -(-S // Q)
+    QP, nP = -(-Q // TILE) * TILE, -(-P // TILE)
+    return {"gst": scratch_shapes(B, H, S, P, N, Q)["states"], "w": (B, nc, QP, QP),
+            "cum": (B, H, nc, QP), "r": (B, H, nP, S)}
 
 
 def ssd_scan(x: torch.Tensor, dA: torch.Tensor, Bc: torch.Tensor, Cc: torch.Tensor, *,
@@ -179,21 +192,28 @@ def ssd_scan_bwd(x, dA, Bc, Cc, y, dy, scratch, *, chunk: int):
     dx = torch.empty((B, S, H, P), dtype=x.dtype, device=x.device).transpose(1, 2)
     ddA = torch.empty((B, S, H), dtype=dA.dtype, device=x.device).transpose(1, 2)
     dB, dC = (torch.empty((B, S, N), dtype=torch.float32, device=x.device) for _ in range(2))
-    gst, parts = (torch.empty(shape, dtype=torch.float32, device=x.device)
-                  for shape in bwd_scratch_shapes(B, H, S, P, N, chunk).values())
+    own = [torch.empty(shape, dtype=BWD_SCRATCH_DTYPES[name], device=x.device)
+           for name, shape in bwd_scratch_shapes(B, H, S, P, N, chunk).items()]
+    _launch_bwd(x, dA, Bc, Cc, y, dy, scratch, (dx, ddA, dB, dC), own, chunk)
+    return dx, ddA, dB, dC
+
+
+def _launch_bwd(x, dA, Bc, Cc, y, dy, scratch, grads, own, chunk: int) -> None:
+    """One call of S3 into ``grads`` (dx, ddA, dB, dC), with the forward's
+    ``scratch`` (cb, states, decays) and its own (gst, w, cum, r) as given."""
+    B, H, S, P = x.shape
+    dx, ddA, dB, dC = grads
     cb, states, decays = scratch
     strides = (ctypes.c_longlong * 22)(*x.stride()[:3], *dA.stride(), *Bc.stride()[:2],
                                        *Cc.stride()[:2], *y.stride()[:3], *dy.stride()[:3],
                                        *dx.stride()[:3], *ddA.stride())
-    sizes = (ctypes.c_longlong * 5)(cb.numel(), states.numel(), decays.numel(), gst.numel(),
-                                    parts.numel())
+    sizes = (ctypes.c_longlong * 7)(*(t.numel() for t in (cb, states, decays, *own)))
     global bwd_launches
     rc = _build.on_device(x.device, _launcher(_BWD_SYMBOL), *(t.data_ptr() for t in (
-        x, dA, Bc, Cc, y, dy, cb, states, decays, dx, ddA, dB, dC, gst, parts)),
-        B, H, S, P, N, chunk, strides, sizes)
+        x, dA, Bc, Cc, y, dy, cb, states, decays, dx, ddA, dB, dC, *own)),
+        B, H, S, P, Bc.shape[-1], chunk, strides, sizes)
     _build.check_launch(rc, _BWD_SYMBOL)
     bwd_launches += 1
-    return dx, ddA, dB, dC
 
 
 class SsdScan(torch.autograd.Function):

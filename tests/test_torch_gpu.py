@@ -1123,6 +1123,60 @@ def test_ssd_scan_launcher_refuses_scratch_smaller_than_its_layout_on_card():
     assert torch.equal(y, ssd_k.ssd_scan(x, dA, Bc, Cc, chunk=256))
 
 
+def _ssd_bwd_inputs(dev, B, S, H, P, N, chunk, rates):
+    """(B,H,S,P) views of x and dy, dA, B, C, and K5's y and scratch for them."""
+    lo, hi = rates
+    xs, dAs, Bc, Cc = _on(dev, "float32", *ssd_operands(B, S, H, P, N, lo=lo, hi=hi))
+    dy = torch.randn(xs.shape, generator=torch.Generator().manual_seed(3)).to(dev)
+    x, dA, dy = xs.transpose(1, 2), dAs.transpose(1, 2), dy.transpose(1, 2)
+    y, scratch = ssd_k._forward(x, dA, Bc, Cc, chunk)
+    return x, dA, Bc, Cc, dy, y, scratch
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,P,N,chunk,rates", [SSD_BWD_CASES_CARD[0], SSD_BWD_CASES_CARD[7]])
+def test_ssd_scan_bwd_gives_the_same_bits_twice_on_card(B, S, H, P, N, chunk, rates):
+    """S3 sums over heads and positions in a fixed order, with no float
+    atomics: two calls on the same inputs give equal dx, ddA, dB and dC, at
+    Mamba-2's training shape and at P 13 / N 7 over a ragged chunk."""
+    dev = _cuda_or_skip()
+    x, dA, Bc, Cc, dy, y, scratch = _ssd_bwd_inputs(dev, B, S, H, P, N, chunk, rates)
+    first = ssd_k.ssd_scan_bwd(x, dA, Bc, Cc, y, dy, scratch, chunk=chunk)
+    second = ssd_k.ssd_scan_bwd(x, dA, Bc, Cc, y, dy, scratch, chunk=chunk)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dx", "ddA", "dB", "dC"), first, second):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.gpu
+def test_ssd_scan_bwd_launcher_refuses_scratch_smaller_than_its_layout_on_card():
+    """S3's launcher holds each scratch tensor it is given to its layout:
+    each of the forward's C Bᵀ, states and decays and its own gst, W, cum
+    and r one element short is refused before any kernel runs, and counts no
+    launch; the scratch as the wrapper allocates it runs, and gives the
+    wrapper's result."""
+    dev = _cuda_or_skip()
+    B, S, H, P, N, chunk = 1, 600, 2, 80, 20, 256
+    x, dA, Bc, Cc, dy, y, scratch = _ssd_bwd_inputs(dev, B, S, H, P, N, chunk, (0.01, 0.5))
+    grads = (torch.empty_like(x), torch.empty_like(dA), torch.empty_like(Bc),
+             torch.empty_like(Cc))
+    own = [torch.empty(shape, dtype=ssd_k.BWD_SCRATCH_DTYPES[name], device=dev)
+           for name, shape in ssd_k.bwd_scratch_shapes(B, H, S, P, N, chunk).items()]
+    full = [*scratch, *own]
+    before = ssd_k.bwd_launches
+    for i in range(len(full)):
+        short = list(full)
+        short[i] = full[i].flatten()[1:]
+        with pytest.raises(RuntimeError, match="cudaError"):
+            ssd_k._launch_bwd(x, dA, Bc, Cc, y, dy, short[:3], grads, short[3:], chunk)
+    assert ssd_k.bwd_launches == before
+    ssd_k._launch_bwd(x, dA, Bc, Cc, y, dy, scratch, grads, own, chunk)
+    want = ssd_k.ssd_scan_bwd(x, dA, Bc, Cc, y, dy, scratch, chunk=chunk)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dx", "ddA", "dB", "dC"), grads, want):
+        assert torch.equal(a, b), name
+
+
 # -- the RTL simulator's kernel ---------------------------------------------------------
 
 

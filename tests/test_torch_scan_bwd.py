@@ -6,10 +6,11 @@ runs them.
   against ``jax.vjp`` of the reference's step-by-step scans, each gradient
   within 1e-5 of its largest |want|, over one chunk, two chunks, many chunks
   and a ragged S;
-* S3's chunked formulas (``csrc/ssd_scan_bwd.cu``) emulated in float64
-  against the plain backward, and in 3xTF32 as the tensor cores take them
-  against the float64 plain backward at Mamba-2's widths, within the kernel
-  rows' 2e-4 of the largest |want|;
+* S3's chunked formulas (``csrc/ssd_scan_bwd.cu``: the heads summed before
+  the products with B and C) emulated in float64 against the plain
+  backward, and in 3xTF32 as the tensor cores take them against the float64
+  plain backward at Mamba-2's widths and with heads whose decays differ by
+  orders of magnitude, within the kernel rows' 2e-4 of the largest |want|;
 * ``SsdScan`` and ``RglruScan`` under ``torch.autograd.gradcheck`` in
   float64, and the routing of ``ssd_scan`` / ``rglru_scan`` through them,
   with no launch counted on the CPU.
@@ -33,19 +34,26 @@ from test_torch_ssd_hopper import emulate, product
 TOL = 1e-5                 # of each gradient's largest |want|, against jax.vjp
 KERNEL_TOL = 2e-4          # the chip rows' SCAN_TOL, of each output's largest |plain|
 SLOW = (0.001, 0.02)       # Mamba-2's decay logs
+SPREAD = (0.001, 0.5)      # from Mamba-2's slowest to the reference test's fastest
 
 # (S, H, P, N, chunk): one chunk, two chunks, many chunks, a ragged S
 SSD_SHAPES = [(16, 2, 8, 6, 16), (32, 2, 8, 6, 16), (96, 3, 8, 5, 16), (77, 2, 12, 6, 16)]
 RGLRU_SHAPES = [(16, 8), (64, 32), (200, 48), (77, 5)]
 
 
-def ssd_inputs(B, S, H, P, N, seed=0, rates=(0.01, 0.5)):
+def ssd_inputs(B, S, H, P, N, seed=0, rates=(0.01, 0.5), per_head=False):
     """x (B,S,H,P), dA (B,S,H) in [-rates[1], -rates[0]], B, C (B,S,N) and
-    dy (B,S,H,P), float32 numpy from ``seed``."""
+    dy (B,S,H,P), float32 numpy from ``seed``.  ``per_head``: head h draws
+    its decay logs from the h-th of H slices of that range, equal in log
+    scale, so that the heads' decays differ by orders of magnitude."""
     rng = np.random.default_rng(seed)
     lo, hi = rates
     x = rng.standard_normal((B, S, H, P), np.float32)
-    dA = -rng.uniform(lo, hi, (B, S, H)).astype(np.float32)
+    if per_head:
+        edges = np.geomspace(lo, hi, H + 1)
+        dA = -rng.uniform(edges[:-1], edges[1:], (B, S, H)).astype(np.float32)
+    else:
+        dA = -rng.uniform(lo, hi, (B, S, H)).astype(np.float32)
     Bc, Cc = (rng.standard_normal((B, S, N), np.float32) for _ in range(2))
     dy = rng.standard_normal((B, S, H, P), np.float32)
     return x, dA, Bc, Cc, dy
@@ -91,11 +99,13 @@ def test_rglru_scan_bwd_ref_matches_reference_vjp(S, D):
 def emulate_bwd(x, dA, Bc, Cc, dy, y, Q, prod):
     """S3 in the model layout: x, dy, y (B,S,H,P), dA (B,S,H), Bc, Cc (B,S,N);
     ``prod`` forms each product.  Stage by stage as ``csrc/ssd_scan_bwd.cu``
-    computes: the states' gradients G_c (a reverse pass over chunks), dx, the
-    per-head parts of dB and dC summed over the heads, and ddA as the sum of
-    dy.y - dx.x from the end of the sequence in double.  cum and its
-    differences in double, exp only where t >= s; a ragged tail counts as
-    zero inputs."""
+    computes: the states' gradients G_c (a reverse pass over chunks); dx and
+    r = dy.y - dx.x in double; W = sum_h (dy_h x_h^T) o L_h, the heads added
+    in order; dB = W^T C and dC = W B, then the long products over (h, p),
+    each head's slice formed apart, weighted by w_h (or exp(cum_h)) and added
+    in head order; and ddA as r summed from the end of the sequence in
+    double.  cum and its differences in double, exp only where t >= s; a
+    ragged tail counts as zero inputs."""
     Bn, S, H, P = x.shape
     nc = -(-S // Q)
     f = x.dtype
@@ -129,16 +139,23 @@ def emulate_bwd(x, dA, Bc, Cc, dy, y, Q, prod):
     on = q[:, None] >= q[None, :]                                           # [t, s]
     L = torch.where(on, torch.exp(torch.where(on, cum[..., :, None] - cum[..., None, :], 0.0)),
                     0.0).to(f)
-    # stage 3: dx
+    # stage 3: dx, and r from its epilogue
     cb = prod(ck, bk.transpose(-1, -2))                                     # (B,nc,Q,Q) [t, s]
     dx = prod((cb[:, None] * L).transpose(-1, -2), gk) + w[..., None] * prod(bk[:, None], nxt)
-    # stages 4 and 5: E = dy x^T weighted, then dB and dC summed over the heads
-    EL = prod(gk, xk.transpose(-1, -2)) * L                                 # [t, s]
-    dB = (prod(EL.transpose(-1, -2), ck[:, None])
-          + w[..., None] * prod(xk, nxt.transpose(-1, -2))).sum(1)
-    dC = (prod(EL, bk[:, None]) + ecum[..., None] * prod(gk, hs.transpose(-1, -2))).sum(1)
-    # stage 6: ddA
     r = ((gk * yk).double().sum(-1) - (dx * xk).double().sum(-1)).reshape(Bn, H, nc * Q)
+    # stage 4: W, each head's E = dy x^T weighted, the heads added in order
+    EL = prod(gk, xk.transpose(-1, -2)) * L                                 # (B,H,nc,Q,Q) [t, s]
+    W = torch.zeros_like(EL[:, 0])
+    for h in range(H):
+        W = W + EL[:, h]
+    # stage 5: the N products after the head sum, then each head's slice of
+    # the products over (h, p), weighted per row, in head order
+    dB, dC = prod(W.transpose(-1, -2), ck), prod(W, bk)                     # (B,nc,Q,N)
+    xg = w[..., None] * prod(xk, nxt.transpose(-1, -2))                     # (B,H,nc,Q,N)
+    gh = ecum[..., None] * prod(gk, hs.transpose(-1, -2))
+    for h in range(H):
+        dB, dC = dB + xg[:, h], dC + gh[:, h]
+    # stage 6: ddA, r summed from the end of the sequence
     ddA = torch.flip(torch.cumsum(torch.flip(r[..., :S], [-1]), -1), [-1])
 
     def unchunk(t):
@@ -147,10 +164,11 @@ def emulate_bwd(x, dA, Bc, Cc, dy, y, Q, prod):
     return unchunk(dx.permute(0, 2, 3, 1, 4)), ddA.transpose(1, 2).to(f), unchunk(dB), unchunk(dC)
 
 
-@pytest.mark.parametrize("S,H,P,N,chunk", SSD_SHAPES + [(40, 2, 8, 6, 8)])
-@pytest.mark.parametrize("rates", [(0.01, 0.5), SLOW])
+@pytest.mark.parametrize("S,H,P,N,chunk", SSD_SHAPES + [(40, 2, 8, 6, 8), (64, 6, 8, 6, 16)])
+@pytest.mark.parametrize("rates", [(0.01, 0.5), SLOW, SPREAD])
 def test_chunked_formulas_equal_the_plain_backward_in_float64(S, H, P, N, chunk, rates):
-    args = [torch.from_numpy(a).double() for a in ssd_inputs(2, S, H, P, N, 1, rates)]
+    args = [torch.from_numpy(a).double()
+            for a in ssd_inputs(2, S, H, P, N, 1, rates, per_head=rates == SPREAD)]
     y, _ = ref.ssd_scan_ref(*args[:4])
     got = emulate_bwd(*args, y, chunk, torch.matmul)
     assert_close([g.numpy() for g in got], [w.numpy() for w in ref.ssd_scan_bwd_ref(*args)],
@@ -164,6 +182,26 @@ def test_three_tf32_passes_match_the_float64_backward_at_mamba2_widths(rates):
     x, dA, Bc, Cc, dy = map(torch.from_numpy, ssd_inputs(1, 512, 2, 64, 128, 2, rates))
     y = emulate(x, dA, Bc, Cc, 256)
     got = emulate_bwd(x, dA, Bc, Cc, dy, y, 256, lambda a, b: product(a, b, 3))
+    want = ref.ssd_scan_bwd_ref(*(t.double() for t in (x, dA, Bc, Cc, dy)))
+    assert_close([g.numpy() for g in got], [w.numpy() for w in want], KERNEL_TOL)
+
+
+# (B, S, H, P, N, chunk): several heads at a small S, four and two chunks,
+# then Mamba-2's head width over eight heads and two chunks
+SPREAD_SHAPES = [(2, 64, 6, 8, 6, 16), (2, 64, 6, 64, 128, 32), (1, 512, 8, 64, 128, 256)]
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk", SPREAD_SHAPES)
+def test_three_tf32_passes_hold_when_the_heads_are_summed_before_the_n_products(B, S, H, P, N,
+                                                                                chunk):
+    """Each head draws its decay logs from its own slice of [-0.5, -0.001]:
+    W adds heads whose weights exp(cum_t - cum_s) differ by orders of
+    magnitude before one product with B (or C), and the long products add
+    each head's slice in head order.  In 3xTF32, y from K5's emulated
+    arithmetic, every gradient within the kernel rows' 2e-4."""
+    x, dA, Bc, Cc, dy = map(torch.from_numpy, ssd_inputs(B, S, H, P, N, 4, SPREAD, per_head=True))
+    y = emulate(x, dA, Bc, Cc, chunk)
+    got = emulate_bwd(x, dA, Bc, Cc, dy, y, chunk, lambda a, b: product(a, b, 3))
     want = ref.ssd_scan_bwd_ref(*(t.double() for t in (x, dA, Bc, Cc, dy)))
     assert_close([g.numpy() for g in got], [w.numpy() for w in want], KERNEL_TOL)
 

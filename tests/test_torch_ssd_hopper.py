@@ -160,7 +160,10 @@ def test_tf32_rounds_to_nearest_ties_away():
 def test_scratch_and_launches_per_call():
     """At Mamba-2's prefill (4 x 2048, H 48, P 64, N 128, chunk 256) a call
     makes 8.4 MB of C Bᵀ and 50 MB of states, and launches one kernel a
-    stage; a call of one chunk has no states or decays."""
+    stage; a call of one chunk has no states or decays.  The backward (S3)
+    adds 50 MB of the states' gradients, 8.4 MB of W (the heads' sum, laid
+    out as C Bᵀ) and 3.1 MB each of cum and r: no per-head parts of dB and
+    dC, and no kernel to sum them."""
     shapes = ssd_k.scratch_shapes(4, 48, 2048, 64, 128, 256)
     size = {k: 4 * int(np.prod(v)) for k, v in shapes.items()}
     assert shapes["cb"] == (4, 8, 256, 256) and size["cb"] == 8_388_608
@@ -171,6 +174,19 @@ def test_scratch_and_launches_per_call():
     assert ssd_k.scratch_shapes(1, 2, 100, 18, 8, 128)["states"] == (0,)
     assert ssd_k.scratch_shapes(1, 1, 300, 18, 8, 256)["states"] == (1, 1, 2, 8, 20)
     assert ssd_k.CUDA_LAUNCHES_PER_CALL == len(ssd_k.STAGES) == 4
+    bwd = ssd_k.bwd_scratch_shapes(4, 48, 2048, 64, 128, 256)
+    size = {k: int(np.prod(v)) * ssd_k.BWD_SCRATCH_DTYPES[k].itemsize for k, v in bwd.items()}
+    assert sorted(bwd) == sorted(ssd_k.BWD_SCRATCH_DTYPES) == ["cum", "gst", "r", "w"]
+    assert bwd["w"] == shapes["cb"] == (4, 8, 256, 256) and size["w"] == 8_388_608
+    assert bwd["gst"] == shapes["states"] and size["gst"] == 50_331_648
+    assert bwd["cum"] == (4, 48, 8, 256) and bwd["r"] == (4, 48, 1, 2048)
+    assert size["cum"] == size["r"] == 3_145_728
+    assert ssd_k.bwd_scratch_shapes(2, 2, 150, 13, 7, 100) == {
+        "gst": (2, 2, 2, 7, 16), "w": (2, 2, 128, 128), "cum": (2, 2, 2, 128), "r": (2, 2, 1, 150)}
+    assert ssd_k.bwd_scratch_shapes(1, 2, 100, 80, 8, 128)["gst"] == (0,)
+    assert ssd_k.bwd_scratch_shapes(1, 2, 100, 80, 8, 128)["r"] == (1, 2, 2, 100)
+    assert ssd_k.BWD_STAGES == ("ssd_chunk_state", "ssd_bwd_state_pass", "ssd_bwd_dx",
+                                "ssd_bwd_w", "ssd_bwd_dbc", "ssd_bwd_ddA")
 
 
 if __name__ == "__main__":

@@ -81,21 +81,30 @@ against the float64 recurrence over its limit (``worst_over_tolerance``) and
 a bound for products on the TF32 tensor cores in three passes; the prefill
 row adds each kernel's registers
 and spills (``tools/ptxas_usage.py``).  The simulator rows (``rtl_sim[...]``)
-carry ``cycles``, ``ns_per_cycle``, ``run_ms`` (a whole ``sim.run``, the
-stimulus copied to the card and laid out there, the results copied back)
-and the state words a lane their byte bound counts; a loop nest's large
-size is nested under its paper row, held to its plain version on 16 lanes
-spread over the batch, on the CPU (``plain_on``).  The S2 rows
+carry ``device_ms`` (a CUDA graph of the launches), ``cycles``,
+``ns_per_cycle`` (of ``ms``), ``run_ms`` (a whole ``sim.run``, the
+stimulus copied to the card and laid out there, the results copied back),
+the state words and bytes a lane their byte bound counts (each word at its
+own size, 4 or 8 bytes; ``bound_ms_at_8_bytes_a_word`` beside it),
+``placement`` (each memory and shift register in registers, shared or
+global memory), ``word_bytes``, ``shared_bytes_per_lane`` and
+``lanes_per_block``; a loop nest's large size is nested under its paper
+row, held to its plain version on 16 lanes spread over the batch, on the
+CPU (``plain_on``); the gemm and gemm_shared rows and the large rows carry
+their kernels' registers and spills (``ptxas``), and gemm's a check on
+65,536 lanes held to its plain version on the card.  An ``s1_gap`` line
+sums launches x (ms - bound) over the rows the main path ran.  The S2 rows
 (``flash_attention_bwd[...]``) name the kernels of the route that ran
 (``flash_attention.bwd_route``: bfloat16 on the tensor cores below head dim
 256), and carry each output's error and the backward of SDPA as
 ``library_ms``.  The S3 rows (``ssd_scan_bwd[...]``, the SSD scan's
 backward, six kernels a call) and S4 rows (``rglru_scan_bwd[...]``) carry
 each output's error against the float64 plain backward, ``device_ms``,
-S3's kernels' device times a call (its training row also their registers
-and spills), and ``library_ms`` null; S3's bound counts its products with
+S3's kernels' device times a call (each training row also its kernels'
+registers and spills), and ``library_ms`` null; S3's bound counts its products with
 B and C once over the heads' sum.  Output: one JSON object per line
-(``env``, ``build``, ``k1_without_staging``, ``main_path``, ``differential``, then
+(``env``, ``build``, ``k1_without_staging``, ``main_path``, ``differential``,
+``s1_gap``, then
 ``serve``, ``prefill``, ``consistency`` and ``profile`` for each model,
 the training lines, ``phases``, ``kernels``), the card's
 name and power limit as ``nvidia-smi`` gives them, and a last line
@@ -167,6 +176,8 @@ SAMPLED_LANES = (0, 1, LANES // 2, LANES - 1)
 # the lanes a large loop nest's simulator kernel is held to its plain version
 # on, on the CPU: 16 spread over the batch, every block's warp a different one
 PLAIN_LANES = np.linspace(0, LANES - 1, 16).astype(np.int64)
+# lanes of the simulator's wide check: 2,048 blocks
+WIDE_LANES = 65536
 
 # published peaks of one H100 SXM (NVIDIA data sheet, dense)
 HBM_BYTES_PER_S = 3.35e12
@@ -891,13 +902,18 @@ def lanes_of(res, idx):
         trace=None if res.trace is None else {n: y[:, idx] for n, y in res.trace.items()})
 
 
-def s1_words(sim, lay) -> int:
-    """Words a lane the run must move at least: each ``st`` word and each
-    shift-register ring word read once and written once, each memory word
-    read once and written once more where the tape writes that memory."""
-    written = {ent[1] for ent in sim.clocked if ent[0] == "memwr"}
-    return (2 * (len(lay.slots) + lay.ring_rows)
-            + sum(d * (1 + (key in written)) for key, _, d in lay.mems))
+def s1_words(sim, lay) -> tuple[int, int]:
+    """Words and bytes a lane the run must move at least: each register word
+    and each shift-register ring word read once and written once, each
+    memory word read once and written once more where the tape writes that
+    memory; bytes at each word's own size, 4 or 8."""
+    words = nbytes = 0
+    for nb in lay.slot_bytes:
+        words, nbytes = words + 2, nbytes + 2 * nb
+    for p in lay.rings + lay.mems:
+        n = p.depth * (2 if p in lay.rings else 1 + p.written)
+        words, nbytes = words + n, nbytes + n * p.nbytes
+    return words, nbytes
 
 
 def same_sim_result(a, b) -> bool:
@@ -953,23 +969,76 @@ def s1_case(case, device) -> dict:
     if not same:
         fail(f"{case['name']}: the simulator kernel differs from its plain version")
     row["max_abs_err"] = 0
-    bufs = kernel.buffers(sim, batch, LANES, device)
+    row.update(s1_timing(kernel, sim, batch, LANES, cycles, device))
+    del full
+    return row
+
+
+def s1_timing(kernel, sim, batch, lanes, cycles, device) -> dict:
+    """A simulator kernel's time over ``lanes`` lanes and its byte bound (a
+    lane's state at each word's size; at 8 bytes a word, the count before
+    the words were narrowed, beside it), with where its state lives."""
+    bufs = kernel.buffers(sim, batch, lanes, device)
     iters = 3 if cycles > 1000 else 10
-    row["ms"] = time_ms(lambda: kernel.launch(bufs, LANES, cycles, None, device), iters)
-    words = s1_words(sim, kernel.layout)
-    row.update({"state_words_moved_per_lane": words,
-                "bound_ms": words * LANES * 8 / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-                "library_ms": None, "cycles": cycles, "ns_per_cycle": row["ms"] * 1e6 / cycles})
-    del bufs, full
+    ms = time_ms(lambda: kernel.launch(bufs, lanes, cycles, None, device), iters)
+    device_ms = graph_ms(lambda: kernel.launch(bufs, lanes, cycles, None, device),
+                         calls=3 if cycles > 1000 else 20)[0]
+    words, nbytes = s1_words(sim, kernel.layout)
+    lay = kernel.layout
+    del bufs
+    return {"ms": ms, "device_ms": device_ms,
+            "state_words_moved_per_lane": words, "state_bytes_moved_per_lane": nbytes,
+            "bound_ms": nbytes * lanes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "bound_ms_at_8_bytes_a_word": words * lanes * 8 / HBM_BYTES_PER_S * 1e3,
+            "library_ms": None, "cycles": cycles, "ns_per_cycle": ms * 1e6 / cycles,
+            "placement": lay.placement(), "word_bytes": lay.word_bytes(),
+            "shared_bytes_per_lane": lay.smem_lane_bytes,
+            "lanes_per_block": sim_cuda.LANES_PER_BLOCK}
+
+
+def s1_ptxas(case) -> list[dict]:
+    """Registers and spills of a simulator kernel's instantiations, from the
+    source the build wrote (``build/repro_torch/<stem>_<hash>.cu``)."""
+    return ptxas_rows(str(_build.build_dir() / f"{case['stem']}.cu"))
+
+
+def s1_wide_check(case, device, lanes: int = WIDE_LANES) -> dict:
+    """The design of ``case`` on ``lanes`` lanes (2,048 blocks at 65,536),
+    against ``_TorchOps`` on the same card: arrays, returns, valid flags,
+    conflict counts and traces.  A check no main path runs."""
+    sim, cycles = case["sim"], case["cycles"]
+    batch = rtl_stimulus(case["design"], lanes)
+    kernel = sim.cuda_kernel()
+    got = sim.run(batch, cycles, batched=True, trace=True, check_conflicts=False)
+    plain = {}
+    plain_ms = wall_ms(lambda: plain.update(res=plain_twin(sim).run(
+        batch, cycles, batched=True, trace=True, check_conflicts=False)))
+    name = f"rtl_sim[{case['design']},{case['hierarchy']},{lanes} lanes]"
+    if not same_sim_result(got, plain["res"]):
+        fail(f"{name}: the simulator kernel differs from its plain version")
+    row = {"name": name, "route": "cuda", "source": "src/repro_torch/core/codegen/sim_cuda.py",
+           "replaces": "src/repro/core/codegen/sim.py:797 (jit(scan(vmap(step))), "
+                       "no TPU kernel)",
+           "shape": {"design": case["design"], "hierarchy": case["hierarchy"], "size": "test",
+                     "lanes": lanes},
+           "launches": None, "tolerance": 0, "max_abs_err": 0, "plain_ms": plain_ms}
+    row.update(s1_timing(kernel, sim, batch, lanes, cycles, device))
     return row
 
 
 def phase_kernels_s1(cases, device) -> list[dict]:
     """Every simulator kernel at its main-path shape; a loop nest's large
-    size is nested under its paper row (``large``)."""
+    size is nested under its paper row (``large``).  The gemm and
+    gemm_shared rows (inline) and the large rows carry their kernels'
+    registers and spills; gemm's also a check on ``WIDE_LANES`` lanes."""
     rows, by_name = [], {}
     for case in cases:
         row = s1_case(case, device)
+        if case["tag"] == "large" or (case["design"] in ("gemm", "gemm_shared")
+                                      and case["hierarchy"] == "inline"):
+            row["ptxas"] = s1_ptxas(case)
+        if case["design"] == "gemm" and case["hierarchy"] == "inline":
+            row["checks"] = [s1_wide_check(case, device)]
         by_name[(case["design"], case["tag"])] = row
         if case["tag"] == "large":
             by_name[(case["design"], "paper")]["large"] = row
@@ -977,6 +1046,20 @@ def phase_kernels_s1(cases, device) -> list[dict]:
             rows.append(row)
     torch.cuda.empty_cache()
     return rows
+
+
+def s1_gap(rows) -> dict:
+    """launches x (ms - bound) summed over the simulator rows the main path
+    ran, under the byte bound at each word's size and at 8 bytes a word; and
+    with ``device_ms`` in place of ``ms`` (the launches' host time left out)."""
+    ran = [r for row in rows for r in (row, row.get("large")) if r and r["launches"]]
+    out = {"rows": len(ran), "launches": sum(r["launches"] for r in ran)}
+    for name, t in (("ms", "ms"), ("device_ms", "device_ms")):
+        if all(r[t] is not None for r in ran):
+            out[name] = sum(r["launches"] * (r[t] - r["bound_ms"]) for r in ran)
+            out[name + "_at_8_bytes_a_word"] = sum(
+                r["launches"] * (r[t] - r["bound_ms_at_8_bytes_a_word"]) for r in ran)
+    return out
 
 
 def phase_differential(cases, device) -> dict:
@@ -1667,6 +1750,7 @@ def s4_case(case: str, B, S, D, device, g) -> dict:
         "replaces": "src/repro/models/rglru.py:94 (no TPU kernel: XLA's autodiff of the "
                     "reference's associative_scan)",
         "kernel": "rglru_bwd_kernel", "shape": {"B": B, "S": S, "D": D, "dtype": "float32"},
+        "segment_steps": rg.BWD_SEGMENT,
         "launches": None, "max_abs_err": max(errs.values()), "max_abs_err_by_output": errs,
         "max_abs_plain_by_output": plain,
         "err_over_limit_by_output": {k: errs[k] / (SCAN_TOL * plain[k]) for k in errs},
@@ -1687,6 +1771,7 @@ def phase_kernels_s4(device) -> list[dict]:
     rows[0]["checks"] = [s4_case("2 x 4096", *PREFILL[RGEMMA], D, device, g),
                          s4_case("ragged", 2, 1000, 4000, device, g),
                          s4_case("one round", 2, 100, 48, device, g)]
+    rows[0]["ptxas"] = ptxas_rows("rglru_scan.cu")
     return rows
 
 
@@ -2693,6 +2778,7 @@ def main() -> None:
             row["large"]["launches"] = per_case.get(row["large"]["name"], 0)
             if row["large"]["launches"] <= 0:
                 fail(f"the main path never launched {row['large']['name']}")
+    emit("s1_gap", s1_gap(s1_rows))
 
     # the serving paths, each phase with the counts at 0 just before it
     with timed(ARCH):

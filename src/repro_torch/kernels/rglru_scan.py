@@ -15,8 +15,11 @@ Gradients.  Where autograd needs them (grad enabled, an input that requires
 grad), the call goes through ``RglruScan``, a ``torch.autograd.Function``: its
 forward is the same launch and keeps a and h; its backward is S4
 (``rglru_bwd_kernel`` in the same source: the recurrence of the gradient
-walked from the end of the sequence by the forward's blocked design, counted
-by ``bwd_launches``) on the card and the plain backward
+from the end of the sequence in (segment of ``BWD_SEGMENT`` steps, lane, 32
+channels) tiles, which a persistent grid claims in order from a counter,
+each segment's starting value found by a decoupled look-back over the
+segments after it through a workspace the wrapper allocates; counted by
+``bwd_launches``) on the card and the plain backward
 (``ref.rglru_scan_bwd_ref``) on the CPU.
 """
 
@@ -34,14 +37,21 @@ launches = 0
 #: launches of the backward kernel
 bwd_launches = 0
 
+#: steps a warp takes in one tile of S4, and a tile's steps (a segment of
+#: the sequence; ``csrc/rglru_scan.cu``'s ``BWD_STEPS`` and ``BWD_SEG``)
+BWD_STEPS = 16
+BWD_SEGMENT = 8 * BWD_STEPS
+
 _SYMBOL = "launch_rglru_scan_f32"
 _BWD_SYMBOL = "launch_rglru_scan_bwd_f32"
+_WORK_SYMBOL = "rglru_scan_bwd_workspace_bytes"
 _launchers: dict = {}
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #: each launcher's argument types
 _ARGTYPES = {
     _SYMBOL: [_P] * 3 + [_I] * 3 + [_P] * 2,
-    _BWD_SYMBOL: [_P] * 5 + [_I] * 3 + [_P] * 2,
+    _BWD_SYMBOL: [_P] * 5 + [_I] * 3 + [_P] * 2 + [_L, _P],
+    _WORK_SYMBOL: [_I] * 3,
 }
 
 
@@ -49,6 +59,8 @@ def _launcher(symbol: str = _SYMBOL):
     if symbol not in _launchers:
         lib = _build.load_library(*_build.csrc_source("rglru_scan.cu"))
         _launchers[symbol] = _build.bind(lib, symbol, _ARGTYPES[symbol])
+        if symbol == _WORK_SYMBOL:
+            _launchers[symbol].restype = _L
     return _launchers[symbol]
 
 
@@ -101,9 +113,12 @@ def rglru_scan_bwd(a: torch.Tensor, h: torch.Tensor, dh: torch.Tensor):
     B, S, D = a.shape
     da, db = (torch.empty((B, S, D), dtype=a.dtype, device=a.device) for _ in range(2))
     strides = (ctypes.c_longlong * 10)(*(s for t in (a, h, dh, da, db) for s in t.stride()[:2]))
+    nbytes = _launcher(_WORK_SYMBOL)(B, S, D)
+    work = torch.empty(nbytes, dtype=torch.uint8, device=a.device)
     global bwd_launches
     rc = _build.on_device(a.device, _launcher(_BWD_SYMBOL), a.data_ptr(), h.data_ptr(),
-                          dh.data_ptr(), da.data_ptr(), db.data_ptr(), B, S, D, strides)
+                          dh.data_ptr(), da.data_ptr(), db.data_ptr(), B, S, D, strides,
+                          work.data_ptr(), nbytes)
     _build.check_launch(rc, _BWD_SYMBOL)
     bwd_launches += 1
     return da, db

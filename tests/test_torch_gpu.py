@@ -729,6 +729,68 @@ def test_rglru_scan_bwd_kernel_matches_plain_on_card(B, S, D):
     held_to_plain([a.grad, b.grad], want)
 
 
+SEG = rg.BWD_SEGMENT
+# (B, S, D) of S4 at its segments' edges: S a multiple of the segment, one
+# step past one, less than one, and D ragged
+RGLRU_SEGMENT_CASES_CARD = [(2, 4 * SEG, 96), (3, SEG + 1, 4000), (2, SEG - 1, 33),
+                            (1, 2 * SEG + 17, 1), (2, 40 * SEG, 64)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,D", RGLRU_SEGMENT_CASES_CARD)
+def test_rglru_scan_bwd_at_segment_edges_on_card(B, S, D):
+    """S4 where its tiles' segments end: against the plain backward in
+    float64 on the kernel's own h, within 2e-4 of each largest |plain|."""
+    dev = _cuda_or_skip()
+    a, b = _on(dev, "float32", *rglru_operands(B, S, D, hi=0.999, seed=S))
+    dh = torch.randn(a.shape, generator=torch.Generator().manual_seed(D)).to(dev)
+    h = rg.rglru_scan(a, b)
+    got = rg.rglru_scan_bwd(a, h, dh)
+    torch.cuda.synchronize()
+    held_to_plain(got, ref.rglru_scan_bwd_ref(a.double(), h.double(), dh.double()))
+    assert not got[0][:, 0].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,D", [(2, 2048, 4096), (2, SEG + 1, 33)])
+def test_rglru_scan_bwd_gives_the_same_bits_twice_on_card(B, S, D):
+    """S4's look-back finds the segments' maps in an order that changes from
+    run to run, but every starting g is the same chain of fmaf's: two calls
+    on the same inputs give equal da and db."""
+    dev = _cuda_or_skip()
+    a, b = _on(dev, "float32", *rglru_operands(B, S, D, hi=0.999))
+    dh = torch.randn(a.shape, generator=torch.Generator().manual_seed(4)).to(dev)
+    h = rg.rglru_scan(a, b)
+    first, second = rg.rglru_scan_bwd(a, h, dh), rg.rglru_scan_bwd(a, h, dh)
+    torch.cuda.synchronize()
+    for name, x, y in zip(("da", "db"), first, second):
+        assert torch.equal(x, y), name
+
+
+@pytest.mark.gpu
+def test_rglru_scan_bwd_finishes_beside_another_kernel_on_card():
+    """S4 launched while products on another stream hold SMs, so that only
+    some of its grid is resident at first: it claims its tiles in order
+    from a counter, so it still finishes, and gives the bits it gives on
+    an idle card."""
+    dev = _cuda_or_skip()
+    a, b = _on(dev, "float32", *rglru_operands(2, 2048, 4096, hi=0.999))
+    dh = torch.randn(a.shape, generator=torch.Generator().manual_seed(4)).to(dev)
+    h = rg.rglru_scan(a, b)
+    alone = rg.rglru_scan_bwd(a, h, dh)
+    x = torch.randn((8192, 8192), device=dev)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        ys = [x @ x for _ in range(4)]
+    beside = [rg.rglru_scan_bwd(a, h, dh) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(y).all()) for y in ys)
+    for got in beside:
+        for name, x1, y1 in zip(("da", "db"), got, alone):
+            assert torch.equal(x1, y1), name
+
+
 @pytest.mark.gpu
 def test_scan_kernels_under_grad_launch_forward_and_backward_on_card():
     """K5 and K6 under grad return a result with a ``grad_fn`` after one
@@ -1197,6 +1259,39 @@ def test_rtl_sim_kernel_matches_plain_on_card(kernel, hierarchy):
     before = sim.cuda_kernel().launches
     got = sim.run(batch, cycles, batched=True, trace=True)
     assert sim.cuda_kernel().launches == before + 1
+    assert_same_sim_result(got, plain.run(batch, cycles, batched=True, trace=True))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel,size", [("histogram", {"n": 4096, "bins": 256}),
+                                         ("conv2d", {"h": 64, "w": 64})])
+def test_rtl_sim_kernel_with_state_on_and_off_chip_matches_plain_on_card(kernel, size):
+    """S1 at the large sizes, where the 4096-word arrays stay in global
+    memory and the bins or line buffers go to shared memory: against
+    ``_TorchOps`` on the card on 256 lanes, traces too."""
+    dev = _cuda_or_skip()
+    module, entry = port_gallery.GALLERY[kernel].build(**size)
+    batch = port_sim.stack_stimulus(port_gallery.GALLERY[kernel].make_inputs, 256,
+                                    base_seed=7, **size)
+    sim, prepared = port_sim.simulator_for(module, entry, device=dev)
+    plain, _ = port_sim.simulator_for(module, entry, backend="torch", device=dev)
+    assert set(sim.cuda_kernel().layout.placement().values()) >= {"shared", "global"}
+    cycles = port_sim.probe_cycles(prepared, entry, [c[0] for c in batch])
+    got = sim.run(batch, cycles, batched=True, trace=True)
+    assert_same_sim_result(got, plain.run(batch, cycles, batched=True, trace=True))
+
+
+@pytest.mark.gpu
+def test_rtl_sim_kernel_at_65536_lanes_matches_plain_on_card():
+    """gemm at its test size on 65,536 lanes (2,048 blocks of 32): against
+    ``_TorchOps`` on the card."""
+    dev = _cuda_or_skip()
+    module, entry = rtl_design("gemm")
+    batch = rtl_stimulus("gemm", 65536)
+    sim, prepared = port_sim.simulator_for(module, entry, device=dev)
+    plain, _ = port_sim.simulator_for(module, entry, backend="torch", device=dev)
+    cycles = port_sim.probe_cycles(prepared, entry, [c[0] for c in batch])
+    got = sim.run(batch, cycles, batched=True, trace=True)
     assert_same_sim_result(got, plain.run(batch, cycles, batched=True, trace=True))
 
 

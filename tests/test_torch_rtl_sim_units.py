@@ -27,7 +27,7 @@ from repro_torch.core import gallery as port_gallery
 from repro_torch.core import ir as port_ir
 from repro_torch.core.codegen import rtl as port_rtl
 from repro_torch.core.codegen import sim as port_sim
-from repro_torch.core.codegen.sim_cuda import SimKernel
+from repro_torch.core.codegen.sim_cuda import LANES_PER_BLOCK, SMEM_LANE_BYTES, SimKernel
 from repro_torch.core.hls import dse as port_dse
 from test_torch_gpu import (RTL_KERNELS, assert_same_sim_result, conflict_probe, rtl_design,
                             rtl_stimulus)
@@ -201,28 +201,35 @@ def test_explore_and_sim_verify_front_equal_the_reference(fresh_oracle_caches):
 # -- the simulator's kernel, built for the host -------------------------------------------
 
 
-def _host_kernel(sim, tmp_path):
-    """S1's source built with g++ for the host: ``run(args, cycles, B,
-    trace)`` -> (final, ys), as ``SimKernel.run`` gives them on the card,
-    with the state buffers laid out and collected by the same tensor ops
-    on the CPU."""
+def _host_library(source, stem, tmp_path):
+    """``source`` built with g++ for the host, loaded."""
     if shutil.which("g++") is None:
         pytest.skip("no g++ to build the kernel's per-lane body for the host")
-    kernel = SimKernel(sim)
-    src = tmp_path / f"{kernel.stem}.cpp"
-    src.write_text(kernel.source)
-    lib = tmp_path / f"lib{kernel.stem}.so"
+    src = tmp_path / f"{stem}.cpp"
+    src.write_text(source)
+    lib = tmp_path / f"lib{stem}.so"
     out = subprocess.run(["g++", "-O1", "-shared", "-fPIC", "-o", str(lib), str(src)],
                          capture_output=True, text=True)
     assert out.returncode == 0, out.stderr[:2000]
-    fn = ctypes.CDLL(str(lib)).rtlsim_host
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
+    return ctypes.CDLL(str(lib))
+
+
+def _host_kernel(sim, tmp_path, place=None):
+    """S1's source built with g++ for the host: ``run(args, cycles, B,
+    trace)`` -> (final, ys), as ``SimKernel.run`` gives them on the card,
+    with the state buffers laid out and collected by the same tensor ops
+    on the CPU, over blocks of 32 lanes as on the card.  ``place`` forces
+    the memories' and rings' placement."""
+    kernel = SimKernel(sim, place=place)
+    fn = _host_library(kernel.source, kernel.stem, tmp_path).rtlsim_host
+    fn.argtypes = [ctypes.c_void_p] * (len(kernel.layout.buffers) + 1) + [ctypes.c_int] * 2
+    fn.restype = ctypes.c_int
 
     def run(args, T, B, trace):
         bufs = kernel.buffers(sim, args, B, torch.device("cpu"))
         tr = torch.zeros((T, len(kernel.trace_names), B), dtype=torch.int64) if trace else None
-        fn(*[b.data_ptr() if b.numel() else None for b in bufs.values()],
-           None if tr is None else tr.data_ptr(), B, T)
+        rc = fn(*kernel.pointers(bufs), None if tr is None else tr.data_ptr(), B, T)
+        assert rc == 0
         ys = {} if tr is None else {n: tr[:, i].numpy() for i, n in enumerate(kernel.trace_names)}
         return kernel.collect(sim, bufs), ys
 
@@ -274,21 +281,33 @@ def test_kernel_body_rings_and_untraced_runs(tmp_path):
 @pytest.mark.parametrize("kernel", sorted(RTL_KERNELS))
 def test_kernel_state_buffers_hold_the_initial_state(kernel, hierarchy):
     """The kernel's buffers, laid out by tensor ops, hold at cycle 0 what
-    ``RTLSimulator._init_state`` makes (every ``st`` slot, memory and ring
-    word), and ``collect`` reads back what ``_collect`` needs of it."""
+    ``RTLSimulator._init_state`` makes (every ``st32``/``st64`` slot, every
+    memory's own buffer, every ring word), each word in 4 bytes where its
+    largest value is below 2**32 (every word of these designs, whose nets
+    are 32 bits wide or narrower), and ``collect`` reads back what
+    ``_collect`` needs of it."""
     module, entry = rtl_design(kernel)
     batch = rtl_stimulus(kernel, 12)
     sim, _ = port_sim.simulator_for(module, entry, hierarchy=hierarchy, device="cpu")
+    assert max(sim.widths.values()) <= 32
     k = SimKernel(sim)
     bufs = k.buffers(sim, batch, 12, torch.device("cpu"))
     state = sim._init_state(batch, 12)
     lay = k.layout
+    assert [name for name, _, _ in lay.buffers] == list(bufs)
+    assert all(b.dtype == torch.int32 for b in bufs.values())
+    assert all(b.shape == ((12, n) if name in lay.mem_at else (n, 12))
+               for (name, n, _), b in zip(lay.buffers, bufs.values()))
+    assert set(lay.slot_bytes) == {4} and all(p.nbytes == 4 for p in lay.mems + lay.rings)
     for i, (key, col) in enumerate(lay.slots):
         want = state[key] if col < 0 else state[key][:, col]
-        np.testing.assert_array_equal(bufs["st"][i].numpy(), want, err_msg=key)
-    for key, off, d in lay.mems:
-        np.testing.assert_array_equal(bufs["mem"][off:off + d].T.numpy(), state[key])
-    assert not bufs["ring"].any() and not any(state[key].any() for key, _, _ in lay.rings)
+        got = bufs[f"st{8 * lay.slot_bytes[i]}"][lay.slot_row[i]].numpy()
+        np.testing.assert_array_equal(got.astype(np.int64) & 0xFFFFFFFF, want, err_msg=key)
+    for p in lay.mems:
+        np.testing.assert_array_equal(bufs[p.key].numpy().astype(np.int64) & 0xFFFFFFFF,
+                                      state[p.key], err_msg=p.key)
+    for p in lay.rings:
+        assert not bufs["ring32"][p.row:p.row + p.depth].any() and not state[p.key].any()
     final = k.collect(sim, bufs)
     assert final and all(np.array_equal(v, state[key]) for key, v in final.items())
 
@@ -359,3 +378,192 @@ def test_kernel_source_is_deterministic():
     assert len(texts) == 1
     (text,) = texts
     assert "__global__" in text and "rtlsim_host" in text and "__host__ __device__" in text
+
+
+# -- the generator's 32-bit words and nodes, and where it puts the state ------------------
+
+TREE_WIDTHS = [1, 8, 31, 32, 33, 63]
+TREE_OPS = ["+", "-", "*", "/", "<<", ">>", "<", "<=", ">", ">=", "==", "!=", "&", "|", "^",
+            "signed", "mux", "repeat", "~"]
+
+
+def _edge_values(w):
+    """0, all ones, the sign bit, 2**31, 2**32 - 1 and their neighbours,
+    as patterns of width ``w``."""
+    m = (1 << w) - 1
+    vals = {0, 1, m, m - 1, 1 << (w - 1), (1 << (w - 1)) - 1, 1 << 31, (1 << 31) - 1,
+            (1 << 32) - 1, 1 << 32, (1 << 32) + 1, 5, 63, 64}
+    return sorted(v & m for v in vals)
+
+
+def _random_tree(rng, depth):
+    """A nested-tuple expression over the inputs ``in0..in5`` (widths
+    ``TREE_WIDTHS``), with its static width as ``sim._compile_expr`` gives
+    it: (tree, width)."""
+    if depth == 0 or rng.random() < 0.15:
+        if rng.random() < 0.75:
+            i = int(rng.integers(len(TREE_WIDTHS)))
+            return ("ref", i), TREE_WIDTHS[i]
+        w = int(rng.choice(TREE_WIDTHS))
+        return ("const", int(rng.choice(_edge_values(w))), w), w
+    op = str(rng.choice(TREE_OPS))
+    if op == "/":                      # leaves only: no INT64_MIN / -1 on the tapes
+        a, wa = _random_tree(rng, 0)
+        b, wb = _random_tree(rng, 0)
+        if rng.random() < 0.5:
+            b, wb = ("signed", b), wb
+        return ("bin", "/", a, b), max(wa, wb)
+    if op in ("<<", ">>") and rng.random() < 0.5:
+        a, wa = _random_tree(rng, depth - 1)
+        return ("bin", op, a, ("const", int(rng.integers(0, 70)), 7)), wa
+    if op == "signed":
+        a, wa = _random_tree(rng, depth - 1)
+        return ("signed", a), wa
+    if op == "~":
+        a, wa = _random_tree(rng, depth - 1)
+        return ("not", a), wa
+    if op == "repeat":
+        a, wa = _random_tree(rng, depth - 1)
+        if wa > 31:
+            return a, wa
+        n = int(rng.integers(2, 63 // wa + 1))
+        return ("repeat", n, a), n * wa
+    if op == "mux":
+        c, _ = _random_tree(rng, depth - 1)
+        a, wa = _random_tree(rng, depth - 1)
+        b, wb = _random_tree(rng, depth - 1)
+        return ("mux", c, a, b), max(wa, wb)
+    a, wa = _random_tree(rng, depth - 1)
+    b, wb = _random_tree(rng, depth - 1)
+    return ("bin", op, a, b), (1 if op in ("<", "<=", ">", ">=", "==", "!=") else max(wa, wb))
+
+
+def _tree_expr(rtl, t):
+    kind = t[0]
+    if kind == "ref":
+        return rtl.Ref(f"in{t[1]}")
+    if kind == "const":
+        return rtl.Const(t[1], t[2])
+    if kind == "signed":
+        return rtl.Signed(_tree_expr(rtl, t[1]))
+    if kind == "not":
+        return rtl.Unop("~", _tree_expr(rtl, t[1]))
+    if kind == "repeat":
+        return rtl.Repeat(t[1], _tree_expr(rtl, t[2]))
+    if kind == "mux":
+        a, b = _tree_expr(rtl, t[2]), _tree_expr(rtl, t[3])
+        return rtl.Mux(_tree_expr(rtl, t[1]), a, b)
+    return rtl.Binop(t[1], _tree_expr(rtl, t[2]), _tree_expr(rtl, t[3]))
+
+
+def _tree_design(rtl, ir, trees):
+    """One netlist: an input per width of ``TREE_WIDTHS``, an output per
+    tree, each of the width drawn for it."""
+    m = rtl.RTLModule("trees")
+    for p in ("clk", "rst", "t_start"):
+        m.add_port(p, "input")
+    for i, w in enumerate(TREE_WIDTHS):
+        m.add_port(f"in{i}", "input", w)
+        m.arg_ports[i] = [(f"in{i}", "input", "data", 0)]
+    for k, (t, w_out) in enumerate(trees):
+        m.add_port(f"out{k}", "output", w_out)
+        m.add(rtl.CombAssign(f"out{k}", _tree_expr(rtl, t)))
+    func = ir.FuncOp("trees", [ir.IntType(w, signed=False) for w in TREE_WIDTHS],
+                     [f"in{i}" for i in range(len(TREE_WIDTHS))])
+    return rtl.RTLDesign({"trees": m}, entry="trees"), func
+
+
+def test_narrowed_nodes_equal_both_tapes_on_random_trees(tmp_path):
+    """Random expression trees over nets of widths 1 to 63 on edge values
+    (0, all ones, the sign bit, 2**31, 2**32 - 1), each output of a width
+    drawn from the same set, in one source: the generated C++ (32-bit nodes
+    where the ranges or a mask of 32 bits or fewer allow, 64-bit elsewhere)
+    against ``_TorchOps`` and the reference's ``_NumpyOps``, bit for bit."""
+    rng = np.random.default_rng(24)
+    trees = [(_random_tree(rng, 4)[0], int(rng.choice(TREE_WIDTHS))) for _ in range(160)]
+    # masks that are not all ones, over values below them
+    trees += [(("bin", "&", ("ref", i), ("const", k, 8)), 8)
+              for i, k in ((0, 2), (1, 64), (1, 255), (0, 1))]
+    design, func = _tree_design(port_rtl, port_ir, trees)
+    sim = port_sim.RTLSimulator(design, func, "trees", backend="torch", device="cpu")
+    ref_design, ref_func = _tree_design(ref_rtl, ref_ir, trees)
+    ref = ref_sim.RTLSimulator(ref_design, ref_func, "trees", backend="numpy")
+    lanes = 300
+    args = [rng.choice(_edge_values(w), size=lanes).astype(np.int64) for w in TREE_WIDTHS]
+    kernel = SimKernel(sim)
+    assert "uint32_t e" in kernel.source and "const i64 e" in kernel.source
+    got = _host_result(sim, _host_kernel(sim, tmp_path), args, 2)
+    plain = sim.run(args, 2, batched=True, trace=True)
+    assert_same_sim_result(got, plain)
+    assert_same_sim_result(plain, ref.run(args, 2, batched=True, trace=True))
+    assert len(got.trace) == len(trees)
+
+
+@pytest.mark.parametrize("place", ["shared", "global"])
+@pytest.mark.parametrize("hierarchy", ["inline", "modules"])
+@pytest.mark.parametrize("kernel", sorted(RTL_KERNELS))
+def test_kernel_body_with_forced_placement_equals_the_plain_version(kernel, hierarchy, place,
+                                                                   tmp_path):
+    """Every design of the matrix with every memory and ring forced into
+    shared memory, then into global memory, on 40 lanes (two blocks of 32,
+    the second ragged): arrays, returns, valid flags, conflict counts and
+    traces equal ``_TorchOps``'s.  In global memory a memory the tape never
+    writes has a ``const __restrict__`` pointer of its own."""
+    module, entry = rtl_design(kernel)
+    batch = rtl_stimulus(kernel, 40)
+    sim, prepared = port_sim.simulator_for(module, entry, hierarchy=hierarchy, device="cpu")
+    cycles = port_sim.probe_cycles(prepared, entry, [c[0] for c in batch])
+    k = SimKernel(sim, place=place)
+    assert set(k.layout.placement().values()) <= {place, "registers"}
+    assert LANES_PER_BLOCK == 32 and f"#define LPB {LANES_PER_BLOCK}" in k.source
+    if place == "global":
+        for i, p in enumerate(k.layout.mems):
+            const = "const " if not p.written else ""
+            assert f"{const}uint32_t* __restrict__ m{i}," in k.source
+            assert not p.written or f"const uint32_t* __restrict__ m{i}," not in k.source
+    got = _host_result(sim, _host_kernel(sim, tmp_path, place=place), batch, cycles)
+    assert_same_sim_result(got, sim.run(batch, cycles, batched=True, trace=True,
+                                        check_conflicts=False))
+
+
+LARGE = {"array_add": {"n": 4096}, "transpose": {"n": 64}, "stencil1d": {"n": 4096},
+         "histogram": {"n": 4096, "bins": 256}, "conv2d": {"h": 64, "w": 64}}
+
+
+@pytest.mark.parametrize("kernel", sorted(LARGE))
+def test_default_placement_keeps_small_state_on_chip(kernel):
+    """At the large sizes the 4096-word arrays stay in global memory;
+    histogram's 512 bin words and conv2d's 128 line-buffer words, and every
+    ring, go to shared memory; at the test sizes everything fits, within a
+    lane's share of two blocks' shared memory an SM."""
+    module, entry = port_gallery.GALLERY[kernel].build(**LARGE[kernel])
+    lay = SimKernel(port_sim.simulator_for(module, entry, device="cpu")[0]).layout
+    for p in lay.mems + lay.rings:
+        assert p.place == ("global" if p.depth >= 3844 else "shared"), (p.key, p.depth)
+    on_chip = sum(p.depth for p in lay.mems if p.place == "shared")
+    assert on_chip == {"histogram": 512, "conv2d": 128}.get(kernel, 0)
+    assert lay.smem_lane_bytes <= SMEM_LANE_BYTES
+    k = SimKernel(port_sim.simulator_for(*rtl_design(kernel), device="cpu")[0])
+    assert set(k.layout.placement().values()) <= {"shared", "registers"}
+    assert k.layout.smem_lane_bytes <= SMEM_LANE_BYTES
+
+
+def test_words_wider_than_32_bits_keep_8_bytes(tmp_path):
+    """A design with 40-bit outputs and a 40-bit register: those words are
+    8 bytes (``st64``), the rest 4, and the run equals ``_TorchOps``."""
+    design, func = _alu_design(port_rtl, port_ir, ["*", "+"], w_in=20, w_out=40)
+    top = design.modules["alu"]
+    top.nets["acc"] = port_rtl.Net("acc", 40, port_rtl.REG, False, "", "")
+    top.add(port_rtl.RegAssign("acc", port_rtl.Binop("+", port_rtl.Ref("acc"),
+                                                     port_rtl.Ref("out0"))))
+    top.add_port("out2", "output", 40)
+    top.add(port_rtl.CombAssign("out2", port_rtl.Ref("acc")))
+    sim = port_sim.RTLSimulator(design, func, "alu", backend="torch", device="cpu")
+    k = SimKernel(sim)
+    lay = k.layout
+    assert lay.slot_bytes[lay.slot_of[("acc", -1)]] == 8
+    assert lay.slot_bytes[lay.slot_of[("in:in0", -1)]] == 4
+    rng = np.random.default_rng(2)
+    args = [rng.integers(0, 1 << 20, size=50) for _ in range(2)]
+    got = _host_result(sim, _host_kernel(sim, tmp_path), args, 9)
+    assert_same_sim_result(got, sim.run(args, 9, batched=True, trace=True))

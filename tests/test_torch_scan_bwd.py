@@ -11,6 +11,9 @@ runs them.
   backward, and in 3xTF32 as the tensor cores take them against the float64
   plain backward at Mamba-2's widths and with heads whose decays differ by
   orders of magnitude, within the kernel rows' 2e-4 of the largest |want|;
+* S4's order (``rglru_bwd_kernel``: segments of ``BWD_SEGMENT`` steps, each
+  composed into one map, the maps applied from the end of the sequence)
+  emulated in float32 against the plain backward and ``jax.vjp``;
 * ``SsdScan`` and ``RglruScan`` under ``torch.autograd.gradcheck`` in
   float64, and the routing of ``ssd_scan`` / ``rglru_scan`` through them,
   with no launch counted on the CPU.
@@ -25,7 +28,7 @@ import torch.nn.functional as F
 
 from repro.kernels import ref as jref
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import _build, ref
 from repro_torch.kernels import rglru_scan as rg
 from repro_torch.kernels import ssd_scan as ssd_k
 
@@ -207,6 +210,80 @@ def test_three_tf32_passes_hold_when_the_heads_are_summed_before_the_n_products(
 
 
 # -- the Functions --------------------------------------------------------------------
+
+
+# -- S4's order: segments composed from the end --------------------------------------------
+
+
+def emulate_rglru_bwd(a, h, dh, steps=rg.BWD_STEPS, warps=8):
+    """S4 (``rglru_bwd_kernel``) in float32, in the kernel's order: the
+    sequence cut into segments of ``warps`` x ``steps`` steps; in each, each
+    warp's steps composed into one map g -> A g + B from its latest step, the
+    warps' maps into the segment's; each segment's starting g from the end
+    (0 after the last), as the look-back finds it; then each warp replays its
+    steps from the g its predecessors' maps give.  a, h, dh (B,S,D) numpy."""
+    f32 = np.float32
+    B, S, D = a.shape
+    seg = warps * steps
+    nseg = -(-S // seg)
+    pad = nseg * seg - S
+    an = np.concatenate([a[:, 1:], np.zeros((B, 1, D), f32)], 1)       # a_{t+1}; a_S = 0
+    hp = np.concatenate([np.zeros((B, 1, D), f32), h[:, :-1]], 1)      # h_{t-1}; h_{-1} = 0
+    an, g_in, hp = (np.concatenate([x, np.full((B, pad, D), fill, f32)], 1)
+                    for x, fill in ((an, 1.0), (dh, 0.0), (hp, 0.0)))
+    # (B, segment, warp, step, D), warp 0 and step 0 the latest
+    an, g_in, hp = (x.reshape(B, nseg, warps, steps, D)[:, :, ::-1, ::-1] for x in (an, g_in, hp))
+    A = np.ones((B, nseg, warps, D), f32)
+    Bw = np.zeros((B, nseg, warps, D), f32)
+    for i in range(steps):
+        Bw = an[:, :, :, i] * Bw + g_in[:, :, :, i]
+        A = A * an[:, :, :, i]
+    At = np.ones((B, nseg, D), f32)
+    Bt = np.zeros((B, nseg, D), f32)
+    for w in range(warps):
+        Bt = A[:, :, w] * Bt + Bw[:, :, w]
+        At = At * A[:, :, w]
+    carry = np.zeros((B, nseg, D), f32)
+    g = np.zeros((B, D), f32)
+    for k in reversed(range(nseg)):
+        carry[:, k] = g
+        g = At[:, k] * g + Bt[:, k]
+    db = np.zeros((B, nseg, warps, steps, D), f32)
+    gw = carry
+    for w in range(warps):
+        gv = gw
+        for i in range(steps):
+            gv = an[:, :, w, i] * gv + g_in[:, :, w, i]
+            db[:, :, w, i] = gv
+        gw = A[:, :, w] * gw + Bw[:, :, w]
+    da = db * hp
+    db, da = (x[:, :, ::-1, ::-1].reshape(B, nseg * seg, D)[:, :S] for x in (db, da))
+    return da, db
+
+
+@pytest.mark.parametrize("S,D", [(2 * rg.BWD_SEGMENT, 40), (rg.BWD_SEGMENT + 1, 33),
+                                 (rg.BWD_SEGMENT - 7, 5), (3 * rg.BWD_SEGMENT + 100, 64)])
+def test_segments_composed_from_the_end_equal_the_plain_backward(S, D):
+    """S4's order in float32 (segments of ``BWD_SEGMENT`` steps, a multiple
+    of it, one step past one, less than one, and a ragged tail; D not a
+    multiple of 32) against the plain backward and ``jax.vjp`` of the
+    reference scan, within the plain backward's 1e-5 of the largest |want|."""
+    a, b, dh = rglru_inputs(2, S, D, seed=S)
+    h, vjp = jax.vjp(lambda a, b: jref.rglru_scan_ref(a, b)[0], jnp.asarray(a), jnp.asarray(b))
+    h = np.array(h)
+    got = emulate_rglru_bwd(a, h, dh)
+    plain = ref.rglru_scan_bwd_ref(*(torch.from_numpy(t).double() for t in (a, h, dh)))
+    assert_close(got, [t.numpy() for t in plain], TOL)
+    assert_close(got, vjp(jnp.asarray(dh)), TOL)
+    assert got[0].dtype == np.float32 and not got[0][:, 0].any()
+
+
+def test_bwd_segment_is_the_kernels():
+    """``rglru_scan.BWD_STEPS``, which the emulation and the card tests cut
+    segments by, is the depth ``csrc/rglru_scan.cu`` builds S4 with."""
+    text = (_build.CSRC_DIR / "rglru_scan.cu").read_text()
+    assert f"constexpr int BWD_STEPS = {rg.BWD_STEPS};" in text
+    assert "constexpr int WARPS = 8;" in text and rg.BWD_SEGMENT == 8 * rg.BWD_STEPS
 
 
 def test_ssd_scan_function_passes_gradcheck_in_float64():

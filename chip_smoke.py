@@ -31,6 +31,10 @@ PyTorch version on the card, then drives:
   decode-attention kernel where the model has self- or cross-attention (the
   latent decode of MLA is eager torch, as the reference's is plain XLA);
   the cross models' gates are drawn from a seed (a fresh model's are 0);
+  and tinyllama-1.1b again with Gemma-2's attention logit cap
+  (``attn.logit_softcap`` 50, a config made here with ``cfg.scaled``: no
+  config of the registry sets the field), every attention score through the
+  capped instantiations of K3 and K4;
 * each model's prefill step: flash attention for tinyllama and qwen2-moe,
   the SSD scan for Mamba-2, the RG-LRU scan and windowed flash attention
   (head dim 256) for RecurrentGemma, flash attention at head dims 192/128
@@ -57,6 +61,10 @@ PyTorch version on the card, then drives:
   fit the card (``train[<arch>]``: a checked warm-up gradient and two timed
   steps of 2 x 2048 tokens, Mamba-2's 4 x 2048, llama-3.2-vision-90b's
   gradients only, each with its launches by kernel and a profiled step);
+  the capped tinyllama's first two layers' gradients at 4 x 2048 through
+  the capped K3 and S2 against float32 plain ones (``train_grads[...]``);
+* ``examples/serve_batched_torch.py`` as a user runs it on the card
+  (``serve_example``);
 * the designer's differential check (``differential``): the design lowered
   to RTL (``generate_verilog``) and run on the cycle-accurate simulator's
   kernel generated per design, on 4096 stimulus vectors — the reference's
@@ -102,12 +110,25 @@ backward, six kernels a call) and S4 rows (``rglru_scan_bwd[...]``) carry
 each output's error against the float64 plain backward, ``device_ms``,
 S3's kernels' device times a call (each training row also its kernels'
 registers and spills), and ``library_ms`` null; S3's bound counts its products with
-B and C once over the heads' sum.  Output: one JSON object per line
-(``env``, ``build``, ``k1_without_staging``, ``main_path``, ``differential``,
-``s1_gap``, then
+B and C once over the heads' sum.  The capped rows (``... softcap 50]``: K3,
+K4 and S2 under the cap, with checks at RecurrentGemma's head dim 256, on
+S2's CUDA cores and at MLA's (192, 128), which raises ``ValueError``) carry
+``library_ms`` null (no single PyTorch call caps the scores), a bound that
+counts the exp and the tanh a visible pair needs on the special-function
+unit (S2 too, though its two passes form them twice), ``err_share_of_limit``,
+``uncapped_device_ms`` (the same call without the cap) and
+``uncapped_err_share_of_limit``: the uncapped kernel's distance from the
+capped plain result over the same limit, which must exceed 1, so that a
+kernel that ignored the cap would fail the row.  Checks with queries
+``NEAR_CAP_Q`` times normal put each row's largest score near 0.9 of the
+cap (``median_row_max_score_over_cap``), where ``tanh.approx`` errs most in
+the capped score.  A ``softcap`` line shows that tinyllama's uncapped rows
+keep their launch counts.
+Output: one JSON object per line (``env``, ``build``,
+``k1_without_staging``, ``main_path``, ``differential``, ``s1_gap``, then
 ``serve``, ``prefill``, ``consistency`` and ``profile`` for each model,
-the training lines, ``phases``, ``kernels``), the card's
-name and power limit as ``nvidia-smi`` gives them, and a last line
+``serve_example``, the training lines, ``softcap``, ``phases``,
+``kernels``), the card's name and power limit as ``nvidia-smi`` gives them, and a last line
 ``{"ok": true, "device": {...}}``.  Any mismatch or failure exits non-zero
 before that line.  A ``phases`` line gives the host seconds of each group of
 phases.
@@ -185,6 +206,9 @@ PEAK_FLOPS = {torch.float32: 67e12,        # float32 outside the tensor cores
               torch.bfloat16: 989e12}      # bf16 tensor cores
 # K5's products run on the TF32 tensor cores (494.7 TFLOP/s) in three passes
 TF32X3_FLOPS = 494.7e12 / 3
+# the special-function unit (MUFU: ex2, tanh): 16 a cycle an SM, about 3.9 T
+# ops/s on an H100 SXM5 (the figure FlashAttention-3 publishes)
+SFU_OPS_PER_S = 3.9e12
 
 # design, keyword sizes: the gallery's default (paper) size, then a larger one
 DESIGNS = [
@@ -279,6 +303,23 @@ CONSIST = {ARCH: (2, 128), MAMBA: (2, 300), RGEMMA: (2, 160), MOE: (2, 128),
 # card: it is served at full width cut in depth to one group of its pattern,
 # four attn layers and one cross_attn layer (about 6.4 B parameters)
 SERVE_CUT_REPEATS = {VISION: 1}
+# tinyllama-1.1b with Gemma-2's attention logit cap (attn.logit_softcap 50):
+# no config of the registry sets the field (RecurrentGemma's 30 is its final
+# logits' cap), so the script makes this one from tinyllama's, at full width
+# and depth; it is served, prefilled, checked for consistency and its first
+# layers' gradients taken like the other models, every score through the
+# capped instantiations of K3, K4 and S2.  The JAX package has no such config.
+SOFTCAP = 50.0
+CAPPED = f"{ARCH} softcap {SOFTCAP:g}"
+PREFILL[CAPPED], CONSIST[CAPPED] = PREFILL[ARCH], CONSIST[ARCH]
+# With tinyllama's random weights the scaled scores have a standard deviation
+# of about 1, where cap 50 moves a score by at most about s^3 / (3 c^2) = 0.02:
+# the served model's checks (serve, consistency) run the capped kernels but
+# cannot tell them from uncapped ones.  In the capped gradient check the
+# query and key weights are this many times larger (scores about 9 times),
+# and the check fails unless the cap moves some leaf by more than its limit.
+# (Served so, the bf16 consistency check's noise grows to half the logits.)
+CAPPED_QK = 3.0
 # the models with cross-attention: a fresh model's tanh gates are 0, which
 # hides cross-attention and the cross block's ffn, so the served weights get
 # gates drawn from a seed; prefill and consistency feed seeded, non-zero
@@ -323,6 +364,10 @@ ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # keys and |o| is of order 1 (each row records its RMS), so a key tile
 # dropped or counted twice moves the rows that peak in it by about |v|.
 PEAKED_Q = 4.0
+# Queries this many times normal put the median query row's largest scaled
+# score (head dim 64, keys normal) near 0.9 of the cap of 50: the capped
+# checks near the cap
+NEAR_CAP_Q = 15.0
 # and test_ssd_scan's / test_rglru_scan's, against the step-by-step oracles
 SCAN_TOL = 2e-4
 # the flash kernel's backward (S2) against its plain version: per tensor,
@@ -1143,11 +1188,49 @@ def check_close(what: str, got, want, dtype, tol=None) -> float:
     return float(diff.max())
 
 
-def bound(flops: float, nbytes: float, dtype, rate=None) -> tuple[float, str]:
-    """(ms, what bounds it): the larger of the operations at ``rate`` (the
-    dtype's peak unless given) and the bytes at the memory's rate."""
-    t_ops, t_bytes = flops / (rate or PEAK_FLOPS[dtype]), nbytes / HBM_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+def bound(flops: float, nbytes: float, dtype, rate=None, sfu: float = 0.0) -> tuple[float, str]:
+    """(ms, what bounds it): the largest of the operations at ``rate`` (the
+    dtype's peak unless given), the bytes at the memory's rate and ``sfu``
+    special-function operations (exp, tanh) at the MUFU's rate."""
+    times = {"operations": flops / (rate or PEAK_FLOPS[dtype]),
+             "bytes": nbytes / HBM_BYTES_PER_S, "special functions": sfu / SFU_OPS_PER_S}
+    by = max(times, key=times.get)
+    return times[by] * 1e3, by
+
+
+def limit_share(got, want, tol: float) -> float:
+    """The largest |got - want| / (tol + tol |want|): an error's share of its limit."""
+    g, w = got.float(), want.float()
+    return float(((g - w).abs() / (tol + tol * w.abs())).max())
+
+
+def capped_name(softcap) -> str:
+    return f" softcap {softcap:g}" if softcap is not None else ""
+
+
+def sees_the_cap(name: str, share: float) -> float:
+    """Fail unless the uncapped kernel lands outside the capped row's limit
+    (``share`` > 1): else the row could not tell a dropped cap."""
+    if not share > 1.0:
+        fail(f"{name}: the uncapped kernel is within the capped row's limit "
+             f"(share {share}), so the row cannot see the cap")
+    return share
+
+
+def row_max_over_cap(q, k, valid, scale, softcap) -> float:
+    """The median over query rows (q (B,H,Sq,D), k (B,KvH,Sk,D)) of the
+    largest scaled score that ``valid`` (broadcast to (B,H,Sq,Sk)) lets
+    through, over the cap."""
+    kk = k.repeat_interleave(q.shape[1] // k.shape[1], dim=1)
+    s = (q.float() @ kk.float().transpose(-1, -2)) * scale
+    top = s.masked_fill_(~valid, float("-inf")).amax(-1)
+    return float(top[top > float("-inf")].median()) / softcap
+
+
+# one PyTorch call cannot compute a capped softmax (SDPA takes no cap; a score
+# modifier needs flex_attention, which is torch.compile)
+NO_CAPPED_LIBRARY = ("none: no single PyTorch call caps the scores "
+                     "(flex_attention needs torch.compile)")
 
 
 def seeded(shape, dtype, device, g) -> torch.Tensor:
@@ -1155,23 +1238,26 @@ def seeded(shape, dtype, device, g) -> torch.Tensor:
 
 
 def k3_case(case: str, B, Sq, Sk, H, KvH, D, dtype, device, g, *, window=None,
-            kv_len=None, Dv=None, causal=True, scale=None, q_scale=1.0) -> dict:
+            kv_len=None, Dv=None, causal=True, scale=None, q_scale=1.0, softcap=None) -> dict:
     """The flash-attention kernel (causal unless told otherwise; values of
     ``Dv`` head dims where given, under ``scale``; queries ``q_scale`` times
-    normal) against its plain version and against SDPA on the same (B,H,S,D)
-    views of model-layout tensors.  Where SDPA refuses the call,
-    ``library_ms`` is null with the reason."""
+    normal; the scores capped at ``softcap`` where given) against its plain
+    version and against SDPA on the same (B,H,S,D) views of model-layout
+    tensors.  Where SDPA refuses the call, and under a cap, ``library_ms`` is
+    null with the reason.  A capped row's bound counts an exp and a tanh a
+    visible pair on the special-function unit, and the uncapped kernel must
+    land outside its limit (``sees_the_cap``)."""
     Dv = Dv or D
     q = (seeded((B, Sq, H, D), dtype, device, g) * q_scale).transpose(1, 2)
     k = seeded((B, Sk, KvH, D), dtype, device, g).transpose(1, 2)
     v = seeded((B, Sk, KvH, Dv), dtype, device, g).transpose(1, 2)
-    kwargs = dict(causal=causal, window=window, kv_len=kv_len, scale=scale)
+    kwargs = dict(causal=causal, window=window, kv_len=kv_len, scale=scale, softcap=softcap)
     got = fa.flash_attention(q, k, v, **kwargs)
     torch.cuda.synchronize()
     want = ref.flash_attention_ref(q, k, v, **kwargs)
     dims = f"D{D}" if Dv == D else f"Dqk{D}/Dv{Dv}"
     name = (f"flash_attention[{case} {B}x{Sq}x{Sk} H{H}/{KvH} {dims} {dtype_name(dtype)}"
-            f"{'' if causal else ' non-causal'}]")
+            f"{'' if causal else ' non-causal'}{capped_name(softcap)}]")
     err = check_close(name, got, want, dtype)
     q_pos = torch.arange(Sq, device=device)[:, None]
     k_pos = torch.arange(Sk, device=device)[None, :]
@@ -1180,30 +1266,35 @@ def k3_case(case: str, B, Sq, Sk, H, KvH, D, dtype, device, g, *, window=None,
         valid = valid & (k_pos <= q_pos)
     if window is not None:
         valid &= k_pos > q_pos - window
-    if window is None and kv_len is None:
+    if softcap is not None:
+        library, library_note = None, NO_CAPPED_LIBRARY
+    elif window is None and kv_len is None:
         library = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal,
                                                          enable_gqa=True, scale=scale)
     else:
         library = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=valid,
                                                          enable_gqa=True, scale=scale)
     try:
-        check_close(f"{name}: the library call", library(), want, dtype)
-        library_note = None
+        if library:
+            check_close(f"{name}: the library call", library(), want, dtype)
+            library_note = None
     except RuntimeError as e:                     # no backend takes the call
         library, library_note = None, f"refused: {str(e).splitlines()[0][:160]}"
     es = q.element_size()
     pairs = int(valid.sum())                      # (query, key) pairs this mask lets through
     flops = 2.0 * B * H * pairs * (D + Dv)        # Q K^T over D, P V over Dv: a multiply-add each
     nbytes = (B * H * Sq * (D + Dv) + B * KvH * (kv_len or Sk) * (D + Dv)) * es
-    bound_ms, bound_by = bound(flops, nbytes, dtype)
+    bound_ms, bound_by = bound(flops, nbytes, dtype,
+                               sfu=2.0 * B * H * pairs if softcap is not None else 0.0)
     kernel = lambda: fa.flash_attention(q, k, v, **kwargs)
     row = {
         "name": name, "route": "cuda", "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:96", "kernel": fa.KERNEL[dtype],
         "shape": {"B": B, "Sq": Sq, "Sk": Sk, "H": H, "KvH": KvH, "D": D, "Dv": Dv,
                   "dtype": dtype_name(dtype), "causal": causal, "window": window,
-                  "kv_len": kv_len, "scale": scale, "q_scale": q_scale},
+                  "kv_len": kv_len, "scale": scale, "q_scale": q_scale, "softcap": softcap},
         "launches": None, "max_abs_err": err, "tolerance": f"{ATTN_TOL[dtype]} + {ATTN_TOL[dtype]}*|plain|",
+        "err_share_of_limit": limit_share(got, want, ATTN_TOL[dtype]),
         "rms_plain": float(want.float().square().mean().sqrt()),
         "ms": time_ms(kernel, 20),
         "plain_ms": time_ms(lambda: ref.flash_attention_ref(q, k, v, **kwargs), 5),
@@ -1214,6 +1305,13 @@ def k3_case(case: str, B, Sq, Sk, H, KvH, D, dtype, device, g, *, window=None,
         row.update(device_times(kernel, library))
     else:
         row.update({"library_note": library_note, "device_ms": graph_ms(kernel)[0]})
+    if softcap is not None:
+        uncapped = lambda: fa.flash_attention(q, k, v, **dict(kwargs, softcap=None))
+        row["uncapped_err_share_of_limit"] = sees_the_cap(
+            name, limit_share(uncapped(), want, ATTN_TOL[dtype]))
+        row["uncapped_device_ms"] = graph_ms(uncapped)[0]
+        row["median_row_max_score_over_cap"] = row_max_over_cap(
+            q, k, valid, D ** -0.5 if scale is None else scale, softcap)
     return row
 
 
@@ -1238,72 +1336,92 @@ def phase_kernels_k3(device) -> list[dict]:
     return rows
 
 
-def k4_case(case: str, B, L, H, KvH, D, dtype, lengths, device, g, q_scale=1.0) -> dict:
+def k4_case(case: str, B, L, H, KvH, D, dtype, lengths, device, g, q_scale=1.0,
+            softcap=None) -> dict:
     """The decode-attention kernel against its plain version and against SDPA
-    with a boolean mask, on one query token per lane (``q_scale`` times
-    normal)."""
+    with a boolean mask (none under a cap), on one query token per lane
+    (``q_scale`` times normal; the scores capped at ``softcap`` where
+    given, and then the uncapped kernel must land outside the limit)."""
     q = seeded((B, H, D), dtype, device, g) * q_scale
     k, v = (seeded((B, L, KvH, D), dtype, device, g) for _ in range(2))
     n = torch.tensor(lengths, dtype=torch.int32, device=device) if isinstance(lengths, list) \
         else lengths
-    got = ops.decode(q, k, v, n)
+    got = ops.decode(q, k, v, n, softcap=softcap)
     torch.cuda.synchronize()
-    want = ref.decode_attention_ref(q, k, v, n)
+    want = ref.decode_attention_ref(q, k, v, n, softcap=softcap)
     per_lane = torch.broadcast_to(torch.as_tensor(n, device=device), (B,))
-    name = f"decode_attention[{case} {B}x{L} H{H}/{KvH} D{D} {dtype_name(dtype)}]"
+    name = (f"decode_attention[{case} {B}x{L} H{H}/{KvH} D{D} {dtype_name(dtype)}"
+            f"{capped_name(softcap)}]")
     err = check_close(name, got, want, dtype)
     mask = (torch.arange(L, device=device)[None, :] < per_lane[:, None])[:, None, None, :]
     kt, vt = k.transpose(1, 2), v.transpose(1, 2)
-    library = lambda: F.scaled_dot_product_attention(q[:, :, None], kt, vt, attn_mask=mask,
-                                                     enable_gqa=True)[:, :, 0]
-    check_close(f"{name}: the library call", library(), want, dtype)
+    library = None
+    if softcap is None:
+        library = lambda: F.scaled_dot_product_attention(q[:, :, None], kt, vt, attn_mask=mask,
+                                                         enable_gqa=True)[:, :, 0]
+        check_close(f"{name}: the library call", library(), want, dtype)
     rows_read = int(per_lane.clamp(max=L).sum())  # cache rows the lanes attend to
     es = q.element_size()
     bound_ms, bound_by = bound(4.0 * H * D * rows_read,
-                               (2 * B * H * D + 2 * rows_read * KvH * D) * es, dtype)
-    kernel = lambda: ops.decode(q, k, v, n)
+                               (2 * B * H * D + 2 * rows_read * KvH * D) * es, dtype,
+                               sfu=2.0 * H * rows_read if softcap is not None else 0.0)
+    kernel = lambda: ops.decode(q, k, v, n, softcap=softcap)
     groups = B * dec.groups(H, KvH)
     chunk, n_chunks = dec.split(L, groups, D, torch.cuda.get_device_properties(device)
                                 .multi_processor_count)
+    capped = {}
+    if softcap is not None:
+        capped = {
+            "uncapped_err_share_of_limit": sees_the_cap(
+                name, limit_share(ops.decode(q, k, v, n), want, ATTN_TOL[dtype])),
+            "median_row_max_score_over_cap": row_max_over_cap(
+                q[:, :, None], k.transpose(1, 2), mask, D ** -0.5, softcap)}
     return {
         "name": name, "route": "cuda", "source": "src/repro_torch/csrc/decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention.py:73", "kernel": dec.KERNEL[dtype],
         "shape": {"B": B, "L": L, "H": H, "KvH": KvH, "D": D, "dtype": dtype_name(dtype),
-                  "length": lengths, "q_scale": q_scale},
+                  "length": lengths, "q_scale": q_scale, "softcap": softcap},
         "split": {"chunk": chunk, "chunks": n_chunks, "blocks": n_chunks * groups},
         "launches": None, "max_abs_err": err, "tolerance": f"{ATTN_TOL[dtype]} + {ATTN_TOL[dtype]}*|plain|",
+        "err_share_of_limit": limit_share(got, want, ATTN_TOL[dtype]),
         "rms_plain": float(want.float().square().mean().sqrt()),
         "ms": time_ms(kernel, 50),
-        "plain_ms": time_ms(lambda: ref.decode_attention_ref(q, k, v, n), 20),
+        "plain_ms": time_ms(lambda: ref.decode_attention_ref(q, k, v, n, softcap=softcap), 20),
         "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": time_ms(library, 50),
-        **device_times(kernel, library),
+        "library_ms": time_ms(library, 50) if library else None,
+        **(device_times(kernel, library) if library else
+           {"device_ms": graph_ms(kernel)[0], "library_note": NO_CAPPED_LIBRARY,
+            "uncapped_device_ms": graph_ms(lambda: ops.decode(q, k, v, n))[0]}),
+        **capped,
     }
 
 
-def partial_merge_check(device, g) -> dict:
+def partial_merge_check(device, g, softcap=None) -> dict:
     """``decode_partial`` equals its plain version (``normalize=False``) in
     float32, and over 4 sequence shards, merged by ``merge_partials``, equals
-    the full decode to 1e-5."""
+    the full decode to 1e-5 (under the cap ``softcap`` where given, the
+    queries then 4 times normal)."""
     B, L, S = SLOTS, MAX_LEN, 4
     a = get_config(ARCH).attn
-    q = seeded((B, a.n_heads, a.d_head), F32, device, g)
+    q = seeded((B, a.n_heads, a.d_head), F32, device, g) * (1.0 if softcap is None else 4.0)
     k, v = (seeded((B, L, a.n_kv_heads, a.d_head), F32, device, g) for _ in range(2))
     n = torch.tensor([1, 100, 513, 1024], dtype=torch.int32, device=device)
+    cap = dict(softcap=softcap)
     plain_err = max(check_close(f"decode_partial {B}x{L} float32: {what}", got, want, F32)
-                    for what, got, want in zip(("acc", "m", "l"), ops.decode_partial(q, k, v, n),
+                    for what, got, want in zip(("acc", "m", "l"),
+                                               ops.decode_partial(q, k, v, n, **cap),
                                                ref.decode_attention_ref(q, k, v, n,
-                                                                        normalize=False)))
-    full = ops.decode(q, k, v, n)
+                                                                        normalize=False, **cap)))
+    full = ops.decode(q, k, v, n, **cap)
     w = L // S
     parts = [ops.decode_partial(q, k[:, s * w:(s + 1) * w], v[:, s * w:(s + 1) * w],
-                                (n - s * w).clamp(0, w)) for s in range(S)]
+                                (n - s * w).clamp(0, w), **cap) for s in range(S)]
     merged = ops.merge_partials(*(torch.stack(x) for x in zip(*parts)))
     err = float((merged - full).abs().max())
     if not err <= 1e-5:
         fail(f"decode_partial over {S} shards merged differs from the full decode by {err}")
     return {"case": f"decode_partial vs plain, and x{S} shards + merge_partials, "
-                    f"{B}x{L} float32",
+                    f"{B}x{L} float32{capped_name(softcap)}",
             "max_abs_err_vs_plain": plain_err, "tolerance_vs_plain": "2e-05 + 2e-05*|plain|",
             "max_abs_err": err, "tolerance": 1e-5}
 
@@ -1779,26 +1897,33 @@ def phase_kernels_s4(device) -> list[dict]:
 
 
 def s2_case(case: str, B, Sq, Sk, H, KvH, D, dtype, device, g, *, causal=True,
-            window=None, Dv=None) -> dict:
+            window=None, Dv=None, softcap=None, q_scale=PEAKED_Q) -> dict:
     """S2 (``flash_attention_bwd``: three launches a call) against its plain
     version and against the backward of SDPA on the same inputs: q, k, v as
     (B,H,S,·) views of model-layout tensors, v of ``Dv`` head dims (D unless
-    given), the queries ``PEAKED_Q`` times normal; o and lse from K3's
-    forward; dO normal."""
+    given), the queries ``q_scale`` times normal; o and lse from K3's
+    forward; dO normal.  Under a cap (``softcap``) both the forward and the
+    backward take it, there is no library call, the bound counts the exp
+    and the tanh that the gradient needs a visible pair (S2's two passes
+    form them twice: a cost of its design, not of the work), and the
+    uncapped kernels must land outside the limit."""
     Dv = D if Dv is None else Dv
-    q = (seeded((B, Sq, H, D), dtype, device, g) * PEAKED_Q).transpose(1, 2)
+    q = (seeded((B, Sq, H, D), dtype, device, g) * q_scale).transpose(1, 2)
     k = seeded((B, Sk, KvH, D), dtype, device, g).transpose(1, 2)
     v = seeded((B, Sk, KvH, Dv), dtype, device, g).transpose(1, 2)
     do = seeded((B, Sq, H, Dv), dtype, device, g).transpose(1, 2)
-    kw = dict(causal=causal, window=window)
-    o, lse = fa._forward(q, k, v, causal, window, D ** -0.5, None, with_lse=True)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    o, lse = fa._forward(q, k, v, causal, window, D ** -0.5, None, softcap, with_lse=True)
     route = fa.bwd_route(D, Dv, dtype)[0]
     got = fab.flash_attention_bwd(q, k, v, o, lse, do, **kw)
     torch.cuda.synchronize()
     want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
     name = (f"flash_attention_bwd[{case} {B}x{Sq}x{Sk} H{H}/{KvH} D{D}"
             f"{f' Dv{Dv}' if Dv != D else ''} {dtype_name(dtype)}"
-            f"{'' if causal else ' non-causal'}{f' window {window}' if window else ''}]")
+            f"{'' if causal else ' non-causal'}{f' window {window}' if window else ''}"
+            f"{capped_name(softcap)}]")
+
+    plain_max = {p: float(w.float().abs().max()) for p, w in zip(("dq", "dk", "dv"), want)}
 
     def held(what: str, parts) -> dict:
         errs = {}
@@ -1826,10 +1951,13 @@ def s2_case(case: str, B, Sq, Sk, H, KvH, D, dtype, device, g, *, causal=True,
     es = q.element_size()
     nbytes = ((2 * B * H * Sq + 2 * B * KvH * Sk) * D
               + (2 * B * H * Sq + 2 * B * KvH * Sk) * Dv) * es + 4 * B * H * Sq
-    bound_ms, bound_by = bound(flops, nbytes, dtype)
+    bound_ms, bound_by = bound(flops, nbytes, dtype,
+                               sfu=2.0 * B * H * pairs if softcap is not None else 0.0)
     ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
     out = None
     try:
+        if softcap is not None:
+            raise RuntimeError(NO_CAPPED_LIBRARY)
         if window is None:
             out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal, enable_gqa=True)
         else:
@@ -1838,7 +1966,17 @@ def s2_case(case: str, B, Sq, Sk, H, KvH, D, dtype, device, g, *, causal=True,
         held(f"{name}: the library call", library())
         library_note = None
     except RuntimeError as e:                     # no backend takes the call
-        library, library_note = None, f"refused: {str(e).splitlines()[0][:160]}"
+        library, library_note = None, (NO_CAPPED_LIBRARY if softcap is not None else
+                                       f"refused: {str(e).splitlines()[0][:160]}")
+    if softcap is not None:
+        o0, lse0 = fa._forward(q, k, v, causal, window, D ** -0.5, None, with_lse=True)
+        uncapped = lambda: fab.flash_attention_bwd(q, k, v, o0, lse0, do,
+                                                   **dict(kw, softcap=None))
+        share = max(float((a.float() - b.float()).abs().max()) / (BWD_TOL[dtype] * plain_max[p])
+                    for p, a, b in zip(("dq", "dk", "dv"), uncapped(), want))
+        capped = {"uncapped_err_share_of_limit": sees_the_cap(name, share),
+                  "median_row_max_score_over_cap": row_max_over_cap(q, k, valid, D ** -0.5,
+                                                                    softcap)}
     del want
     torch.cuda.empty_cache()
     kernel = lambda: fab.flash_attention_bwd(q, k, v, o, lse, do, **kw)
@@ -1849,8 +1987,9 @@ def s2_case(case: str, B, Sq, Sk, H, KvH, D, dtype, device, g, *, causal=True,
         "kernel": "/".join(fa.BWD_KERNELS[route]), "kernel_route": route,
         "shape": {"B": B, "Sq": Sq, "Sk": Sk, "H": H, "KvH": KvH, "D": D, "Dv": Dv,
                   "dtype": dtype_name(dtype), "causal": causal, "window": window,
-                  "q_scale": PEAKED_Q},
+                  "q_scale": q_scale, "softcap": softcap},
         "launches": None, "max_abs_err": max(errs.values()), "max_abs_err_by_output": errs,
+        "err_share_of_limit": max(errs[p] / (BWD_TOL[dtype] * mx) for p, mx in plain_max.items()),
         "tolerance": f"{BWD_TOL[dtype]} * max|plain| per output",
         "ms": time_ms(kernel, 10),
         "plain_ms": time_ms(lambda: ref.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw), 2),
@@ -1864,6 +2003,9 @@ def s2_case(case: str, B, Sq, Sk, H, KvH, D, dtype, device, g, *, causal=True,
     }
     if library_note:
         row["library_note"] = library_note
+    if softcap is not None:
+        row.update(capped, uncapped_device_ms=graph_ms(uncapped)[0])
+        del o0, lse0, uncapped
     del out, library
     torch.cuda.empty_cache()
     return row
@@ -1872,7 +2014,8 @@ def s2_case(case: str, B, Sq, Sk, H, KvH, D, dtype, device, g, *, causal=True,
 def s2_shape_key(row: dict) -> tuple:
     """The ``by_shape`` key of the calls an S2 row stands for."""
     sh = row["shape"]
-    return (sh["B"], sh["H"], sh["KvH"], sh["Sq"], sh["Sk"], sh["D"], sh["Dv"], sh["causal"])
+    return (sh["B"], sh["H"], sh["KvH"], sh["Sq"], sh["Sk"], sh["D"], sh["Dv"], sh["causal"],
+            sh["softcap"])
 
 
 def phase_kernels_s2(device) -> list[dict]:
@@ -1902,6 +2045,75 @@ def phase_kernels_s2(device) -> list[dict]:
                 Dv=32),
     ]
     return rows
+
+
+def capped_pair_refusal(device) -> dict:
+    """A capped call at MLA's (192, 128) in bfloat16 raises ``ValueError``
+    in K3 and in S2 before any launch (no capped instantiation of the pair
+    is built; the reference's MLA ignores the cap)."""
+    g = torch.Generator(device="cpu").manual_seed(SEED + 13)
+    q, k = (seeded((1, 16, 128, 192), BF16, device, g) for _ in range(2))
+    v = seeded((1, 16, 128, 128), BF16, device, g)
+    lse = torch.zeros((1, 16, 128), device=device)
+    before = (fa.launches, fab.launches)
+    said = []
+    for call in (lambda: fa.flash_attention(q, k, v, softcap=SOFTCAP),
+                 lambda: fab.flash_attention_bwd(q, k, v, v, lse, v, softcap=SOFTCAP)):
+        try:
+            call()
+        except ValueError as e:
+            said.append(str(e)[:120])
+        else:
+            fail("a capped call at (192, 128) in bfloat16 ran")
+    if (fa.launches, fab.launches) != before:
+        fail("a refused capped call at (192, 128) launched a kernel")
+    return {"case": "capped (192, 128) bfloat16: K3 and S2 raise ValueError, no launch",
+            "said": said}
+
+
+def phase_kernels_softcap(device) -> tuple[list[dict], list[dict], list[dict]]:
+    """K3, K4 and S2 under the cap (``SOFTCAP``) at the shapes the capped
+    tinyllama's paths run them at: K3 in bfloat16 at its 4 x 1024 prefill
+    and its 4 x 2048 gradient, in float32 at its consistency check; K4 in
+    bfloat16 at its serving cache and in float32 at its consistency check
+    (a length a lane); S2 on the tensor cores at its gradient's shape.  Then
+    checks no main path counts (``launches: null``): K3 at RecurrentGemma's
+    2 x 4096 prefill (head dim 256, 16/1, window 2048), the capped partials
+    and their merge, S2 on the CUDA cores (head dim 256 and float32), the
+    three bfloat16 routes (``tanh.approx``) with queries ``NEAR_CAP_Q`` times
+    normal, and the refusal at (192, 128).  Queries ``PEAKED_Q`` times
+    normal elsewhere, so that the cap bends the scores."""
+    g = torch.Generator(device="cpu").manual_seed(SEED + 12)
+    a = get_config(ARCH).attn
+    H, KvH, D = a.n_heads, a.n_kv_heads, a.d_head
+    cap = dict(softcap=SOFTCAP, q_scale=PEAKED_Q)
+    k3 = [k3_case("capped prefill", PREFILL_B, PREFILL_S, PREFILL_S, H, KvH, D, BF16, device, g,
+                  **cap),
+          k3_case("capped train", TRAIN_B, TRAIN_S, TRAIN_S, H, KvH, D, BF16, device, g, **cap),
+          k3_case("capped consistency", CONSIST_B, CONSIST_S, CONSIST_S, H, KvH, D, F32, device,
+                  g, **cap)]
+    r = get_config(RGEMMA).attn
+    (rb, rs) = PREFILL[RGEMMA]
+    near = dict(softcap=SOFTCAP, q_scale=NEAR_CAP_Q)
+    k3[0]["checks"] = [k3_case("capped RecurrentGemma prefill", rb, rs, rs, r.n_heads,
+                               r.n_kv_heads, r.d_head, BF16, device, g, window=r.window, **cap),
+                       k3_case("near the cap", 2, 1024, 1024, H, KvH, D, BF16, device, g, **near)]
+    lanes = [1, 100, 513, 1024]
+    k4 = [k4_case("capped serve", SLOTS, MAX_LEN, H, KvH, D, BF16, lanes, device, g, **cap),
+          k4_case("capped consistency", CONSIST_B, CONSIST_S, H, KvH, D, F32,
+                  [CONSIST_S] * CONSIST_B, device, g, **cap)]
+    k4[0]["checks"] = [partial_merge_check(device, g, softcap=SOFTCAP),
+                       k4_case("near the cap", SLOTS, MAX_LEN, H, KvH, D, BF16, lanes, device, g,
+                               **near)]
+    s2 = [s2_case("capped train", TRAIN_B, TRAIN_S, TRAIN_S, H, KvH, D, BF16, device, g,
+                  softcap=SOFTCAP)]
+    s2[0]["checks"] = [
+        s2_case("capped D 256, group 16", 2, 512, 512, 16, 1, 256, BF16, device, g,
+                softcap=SOFTCAP),
+        s2_case("capped float32", 2, 512, 512, H, KvH, D, F32, device, g, softcap=SOFTCAP),
+        s2_case("near the cap", 2, 1024, 1024, H, KvH, D, BF16, device, g, **near),
+        capped_pair_refusal(device)]
+    return k3, k4, s2
 
 
 # -- serving ------------------------------------------------------------------------
@@ -1936,8 +2148,10 @@ def shape_key(row: dict) -> tuple:
     """The ``by_shape`` key of the calls a K3 or K4 row stands for."""
     sh = row["shape"]
     if "Sq" in sh:
-        return (sh["B"], sh["H"], sh["KvH"], sh["Sq"], sh["Sk"], sh["D"], sh["Dv"], sh["causal"])
-    return (sh["B"], sh["H"], sh["KvH"], sh["L"], sh["D"], isinstance(sh["length"], list))
+        return (sh["B"], sh["H"], sh["KvH"], sh["Sq"], sh["Sk"], sh["D"], sh["Dv"], sh["causal"],
+                sh["softcap"])
+    return (sh["B"], sh["H"], sh["KvH"], sh["L"], sh["D"], isinstance(sh["length"], list),
+            sh["softcap"])
 
 
 def printable(by_shape: dict) -> dict:
@@ -1978,12 +2192,26 @@ def forward_launches(cfg, passes: int = 1) -> dict:
 
 def served_config(arch: str):
     """The arch's config as served: full width, cut in depth where it must
-    be (``SERVE_CUT_REPEATS``)."""
+    be (``SERVE_CUT_REPEATS``); ``CAPPED`` is tinyllama's under the cap."""
+    if arch == CAPPED:
+        cfg = get_config(ARCH)
+        return cfg.scaled(name=CAPPED, attn=dataclasses.replace(cfg.attn, logit_softcap=SOFTCAP))
     cfg = get_config(arch)
     if arch in SERVE_CUT_REPEATS:
         cfg = cfg.scaled(segments=tuple(Segment(s.pattern, SERVE_CUT_REPEATS[arch], s.ffn)
                                         for s in cfg.segments))
     return cfg
+
+
+def sharpen(params) -> None:
+    """Every attention block's query and key weights ``CAPPED_QK`` times
+    larger, in place: the capped gradient check's, so that the cap bites."""
+    with torch.no_grad():
+        for seg in params["segments"]:
+            for block in seg:
+                for name in ("wq", "wk"):
+                    if name in block["mixer"]:
+                        block["mixer"][name].mul_(CAPPED_QK)
 
 
 def open_gates(params, seed: int) -> None:
@@ -2625,10 +2853,10 @@ def plain_attention():
     ``ref.flash_attention_ref``): the yardstick of a gradient check only."""
     real = ops.mha
 
-    def mha(q, k, v, *, causal=True, window=None, scale=None):
+    def mha(q, k, v, *, causal=True, window=None, scale=None, softcap=None):
         return ref.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                                       causal=causal, window=window,
-                                       scale=scale).transpose(1, 2)
+                                       causal=causal, window=window, scale=scale,
+                                       softcap=softcap).transpose(1, 2)
 
     ops.mha = mha
     try:
@@ -2639,15 +2867,20 @@ def plain_attention():
 
 def phase_train_grads(device, arch: str = ARCH, B: int = GRAD_B, S: int = GRAD_S) -> dict:
     """``arch`` at full width, cut to its first segment's first layers
-    (tinyllama-1.1b's attention; deepseek-v2-lite's dense MLA layers, K3 and
-    S2 at (192, 128)): the bfloat16 gradients through K3 and S2 against
-    float32 plain ones on the same weights and batch.  Each leaf's relative
-    L2 error may be at most 3x the bfloat16 plain path's (the rule of the
-    consistency checks)."""
-    full = get_config(arch)
+    (tinyllama-1.1b's attention, capped or not; deepseek-v2-lite's dense MLA
+    layers, K3 and S2 at (192, 128)): the bfloat16 gradients through K3 and
+    S2 against float32 plain ones on the same weights and batch.  Each leaf's
+    relative L2 error may be at most 3x the bfloat16 plain path's (the rule
+    of the consistency checks).  The capped model's query and key weights
+    are sharpened (``sharpen``), and its check fails unless the float32
+    plain gradients without the cap lie outside that limit on some leaf: a
+    dropped cap would fail it."""
+    full = served_config(arch)
     cfg = full.scaled(segments=(Segment(full.segments[0].pattern, GRAD_CUT_LAYERS,
                                         full.segments[0].ffn),))
     params = init_train_state(SEED + 10, cfg, device=device)["params"]
+    if arch == CAPPED:
+        sharpen(params)
     batch = {k: torch.as_tensor(v, device=device) for k, v in make_batch(
         cfg, ShapeCfg("grads", S, B, "train"), step=1).items()}
     zero_counts()
@@ -2668,12 +2901,28 @@ def phase_train_grads(device, arch: str = ARCH, B: int = GRAD_B, S: int = GRAD_S
         if not k_err <= CONSIST_NOISE * p_err:
             fail(f"train grads {arch}: {key}: the kernel's bf16 gradient is {k_err} from "
                  f"float32, > {CONSIST_NOISE} x the bf16 plain path's {p_err}")
+    dropped = {}
+    if cfg.attn.logit_softcap is not None:
+        uncapped = cfg.scaled(dtype="float32",
+                              attn=dataclasses.replace(cfg.attn, logit_softcap=None))
+        with plain_attention():
+            _, _, plain32u = make_grad_fn(uncapped)(as_float32(params), batch)
+        for key, want in _tree.with_paths(plain32).items():
+            d = rel(_tree.with_paths(plain32u)[key], want)
+            leaves[key]["plain_f32_uncapped_vs_capped"] = d
+            dropped[key] = d / (CONSIST_NOISE * leaves[key]["plain_bf16_vs_plain_f32"])
+        del plain32u
+        if not max(dropped.values()) > 1.0:
+            fail(f"train grads {arch}: no leaf of the uncapped gradient lies outside the "
+                 f"limit (at most {max(dropped.values())} of it): the check cannot see the cap")
     out = {"arch": cfg.name, "layers": cfg.n_layers, "batch": B, "seq": S,
            "cut": f"the first {GRAD_CUT_LAYERS} layers, full width", "launches": n,
            "launches_by_shape": {k: printable(v) for k, v in shapes.items()},
            "limit": f"{CONSIST_NOISE} x the bf16 plain path's relative L2 error",
            "worst_ratio": max(v["kernel_bf16_vs_plain_f32"] / v["plain_bf16_vs_plain_f32"]
                               for v in leaves.values()),
+           **({"qk_weights": f"x{CAPPED_QK:g}",
+               "uncapped_over_limit": max(dropped.values())} if dropped else {}),
            "leaves": leaves}
     del kernel, plain16, plain32, params
     torch.cuda.empty_cache()
@@ -2710,6 +2959,65 @@ def phase_train_example(device) -> dict:
            "launches_by_shape": {k: printable(v) for k, v in shapes.items()}}
     emit("train_example", out)
     return {"launches": n, "shapes": shapes}
+
+
+def phase_serve_example(device) -> dict:
+    """examples/serve_batched_torch.py as a user runs it on the card (no
+    ``--device``): its smoke defaults, 10 requests over 4 slots, every
+    decode step through K4 and nothing else; its ``served 10 requests, 120
+    tokens, ...`` line is checked."""
+    import importlib.util
+    path = Path(__file__).resolve().parent / "examples" / "serve_batched_torch.py"
+    spec = importlib.util.spec_from_file_location("serve_batched_torch", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    zero_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = module.main([])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    n = counts()
+    lines = buf.getvalue().strip().splitlines()
+    m = re.match(r"served 10 requests, 120 tokens, (\d+) decode steps in ", lines[0]) \
+        if lines else None
+    if rc != 0 or m is None:
+        fail(f"serve example: exit {rc}, {lines[:1]!r}")
+    layers_n = get_smoke_config(ARCH).n_layers
+    if n["decode_attention"] <= 0 or n["decode_attention"] % layers_n:
+        fail(f"serve example: {n['decode_attention']} decode-attention launches, not a "
+             f"positive multiple of its {layers_n} layers")
+    expect("serve example", n, decode_attention=n["decode_attention"])
+    out = {"example": "examples/serve_batched_torch.py", "seconds": secs, "lines": lines,
+           "decode_steps": int(m.group(1)), "launches": n}
+    emit("serve_example", out)
+    return out
+
+
+def softcap_launches(dense, capped, k3_rows, k4_rows, k3_cap, k4_cap) -> dict:
+    """Every uncapped row keeps its launch count: tinyllama's prefill and
+    serving launched K3 and K4 only uncapped (every ``by_shape`` key's cap
+    None), as many times as before (a layer a pass or a decode call), and the
+    capped model's the same counts, every one capped."""
+    cfg = get_config(ARCH)
+    calls = dense["serve"]["decode_attention"] // cfg.n_layers
+    out = {"config": f"{ARCH} with attn.logit_softcap {SOFTCAP:g}, full width and depth "
+                     "(cfg.scaled; not in the registry)"}
+    for which, ran, (k3, k4) in (("uncapped", dense, (k3_rows[0], k4_rows[0])),
+                                 ("capped", capped, (k3_cap[0], k4_cap[0]))):
+        cap = SOFTCAP if which == "capped" else None
+        for phase, kernel in (("prefill", "flash_attention"), ("serve", "decode_attention")):
+            keys = ran[phase + "_shapes"][kernel]
+            if any(key[-1] != cap for key in keys):
+                fail(f"{which} tinyllama {phase}: {kernel} launched at {printable(keys)}")
+        n = (ran["prefill_shapes"]["flash_attention"].get(shape_key(k3), 0),
+             ran["serve_shapes"]["decode_attention"].get(shape_key(k4), 0))
+        if n != (cfg.n_layers, cfg.n_layers * calls):
+            fail(f"{which} tinyllama: K3 and K4 launches {n}, expected "
+                 f"{(cfg.n_layers, cfg.n_layers * calls)}")
+        out[which] = {"prefill K3": n[0], "serve K4": n[1]}
+    return out
 
 
 PHASE_SECONDS: dict[str, float] = {}
@@ -2751,6 +3059,8 @@ def main() -> None:
         a = get_config(ARCH).attn
         k3_train = k3_case("train", TRAIN_B, TRAIN_S, TRAIN_S, a.n_heads, a.n_kv_heads,
                            a.d_head, BF16, device, torch.Generator().manual_seed(SEED + 11))
+    with timed("kernels softcap"):
+        k3_cap, k4_cap, s2_cap = phase_kernels_softcap(device)
     torch.cuda.empty_cache()
 
     # every count to 0, then the compiler's main path, then read the counts
@@ -2795,6 +3105,10 @@ def main() -> None:
     for arch in CROSS_ARCHS:
         with timed(arch):
             cross[arch] = serve_model(arch, device)
+    with timed(CAPPED):
+        capped = serve_model(CAPPED, device)
+    with timed("serve example"):
+        phase_serve_example(device)
     # the training paths, each with the counts at 0 just before it
     with timed("train"):
         trained = phase_train(device)
@@ -2802,6 +3116,7 @@ def main() -> None:
             phase_train_card_vs_cpu(device, arch)
         phase_train_grads(device)
         mla_grads = phase_train_grads(device, DEEPSEEK, MLA_GRAD_B, MLA_GRAD_S)
+        capped_grads = phase_train_grads(device, CAPPED, TRAIN_B, TRAIN_S)
         example = phase_train_example(device)
     # every other arch at full width, each with the counts at 0 just before it
     with timed("train archs"):
@@ -2866,8 +3181,26 @@ def main() -> None:
                      f"{printable(by_shape)}, expected {want[phase]} at "
                      f"{[shape_key(row) for row in pair]}")
         rows += k3 + k4
+    # the capped tinyllama's: each row's count is its phase's launches at the
+    # row's shape under the cap, and (where the phase runs one shape) all of them
+    k3_cap[0]["launches"] = capped["prefill_shapes"]["flash_attention"].get(shape_key(k3_cap[0]), 0)
+    k3_cap[1]["launches"] = capped_grads["shapes"]["flash_attention"].get(shape_key(k3_cap[1]), 0)
+    k3_cap[2]["launches"] = capped["consistency"]["f32"]["flash_attention"]
+    k4_cap[0]["launches"] = capped["serve_shapes"]["decode_attention"].get(shape_key(k4_cap[0]), 0)
+    k4_cap[1]["launches"] = capped["consistency"]["f32"]["decode_attention"]
+    s2_cap[0]["launches"] = capped_grads["shapes"]["flash_attention_bwd"].get(
+        s2_shape_key(s2_cap[0]), 0)
+    for row, total in ((k3_cap[0], capped["prefill"]["flash_attention"]),
+                       (k3_cap[1], capped_grads["launches"]["flash_attention"]),
+                       (k4_cap[0], capped["serve"]["decode_attention"]),
+                       (s2_cap[0], capped_grads["launches"]["flash_attention_bwd"])):
+        if row["launches"] != total:
+            fail(f"{row['name']}: {row['launches']} launches at its shape under the cap, of "
+                 f"{total} in its phase")
+    emit("softcap", softcap_launches(dense, capped, k3_rows, k4_rows, k3_cap, k4_cap))
     rows += (k3_rows + k4_rows + k5_rows + k6_rows + k3_256 + k4_256 + k3_moe + k4_moe
-             + k3_mla + s1_rows + [k3_train] + s2_rows + s3_rows + s4_rows)
+             + k3_mla + s1_rows + [k3_train] + s2_rows + s3_rows + s4_rows
+             + k3_cap + k4_cap + s2_cap)
     for row in rows:
         if row["launches"] <= 0:
             fail(f"the main path never launched {row['name']}")

@@ -43,6 +43,14 @@
 // each thread sums P V for 4 dims of one head.  Scores are float32 with the
 // masks of the Pallas body: positions at or past the length score -1e30,
 // positions past the cache do not exist (-inf, weight 0).
+//
+// Logit soft-capping: with `softcap` c > 0 a scaled score s becomes
+// c tanh(s / c) before the length mask (the reference's decode,
+// repro/models/attention.py:310), so the partials' (m, l) are over the capped
+// scores.  Both kernels are templates on CAP, so the uncapped instantiations
+// are the code they were; bfloat16 takes `tanh.approx.f32`, float32 tanhf.
+// The bound stays the bytes: a tanh a cached position and head is far below
+// what its read costs.
 #include "hopper.cuh"
 
 namespace {
@@ -72,6 +80,7 @@ struct DecodeArgs {
   long long v_sb, v_sl, v_sh;
   int length, B, H, KvH, L, D, chunk, n_chunks, normalize;
   float scale;
+  float softcap;                   // > 0: scores capped to softcap * tanh(s / softcap)
 };
 
 namespace {
@@ -235,7 +244,7 @@ size_t bf16_smem(int chunk, int n_chunks) {
   return (size_t)16 * (D + 8) * 2 + (kv > subs ? kv : subs) + ((size_t)n_chunks * 32 + 32) * 4;
 }
 
-template <int D>
+template <int D, bool CAP>
 __global__ void __launch_bounds__(THREADS)
 decode_bf16_mma(const DecodeArgs a) {
   constexpr int DP = D + 8;                // padded row: ldmatrix reads free of conflicts
@@ -285,6 +294,7 @@ decode_bf16_mma(const DecodeArgs a) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
   float m[2] = {MASKED, MASKED}, lsum[2] = {0.f, 0.f};
+  const float qk_mul = CAP ? a.scale / a.softcap : a.scale;   // of the raw products
 
   for (int j = w; j < C / 16; j += WARPS) {
     const int s0 = j * 16;                 // this step's 16 positions of the chunk
@@ -303,7 +313,8 @@ decode_bf16_mma(const DecodeArgs a) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int pos = p0 + s0 + t * 8 + 2 * (l % 4) + (e & 1);
-        const float x = pos >= a.L ? ABSENT : (pos < n ? s[t][e] * a.scale : MASKED);
+        const float sv = CAP ? tanh_approx(s[t][e] * qk_mul) * a.softcap : s[t][e] * qk_mul;
+        const float x = pos >= a.L ? ABSENT : (pos < n ? sv : MASKED);
         s[t][e] = x;
         mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
@@ -378,7 +389,7 @@ size_t f32_smem(int chunk, int n_chunks) {
           32 + 16 * D + (size_t)n_chunks * 32 + 32) * 4;
 }
 
-template <int D>
+template <int D, bool CAP>
 __global__ void __launch_bounds__(THREADS)
 decode_f32(const DecodeArgs a) {
   constexpr int DK = D + 4;
@@ -468,10 +479,18 @@ decode_f32(const DecodeArgs a) {
   }
   __syncthreads();
 
-  // the chunk's softmax statistics, one warp per head
+  // the chunk's softmax statistics, one warp per head; under CAP the scores
+  // the masks left are capped here, by all 32 lanes (in the scoring loop
+  // above only a team's first lane holds a score, for all 16 heads)
   for (int g = w; g < G; g += WARPS) {
     float mx = ABSENT;
-    for (int j = l; j < C; j += 32) mx = fmaxf(mx, sc[g * C + j]);
+    for (int j = l; j < C; j += 32) {
+      if constexpr (CAP) {
+        float* x = sc + g * C + j;
+        if (p0 + j < n && p0 + j < a.L) *x = tanhf(*x / a.softcap) * a.softcap;
+      }
+      mx = fmaxf(mx, sc[g * C + j]);
+    }
     mx = warp_max(mx);
     float s = 0.f;
     for (int j = l; j < C; j += 32) {
@@ -516,10 +535,10 @@ decode_f32(const DecodeArgs a) {
   finish<float, D, 1>(a, grp, active, sub_m, sub_l, sub_acc, wgt);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool CAP>
 int launch_d(const DecodeArgs& a, cudaStream_t stream) {
   constexpr bool bf16 = sizeof(T) == 2;
-  auto kernel = bf16 ? decode_bf16_mma<D> : decode_f32<D>;
+  auto kernel = bf16 ? decode_bf16_mma<D, CAP> : decode_f32<D, CAP>;
   const size_t smem = bf16 ? bf16_smem<D>(a.chunk, a.n_chunks) : f32_smem<D>(a.chunk, a.n_chunks);
   if (smem > (size_t)SMEM_LIMIT) return (int)cudaErrorInvalidValue;
   static size_t attribute = 48 * 1024;     // above 48 KB a kernel must ask
@@ -534,20 +553,25 @@ int launch_d(const DecodeArgs& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+template <typename T, bool CAP>
+int launch_dims(const DecodeArgs& a, cudaStream_t s) {
+  switch (a.D) {
+    case 16: return launch_d<T, 16, CAP>(a, s);
+    case 32: return launch_d<T, 32, CAP>(a, s);
+    case 64: return launch_d<T, 64, CAP>(a, s);
+    case 128: return launch_d<T, 128, CAP>(a, s);
+    case 256: return launch_d<T, 256, CAP>(a, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 template <typename T>
 int launch(const DecodeArgs* a, void* stream) {
   if (a->B <= 0 || a->H <= 0 || a->KvH <= 0 || a->H % a->KvH || a->L <= 0 || a->chunk <= 0 ||
-      a->chunk % 64 || a->n_chunks != (a->L + a->chunk - 1) / a->chunk)
+      a->chunk % 64 || a->n_chunks != (a->L + a->chunk - 1) / a->chunk || a->softcap < 0.f)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  switch (a->D) {
-    case 16: return launch_d<T, 16>(*a, s);
-    case 32: return launch_d<T, 32>(*a, s);
-    case 64: return launch_d<T, 64>(*a, s);
-    case 128: return launch_d<T, 128>(*a, s);
-    case 256: return launch_d<T, 256>(*a, s);
-  }
-  return (int)cudaErrorInvalidValue;
+  return a->softcap > 0.f ? launch_dims<T, true>(*a, s) : launch_dims<T, false>(*a, s);
 }
 
 }  // namespace
@@ -555,7 +579,8 @@ int launch(const DecodeArgs* a, void* stream) {
 // Launchers: one kernel launch on `stream` for the call `a` describes (see
 // DecodeArgs): rows of q, k, v 16-byte aligned (strides of whole 16 bytes),
 // `chunk` a multiple of 64 with n_chunks = ceil(L / chunk), the workspace
-// sized for them (B * KvH * ceil(G / 16) groups, G = H/KvH) and its counters 0.  They return
+// sized for them (B * KvH * ceil(G / 16) groups, G = H/KvH) and its counters 0,
+// `softcap` 0 (none) or the cap.  They return
 // cudaGetLastError() (cudaErrorInvalidValue for a call they do not take).
 extern "C" int launch_decode_attention_f32(const DecodeArgs* a, void* stream) {
   return launch<float>(a, stream);

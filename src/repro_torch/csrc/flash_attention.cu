@@ -64,6 +64,18 @@
 // of P.V; (acc, m) live in registers and l as per-lane partial sums.  Scores
 // are (q * scale) . k.  At D 256 its accumulator spills.
 //
+// Logit soft-capping: under a cap c each scaled score s becomes c tanh(s / c)
+// before the masks, and the softmax and lse are over the capped scores, as in
+// the reference's plain attention (repro/models/attention.py:97).  Both
+// kernels take it as a template parameter CAP beside a runtime `cap`, so the
+// uncapped instantiations are the code they were.  float32 takes tanhf; bf16
+// takes `tanh.approx.f32` on the raw product times scale/c, and multiplies
+// the result by c log2(e) where the uncapped kernel multiplies by scale
+// log2(e).  A capped score costs a MUFU tanh beside its exp2: at 16 a cycle
+// an SM, the two special functions of a pair can outlast the two products
+// (4 D flops a pair on the tensor cores) below D 128.  No capped <192, 128>
+// is built: the reference's MLA ignores the cap.
+//
 // Training: where the caller passes an `lse` buffer, both kernels also write
 // each query row's log-sum-exp, m + log l in natural units (the bf16 kernel's m
 // is in log2 units: m ln 2 + log l), which the backward
@@ -113,11 +125,12 @@ constexpr size_t smem_floats() {
   return (size_t)BQ * (D + 4) + (size_t)BK * (D + 4) + (size_t)BK * D + (size_t)BQ * PS;
 }
 
-template <int D>
+template <int D, bool CAP>
 __global__ void __launch_bounds__(THREADS)
 flash_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
           float* __restrict__ o, float* __restrict__ lse, int group, int Sq, int Sk, Strides qs,
-          Strides ks, Strides vs, Strides os, float scale, int causal, int window, int kv_len) {
+          Strides ks, Strides vs, Strides os, float scale, int causal, int window, int kv_len,
+          float cap) {
   constexpr int DP = D + 4;                // padded row stride of the Q and K tiles
   constexpr int DL = D < 32 ? D : 32;      // lanes along the head dim in P.V
   constexpr int RG = 32 / DL;              // lane groups along the rows in P.V
@@ -201,6 +214,7 @@ flash_f32(const float* __restrict__ q, const float* __restrict__ k, const float*
         bool ok = kpos < kv_len;
         if (causal) ok = ok && kpos <= qpos;
         if (window > 0) ok = ok && kpos > qpos - window;
+        if constexpr (CAP) s[r][j] = tanhf(s[r][j] / cap) * cap;
         s[r][j] = kpos >= Sk ? ABSENT : (ok ? s[r][j] : MASKED);
       }
       const float m_new = fmaxf(m[r], warp_max(fmaxf(s[r][0], s[r][1])));
@@ -265,11 +279,11 @@ flash_f32(const float* __restrict__ q, const float* __restrict__ k, const float*
   }
 }
 
-template <int D>
+template <int D, bool CAP>
 int launch_f32_d(const float* q, const float* k, const float* v, float* o, float* lse, int B, int H,
                  int KvH, int Sq, int Sk, const long long* st, float scale, int causal,
-                 int window, int kv_len, cudaStream_t stream) {
-  auto kernel = flash_f32<D>;
+                 int window, int kv_len, float cap, cudaStream_t stream) {
+  auto kernel = flash_f32<D, CAP>;
   const size_t smem = smem_floats<D>() * sizeof(float);
   static bool attribute_set = false;       // above 48 KB a kernel must ask, once
   if (smem > 48 * 1024 && !attribute_set) {
@@ -282,8 +296,22 @@ int launch_f32_d(const float* q, const float* k, const float* v, float* o, float
   const Strides vs{st[6], st[7], st[8]}, os{st[9], st[10], st[11]};
   dim3 grid((Sq + BQ - 1) / BQ, H, B);
   kernel<<<grid, THREADS, smem, stream>>>(q, k, v, o, lse, H / KvH, Sq, Sk, qs, ks, vs, os,
-                                          scale, causal, window, kv_len);
+                                          scale, causal, window, kv_len, cap);
   return (int)cudaGetLastError();
+}
+
+template <bool CAP>
+int launch_f32_any(const float* q, const float* k, const float* v, float* o, float* lse, int B,
+                   int H, int KvH, int Sq, int Sk, int D, const long long* st, float scale,
+                   int causal, int window, int kv_len, float cap, cudaStream_t s) {
+  switch (D) {
+    case 16: return launch_f32_d<16, CAP>(q, k, v, o, lse, B, H, KvH, Sq, Sk, st, scale, causal, window, kv_len, cap, s);
+    case 32: return launch_f32_d<32, CAP>(q, k, v, o, lse, B, H, KvH, Sq, Sk, st, scale, causal, window, kv_len, cap, s);
+    case 64: return launch_f32_d<64, CAP>(q, k, v, o, lse, B, H, KvH, Sq, Sk, st, scale, causal, window, kv_len, cap, s);
+    case 128: return launch_f32_d<128, CAP>(q, k, v, o, lse, B, H, KvH, Sq, Sk, st, scale, causal, window, kv_len, cap, s);
+    case 256: return launch_f32_d<256, CAP>(q, k, v, o, lse, B, H, KvH, Sq, Sk, st, scale, causal, window, kv_len, cap, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 // -- bfloat16 on the tensor cores ---------------------------------------------------
@@ -316,12 +344,15 @@ struct WgTile {
   static_assert(SMEM <= SMEM_LIMIT, "the tiles do not fit a block's shared memory");
 };
 
-template <int DQK, int DV>
+// qk_mul multiplies the raw products: scale log2(e), or under a cap scale / c,
+// whose tanh then takes cap_log2 = c log2(e)
+template <int DQK, int DV, bool CAP>
 __global__ void __launch_bounds__(WgTile<DQK, DV>::THREADS, 1)
 flash_bf16_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                  const __grid_constant__ CUtensorMap tv, MapDims mq, MapDims mk, MapDims mv,
                  __nv_bfloat16* __restrict__ o, float* __restrict__ lse, Strides os, int group,
-                 int Sq, int Sk, float scale_log2, int causal, int window, int kv_len) {
+                 int Sq, int Sk, float qk_mul, int causal, int window, int kv_len,
+                 float cap_log2) {
   using T = WgTile<DQK, DV>;
   constexpr int TK = T::BK, SWZ = T::SWZ, COLS = T::COLS, BQ = T::BQ, STAGES = T::STAGES;
   extern __shared__ __align__(1024) uint8_t fsm[];
@@ -406,10 +437,14 @@ flash_bf16_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__
       wgmma_commit();
       wgmma_wait_all();
 
-      // scale; masks only where one reaches this tile, as selects against
-      // each row's bounds, relative to this thread's first column k0 + 2*(l%4)
+      // scale (and cap); masks only where one reaches this tile, as selects
+      // against each row's bounds, relative to this thread's first column
+      // k0 + 2*(l%4)
 #pragma unroll
-      for (int i = 0; i < TK / 2; ++i) sc[i] *= scale_log2;
+      for (int i = 0; i < TK / 2; ++i) {
+        if constexpr (CAP) sc[i] = tanh_approx(sc[i] * qk_mul) * cap_log2;
+        else sc[i] *= qk_mul;
+      }
       if (k0 + TK > kv_len || (causal && k0 + TK - 1 > wq0) ||
           (window > 0 && k0 <= wq0 + 63 - window)) {
         const int base_col = k0 + 2 * (l % 4);
@@ -487,11 +522,10 @@ flash_bf16_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__
   }
 }
 
-template <int DQK, int DV>
+template <int DQK, int DV, bool CAP>
 int launch_bf16_d(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
-                  int KvH,
-                  int Sq, int Sk, const long long* st, float scale, int causal, int window,
-                  int kv_len, cudaStream_t stream) {
+                  int KvH, int Sq, int Sk, const long long* st, float scale, int causal,
+                  int window, int kv_len, float cap, cudaStream_t stream) {
   using T = WgTile<DQK, DV>;
   CUtensorMap tq, tk, tv;
   MapDims mq, mk, mv;
@@ -499,7 +533,7 @@ int launch_bf16_d(const void* q, const void* k, const void* v, void* o, float* l
       !map_bhsd(&tk, &mk, k, B, KvH, Sk, DQK, st + 3, T::COLS, T::BK, T::SWZ) ||
       !map_bhsd(&tv, &mv, v, B, KvH, Sk, DV, st + 6, T::COLS, T::BK, T::SWZ))
     return (int)cudaErrorInvalidValue;
-  auto kernel = flash_bf16_wgmma<DQK, DV>;
+  auto kernel = flash_bf16_wgmma<DQK, DV, CAP>;
   static bool attribute_set = false;       // once per instantiation
   if (!attribute_set) {
     cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -510,9 +544,24 @@ int launch_bf16_d(const void* q, const void* k, const void* v, void* o, float* l
   const Strides os{st[9], st[10], st[11]};
   dim3 grid((Sq + T::BQ - 1) / T::BQ, H, B);
   kernel<<<grid, T::THREADS, T::SMEM, stream>>>(tq, tk, tv, mq, mk, mv, (__nv_bfloat16*)o, lse,
-                                                os, H / KvH, Sq, Sk, scale * LOG2E, causal,
-                                                window, kv_len);
+                                                os, H / KvH, Sq, Sk,
+                                                CAP ? scale / cap : scale * LOG2E, causal,
+                                                window, kv_len, cap * LOG2E);
   return (int)cudaGetLastError();
+}
+
+template <bool CAP>
+int launch_bf16_any(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                    int H, int KvH, int Sq, int Sk, int D, const long long* st, float scale,
+                    int causal, int window, int kv_len, float cap, cudaStream_t s) {
+  switch (D) {
+    case 16: return launch_bf16_d<16, 16, CAP>(q, k, v, o, lse, B, H, KvH, Sq, Sk, st, scale, causal, window, kv_len, cap, s);
+    case 32: return launch_bf16_d<32, 32, CAP>(q, k, v, o, lse, B, H, KvH, Sq, Sk, st, scale, causal, window, kv_len, cap, s);
+    case 64: return launch_bf16_d<64, 64, CAP>(q, k, v, o, lse, B, H, KvH, Sq, Sk, st, scale, causal, window, kv_len, cap, s);
+    case 128: return launch_bf16_d<128, 128, CAP>(q, k, v, o, lse, B, H, KvH, Sq, Sk, st, scale, causal, window, kv_len, cap, s);
+    case 256: return launch_bf16_d<256, 256, CAP>(q, k, v, o, lse, B, H, KvH, Sq, Sk, st, scale, causal, window, kv_len, cap, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 bool bad_shape(int B, int H, int KvH, int Sq, int Sk, int kv_len) {
@@ -532,48 +581,42 @@ bool bad_shape(int B, int H, int KvH, int Sq, int Sk, int kv_len) {
 // null, takes each query row's log-sum-exp of its scaled scores, m + log l in
 // natural units, (B,H,Sq) float32 contiguous: the statistics the backward
 // (flash_attention_bwd.cu) needs.  D is 16, 32, 64, 128 or 256 (or 192 with Dv
-// 128).  They launch on `stream` and return cudaGetLastError()
+// 128, uncapped).  `cap` > 0 caps the scaled scores (c tanh(s / c)); 0 means
+// none.  They launch on `stream` and return cudaGetLastError()
 // (cudaErrorInvalidValue for a shape they do not take).
 extern "C" int launch_flash_attention_f32(const void* q, const void* k, const void* v, void* o,
                                           float* lse, int B, int H, int KvH, int Sq, int Sk, int D,
                                           int Dv, const long long* strides, float scale,
-                                          int causal, int window, int kv_len, void* stream) {
+                                          int causal, int window, int kv_len, float cap,
+                                          void* stream) {
   // built for D == Dv only: the caller pads a pair with D != Dv to one head dim
-  if (bad_shape(B, H, KvH, Sq, Sk, kv_len) || Dv != D) return (int)cudaErrorInvalidValue;
+  if (bad_shape(B, H, KvH, Sq, Sk, kv_len) || Dv != D || cap < 0.f)
+    return (int)cudaErrorInvalidValue;
   const float *fq = (const float*)q, *fk = (const float*)k, *fv = (const float*)v;
   float* fo = (float*)o;
   cudaStream_t s = (cudaStream_t)stream;
-  switch (D) {
-    case 16: return launch_f32_d<16>(fq, fk, fv, fo, lse, B, H, KvH, Sq, Sk, strides, scale, causal, window, kv_len, s);
-    case 32: return launch_f32_d<32>(fq, fk, fv, fo, lse, B, H, KvH, Sq, Sk, strides, scale, causal, window, kv_len, s);
-    case 64: return launch_f32_d<64>(fq, fk, fv, fo, lse, B, H, KvH, Sq, Sk, strides, scale, causal, window, kv_len, s);
-    case 128: return launch_f32_d<128>(fq, fk, fv, fo, lse, B, H, KvH, Sq, Sk, strides, scale, causal, window, kv_len, s);
-    case 256: return launch_f32_d<256>(fq, fk, fv, fo, lse, B, H, KvH, Sq, Sk, strides, scale, causal, window, kv_len, s);
-  }
-  return (int)cudaErrorInvalidValue;
+  if (cap > 0.f)
+    return launch_f32_any<true>(fq, fk, fv, fo, lse, B, H, KvH, Sq, Sk, D, strides, scale, causal, window, kv_len, cap, s);
+  return launch_f32_any<false>(fq, fk, fv, fo, lse, B, H, KvH, Sq, Sk, D, strides, scale, causal, window, kv_len, cap, s);
 }
 
 extern "C" int launch_flash_attention_bf16_wgmma(const void* q, const void* k, const void* v,
                                                  void* o, float* lse, int B, int H, int KvH, int Sq, int Sk,
                                                  int D, int Dv, const long long* strides,
                                                  float scale, int causal, int window,
-                                                 int kv_len, void* stream) {
-  if (bad_shape(B, H, KvH, Sq, Sk, kv_len) || ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16)
+                                                 int kv_len, float cap, void* stream) {
+  if (bad_shape(B, H, KvH, Sq, Sk, kv_len) || ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16 ||
+      cap < 0.f)
     return (int)cudaErrorInvalidValue;
   for (int i = 0; i < 9; ++i)
     if (strides[i] % 8) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   // the pairs with D != Dv are BF16_PAIRS of kernels/flash_attention.py (a
-  // test holds the two lists equal)
-  if (D == 192 && Dv == 128)
-    return launch_bf16_d<192, 128>(q, k, v, o, lse, B, H, KvH, Sq, Sk, strides, scale, causal, window, kv_len, s);
+  // test holds the two lists equal), built without a cap
+  if (D == 192 && Dv == 128 && cap == 0.f)
+    return launch_bf16_d<192, 128, false>(q, k, v, o, lse, B, H, KvH, Sq, Sk, strides, scale, causal, window, kv_len, cap, s);
   if (Dv != D) return (int)cudaErrorInvalidValue;
-  switch (D) {
-    case 16: return launch_bf16_d<16, 16>(q, k, v, o, lse, B, H, KvH, Sq, Sk, strides, scale, causal, window, kv_len, s);
-    case 32: return launch_bf16_d<32, 32>(q, k, v, o, lse, B, H, KvH, Sq, Sk, strides, scale, causal, window, kv_len, s);
-    case 64: return launch_bf16_d<64, 64>(q, k, v, o, lse, B, H, KvH, Sq, Sk, strides, scale, causal, window, kv_len, s);
-    case 128: return launch_bf16_d<128, 128>(q, k, v, o, lse, B, H, KvH, Sq, Sk, strides, scale, causal, window, kv_len, s);
-    case 256: return launch_bf16_d<256, 256>(q, k, v, o, lse, B, H, KvH, Sq, Sk, strides, scale, causal, window, kv_len, s);
-  }
-  return (int)cudaErrorInvalidValue;
+  if (cap > 0.f)
+    return launch_bf16_any<true>(q, k, v, o, lse, B, H, KvH, Sq, Sk, D, strides, scale, causal, window, kv_len, cap, s);
+  return launch_bf16_any<false>(q, k, v, o, lse, B, H, KvH, Sq, Sk, D, strides, scale, causal, window, kv_len, cap, s);
 }

@@ -61,6 +61,17 @@
 // The roundings beyond the plain version's are P^T and dS^T (and dS) to bf16
 // before the three products that take them, as SDPA's backward rounds.
 //
+// Logit soft-capping (the forward's cap c): P is rebuilt from the capped
+// scores, P = exp(c t - lse) with t = tanh(s / c), and dS takes the cap's
+// derivative, dS = P o (dP - Delta) o (1 - t^2); dQ and dK stay scale dS K and
+// scale dS^T Q.  Every kernel but `flash_bwd_delta` is a template on CAP
+// beside a runtime `cap`, so the uncapped instantiations are the code they
+// were; t is formed beside P and used at once, never kept across a product.
+// The wgmma kernels take `tanh.approx.f32`, the CUDA cores tanhf.  Both passes
+// form P, so a capped pair costs this design four special functions (two
+// exp2, two tanh), where the gradient needs two, as the forward does.  No
+// capped <192, 128> is built (MLA ignores the cap).
+//
 // The CUDA cores (`flash_bwd_dkdv`, `flash_bwd_dq`: one template over the
 // storage type, float32 arithmetic): float32 at every head dim (TF32 could
 // not meet its 1e-4 check), and bfloat16 at head dim 256, where the wgmma
@@ -180,13 +191,27 @@ flash_bwd_delta(const T* __restrict__ o, const T* __restrict__ dout, float* __re
   if (lane == 0) delta[row] = acc;
 }
 
-template <typename T, int D>
+// P = exp(s - lse) of a scaled score s (capped to c t, t = tanh(s / c),
+// under CAP), 0 where no mask lets the pair through; `dcap` takes the cap's
+// derivative 1 - t^2
+template <bool CAP>
+__device__ __forceinline__ float bwd_p(float s, float lse, float cap, bool visible, float& dcap) {
+  if constexpr (CAP) {
+    const float t = tanhf(s / cap);
+    dcap = 1.f - t * t;
+    s = t * cap;
+  }
+  return visible ? expf(s - lse) : 0.f;
+}
+
+template <typename T, int D, bool CAP>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                const T* __restrict__ dout, const float* __restrict__ lse,
                const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv, int H,
                int group, int Sq, int Sk, Strides qs, Strides ks, Strides vs, Strides dos,
-               Strides dks, Strides dvs, float scale, int causal, int window, int kv_len) {
+               Strides dks, Strides dvs, float scale, int causal, int window, int kv_len,
+               float cap) {
   using P = Bwd<D>;
   constexpr int BQ = P::BQ, BK = P::BK, DP = P::DP, PP = P::PP;
   extern __shared__ float4 smem4[];
@@ -239,10 +264,11 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
 #pragma unroll
         for (int y = 0; y < P::MJ; ++y) {
           const int c = tx + 16 * y;
-          const float p = visible(q0 + r, k0 + c, Sq, kv_len, causal, window)
-                              ? expf(s[x][y] * scale - lt[r]) : 0.f;
+          float dcap;
+          const float p = bwd_p<CAP>(s[x][y] * scale, lt[r], cap,
+                                     visible(q0 + r, k0 + c, Sq, kv_len, causal, window), dcap);
           pt[r * PP + c] = p;
-          st[r * PP + c] = p * (dp[x][y] - et[r]);
+          st[r * PP + c] = CAP ? p * (dp[x][y] - et[r]) * dcap : p * (dp[x][y] - et[r]);
         }
       }
       __syncthreads();
@@ -287,13 +313,13 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool CAP>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
              const T* __restrict__ dout, const float* __restrict__ lse,
              const float* __restrict__ delta, T* __restrict__ dq, int group, int Sq, int Sk,
              Strides qs, Strides ks, Strides vs, Strides dos, Strides dqs, float scale,
-             int causal, int window, int kv_len) {
+             int causal, int window, int kv_len, float cap) {
   using P = Bwd<D>;
   constexpr int BQ = P::BQ, BK = P::BK, DP = P::DP, PP = P::PP;
   extern __shared__ float4 smem4[];
@@ -341,9 +367,10 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
 #pragma unroll
       for (int y = 0; y < P::MJ; ++y) {
         const int c = tx + 16 * y;
-        const float p = visible(q0 + r, k0 + c, Sq, kv_len, causal, window)
-                            ? expf(s[x][y] * scale - lt[r]) : 0.f;
-        st[r * PP + c] = p * (dp[x][y] - et[r]);
+        float dcap;
+        const float p = bwd_p<CAP>(s[x][y] * scale, lt[r], cap,
+                                   visible(q0 + r, k0 + c, Sq, kv_len, causal, window), dcap);
+        st[r * PP + c] = CAP ? p * (dp[x][y] - et[r]) * dcap : p * (dp[x][y] - et[r]);
       }
     }
     __syncthreads();
@@ -381,16 +408,16 @@ int allow_smem(F kernel, size_t bytes) {
                                    (int)bytes);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool CAP>
 int launch_d(const T* q, const T* k, const T* v, const T* o, const T* dout, const float* lse,
              float* delta, T* dq, T* dk, T* dv, int B, int H, int KvH, int Sq, int Sk,
-             const long long* st, float scale, int causal, int window, int kv_len,
+             const long long* st, float scale, int causal, int window, int kv_len, float cap,
              cudaStream_t stream) {
   using P = Bwd<D>;
   static bool attribute_set = false;           // once per instantiation
   if (!attribute_set) {
-    int e = allow_smem(flash_bwd_dkdv<T, D>, P::SMEM);
-    if (!e) e = allow_smem(flash_bwd_dq<T, D>, P::SMEM);
+    int e = allow_smem(flash_bwd_dkdv<T, D, CAP>, P::SMEM);
+    if (!e) e = allow_smem(flash_bwd_dq<T, D, CAP>, P::SMEM);
     if (e) return e;
     attribute_set = true;
   }
@@ -404,14 +431,15 @@ int launch_d(const T* q, const T* k, const T* v, const T* o, const T* dout, cons
       o, dout, delta, H, Sq, D, os, dos, rows);
   int e = (int)cudaGetLastError();
   if (e) return e;
-  flash_bwd_dkdv<T, D><<<dim3((Sk + P::BK - 1) / P::BK, KvH, B), THREADS, P::SMEM, stream>>>(
+  flash_bwd_dkdv<T, D, CAP><<<dim3((Sk + P::BK - 1) / P::BK, KvH, B), THREADS, P::SMEM,
+                              stream>>>(
       q, k, v, dout, lse, delta, dk, dv, H, H / KvH, Sq, Sk, qs, ks, vs, dos, dks, dvs, scale,
-      causal, window, kv_len);
+      causal, window, kv_len, cap);
   e = (int)cudaGetLastError();
   if (e) return e;
-  flash_bwd_dq<T, D><<<dim3((Sq + P::BQ - 1) / P::BQ, H, B), THREADS, P::SMEM, stream>>>(
+  flash_bwd_dq<T, D, CAP><<<dim3((Sq + P::BQ - 1) / P::BQ, H, B), THREADS, P::SMEM, stream>>>(
       q, k, v, dout, lse, delta, dq, H / KvH, Sq, Sk, qs, ks, vs, dos, dqs, scale, causal,
-      window, kv_len);
+      window, kv_len, cap);
   return (int)cudaGetLastError();
 }
 
@@ -421,11 +449,11 @@ bool bad_shape(int B, int H, int KvH, int Sq, int Sk, int kv_len) {
 }
 
 // float32 at any head dim; bfloat16 at 256 only (below it the tensor cores)
-template <typename T>
+template <typename T, bool CAP>
 int launch_any(const void* q, const void* k, const void* v, const void* o, const void* dout,
                const float* lse, float* delta, void* dq, void* dk, void* dv, int B, int H,
                int KvH, int Sq, int Sk, int D, const long long* st, float scale, int causal,
-               int window, int kv_len, cudaStream_t s) {
+               int window, int kv_len, float cap, cudaStream_t s) {
   if (bad_shape(B, H, KvH, Sq, Sk, kv_len)) return (int)cudaErrorInvalidValue;
   // the float4 reads of the tiles come from shared memory, so the operands'
   // rows need no alignment here
@@ -434,15 +462,26 @@ int launch_any(const void* q, const void* k, const void* v, const void* o, const
   T *gq = (T*)dq, *gk = (T*)dk, *gv = (T*)dv;
   if constexpr (std::is_same<T, float>::value) {
     switch (D) {
-      case 16: return launch_d<T, 16>(tq, tk, tv, to, tg, lse, delta, gq, gk, gv, B, H, KvH, Sq, Sk, st, scale, causal, window, kv_len, s);
-      case 32: return launch_d<T, 32>(tq, tk, tv, to, tg, lse, delta, gq, gk, gv, B, H, KvH, Sq, Sk, st, scale, causal, window, kv_len, s);
-      case 64: return launch_d<T, 64>(tq, tk, tv, to, tg, lse, delta, gq, gk, gv, B, H, KvH, Sq, Sk, st, scale, causal, window, kv_len, s);
-      case 128: return launch_d<T, 128>(tq, tk, tv, to, tg, lse, delta, gq, gk, gv, B, H, KvH, Sq, Sk, st, scale, causal, window, kv_len, s);
+      case 16: return launch_d<T, 16, CAP>(tq, tk, tv, to, tg, lse, delta, gq, gk, gv, B, H, KvH, Sq, Sk, st, scale, causal, window, kv_len, cap, s);
+      case 32: return launch_d<T, 32, CAP>(tq, tk, tv, to, tg, lse, delta, gq, gk, gv, B, H, KvH, Sq, Sk, st, scale, causal, window, kv_len, cap, s);
+      case 64: return launch_d<T, 64, CAP>(tq, tk, tv, to, tg, lse, delta, gq, gk, gv, B, H, KvH, Sq, Sk, st, scale, causal, window, kv_len, cap, s);
+      case 128: return launch_d<T, 128, CAP>(tq, tk, tv, to, tg, lse, delta, gq, gk, gv, B, H, KvH, Sq, Sk, st, scale, causal, window, kv_len, cap, s);
     }
   }
   if (D == 256)
-    return launch_d<T, 256>(tq, tk, tv, to, tg, lse, delta, gq, gk, gv, B, H, KvH, Sq, Sk, st, scale, causal, window, kv_len, s);
+    return launch_d<T, 256, CAP>(tq, tk, tv, to, tg, lse, delta, gq, gk, gv, B, H, KvH, Sq, Sk, st, scale, causal, window, kv_len, cap, s);
   return (int)cudaErrorInvalidValue;
+}
+
+template <typename T>
+int launch_any_cap(const void* q, const void* k, const void* v, const void* o, const void* dout,
+                   const float* lse, float* delta, void* dq, void* dk, void* dv, int B, int H,
+                   int KvH, int Sq, int Sk, int D, const long long* st, float scale, int causal,
+                   int window, int kv_len, float cap, cudaStream_t s) {
+  if (cap < 0.f) return (int)cudaErrorInvalidValue;
+  if (cap > 0.f)
+    return launch_any<T, true>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, KvH, Sq, Sk, D, st, scale, causal, window, kv_len, cap, s);
+  return launch_any<T, false>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, KvH, Sq, Sk, D, st, scale, causal, window, kv_len, cap, s);
 }
 
 // -- bfloat16 on the tensor cores ---------------------------------------------------
@@ -492,7 +531,22 @@ __device__ __forceinline__ uint32_t bf16_pair(float lo, float hi) {
 // warp has arrived on that stage's `empty` barrier after tile t - 1, and the
 // stage's `full` barrier completes when its bytes have landed.
 
-template <int DQK, int DV>
+// P = exp2(s qk_mul - lse log2(e)) from a raw product s and its row's lse,
+// qk_mul = scale log2(e); under CAP, with qk_mul = scale / c,
+// P = exp2(t cap_log2 - lse log2(e)), t = tanh(s qk_mul), cap_log2 = c log2(e),
+// and `dcap` takes the cap's derivative 1 - t^2
+template <bool CAP>
+__device__ __forceinline__ float bwd_p2(float s, float lse_log2, float qk_mul, float cap_log2,
+                                        float& dcap) {
+  if constexpr (CAP) {
+    const float t = tanh_approx(s * qk_mul);
+    dcap = 1.f - t * t;
+    return exp2f(fmaf(t, cap_log2, -lse_log2));
+  }
+  return exp2f(fmaf(s, qk_mul, -lse_log2));
+}
+
+template <int DQK, int DV, bool CAP>
 __global__ void __launch_bounds__(BwdTile<DQK, DV>::THREADS, 1)
 flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                      const __grid_constant__ CUtensorMap tv,
@@ -500,8 +554,8 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_consta
                      MapDims mv, MapDims mdo, const float* __restrict__ lse,
                      const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
                      __nv_bfloat16* __restrict__ dv, Strides dks, Strides dvs, int H, int group,
-                     int Sq, int Sk, float scale, float scale_log2, int causal, int window,
-                     int kv_len) {
+                     int Sq, int Sk, float scale, float qk_mul, int causal, int window,
+                     int kv_len, float cap_log2) {
   using T = BwdTile<DQK, DV>;
   constexpr int SWZ = T::SWZ, COLS = T::COLS, KK = T::KK, BQ = T::KQ, STAGES = T::STAGES;
   constexpr int AHEAD = STAGES - 1;
@@ -635,14 +689,16 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_consta
           const int i = kk * 8 + j * 2, r = j & 1, c = 8 * (i >> 2);
           const float2 lq = *reinterpret_cast<const float2*>(ls + c + 2 * (l % 4));
           const float2 dl = *reinterpret_cast<const float2*>(ls + BQ + c + 2 * (l % 4));
-          float p0 = exp2f(fmaf(st[i], scale_log2, -lq.x * LOG2E));
-          float p1 = exp2f(fmaf(st[i + 1], scale_log2, -lq.y * LOG2E));
+          float d0, d1;
+          float p0 = bwd_p2<CAP>(st[i], lq.x * LOG2E, qk_mul, cap_log2, d0);
+          float p1 = bwd_p2<CAP>(st[i + 1], lq.y * LOG2E, qk_mul, cap_log2, d1);
           if (edge) {
             p0 = c >= lo[r] && c <= hi[r] ? p0 : 0.f;
             p1 = c + 1 >= lo[r] && c + 1 <= hi[r] ? p1 : 0.f;
           }
           pa[kk][j] = bf16_pair(p0, p1);
-          da[kk][j] = bf16_pair(p0 * (dpt[i] - dl.x), p1 * (dpt[i + 1] - dl.y));
+          da[kk][j] = CAP ? bf16_pair(p0 * (dpt[i] - dl.x) * d0, p1 * (dpt[i + 1] - dl.y) * d1)
+                          : bf16_pair(p0 * (dpt[i] - dl.x), p1 * (dpt[i + 1] - dl.y));
         }
 
       // dV += P^T dO, dK += dS^T Q: dO and Q are (query rows, dims), N-major;
@@ -682,14 +738,15 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_consta
 
 // Two blocks an SM at DQK <= 64 (128 registers a thread; the four warpgroups
 // hide each other's exp and wait), one above.
-template <int DQK, int DV>
+template <int DQK, int DV, bool CAP>
 __global__ void __launch_bounds__(BwdTile<DQK, DV>::THREADS, DQK <= 64 ? 2 : 1)
 flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv,
                    const __grid_constant__ CUtensorMap tdo, MapDims mq, MapDims mk, MapDims mv,
                    MapDims mdo, const float* __restrict__ lse, const float* __restrict__ delta,
                    __nv_bfloat16* __restrict__ dq, Strides dqs, int H, int group, int Sq, int Sk,
-                   float scale, float scale_log2, int causal, int window, int kv_len) {
+                   float scale, float qk_mul, int causal, int window, int kv_len,
+                   float cap_log2) {
   using T = BwdTile<DQK, DV>;
   constexpr int SWZ = T::SWZ, COLS = T::COLS, BQ = T::QQ, TK = T::QK, STAGES = T::STAGES;
   constexpr int AHEAD = STAGES - 1;
@@ -807,13 +864,15 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int i = kk * 8 + j * 2, r = j & 1, c = 8 * (i >> 2);
-          float p0 = exp2f(fmaf(sc[i], scale_log2, -lq[r]));
-          float p1 = exp2f(fmaf(sc[i + 1], scale_log2, -lq[r]));
+          float d0, d1;
+          float p0 = bwd_p2<CAP>(sc[i], lq[r], qk_mul, cap_log2, d0);
+          float p1 = bwd_p2<CAP>(sc[i + 1], lq[r], qk_mul, cap_log2, d1);
           if (edge) {
             p0 = c >= lo[r] && c <= hi[r] ? p0 : 0.f;
             p1 = c + 1 >= lo[r] && c + 1 <= hi[r] ? p1 : 0.f;
           }
-          da[kk][j] = bf16_pair(p0 * (dp[i] - dl[r]), p1 * (dp[i + 1] - dl[r]));
+          da[kk][j] = CAP ? bf16_pair(p0 * (dp[i] - dl[r]) * d0, p1 * (dp[i + 1] - dl[r]) * d1)
+                          : bf16_pair(p0 * (dp[i] - dl[r]), p1 * (dp[i + 1] - dl[r]));
         }
 
       // dQ += dS K: K is (keys, DQK), N-major
@@ -841,11 +900,11 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant
   }
 }
 
-template <int DQK, int DV>
+template <int DQK, int DV, bool CAP>
 int launch_wgmma_d(const void* q, const void* k, const void* v, const void* o, const void* dout,
                    const float* lse, float* delta, void* dq, void* dk, void* dv, int B, int H,
                    int KvH, int Sq, int Sk, const long long* st, float scale, int causal,
-                   int window, int kv_len, cudaStream_t stream) {
+                   int window, int kv_len, float cap, cudaStream_t stream) {
   using T = BwdTile<DQK, DV>;
   // the dK/dV pass reads Q and dO in boxes of KQ rows, K and V of KK; the dQ
   // pass Q and dO of QQ rows, K and V of QK
@@ -862,8 +921,8 @@ int launch_wgmma_d(const void* q, const void* k, const void* v, const void* o, c
     return (int)cudaErrorInvalidValue;
   static bool attribute_set = false;             // once per instantiation
   if (!attribute_set) {
-    int e = allow_smem(flash_bwd_dkdv_wgmma<DQK, DV>, T::DKDV_SMEM);
-    if (!e) e = allow_smem(flash_bwd_dq_wgmma<DQK, DV>, T::DQ_SMEM);
+    int e = allow_smem(flash_bwd_dkdv_wgmma<DQK, DV, CAP>, T::DKDV_SMEM);
+    if (!e) e = allow_smem(flash_bwd_dq_wgmma<DQK, DV, CAP>, T::DQ_SMEM);
     if (e) return e;
     attribute_set = true;
   }
@@ -878,17 +937,33 @@ int launch_wgmma_d(const void* q, const void* k, const void* v, const void* o, c
   int e = (int)cudaGetLastError();
   if (e) return e;
   const int group = H / KvH;
-  flash_bwd_dkdv_wgmma<DQK, DV><<<dim3(KvH, B, (Sk + T::KK - 1) / T::KK), T::THREADS,
-                                  T::DKDV_SMEM, stream>>>(
+  const float qk_mul = CAP ? scale / cap : scale * LOG2E, cap_log2 = cap * LOG2E;
+  flash_bwd_dkdv_wgmma<DQK, DV, CAP><<<dim3(KvH, B, (Sk + T::KK - 1) / T::KK), T::THREADS,
+                                       T::DKDV_SMEM, stream>>>(
       aq, ak, av, ado, maq, mak, mav, mado, lse, delta, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv,
-      dks, dvs, H, group, Sq, Sk, scale, scale * LOG2E, causal, window, kv_len);
+      dks, dvs, H, group, Sq, Sk, scale, qk_mul, causal, window, kv_len, cap_log2);
   e = (int)cudaGetLastError();
   if (e) return e;
-  flash_bwd_dq_wgmma<DQK, DV><<<dim3(H, B, (Sq + T::QQ - 1) / T::QQ), T::THREADS, T::DQ_SMEM,
-                                stream>>>(bq, bk, bv, bdo, mbq, mbk, mbv, mbdo, lse, delta,
-                                          (__nv_bfloat16*)dq, dqs, H, group, Sq, Sk, scale,
-                                          scale * LOG2E, causal, window, kv_len);
+  flash_bwd_dq_wgmma<DQK, DV, CAP><<<dim3(H, B, (Sq + T::QQ - 1) / T::QQ), T::THREADS,
+                                     T::DQ_SMEM, stream>>>(
+      bq, bk, bv, bdo, mbq, mbk, mbv, mbdo, lse, delta, (__nv_bfloat16*)dq, dqs, H, group, Sq,
+      Sk, scale, qk_mul, causal, window, kv_len, cap_log2);
   return (int)cudaGetLastError();
+}
+
+template <bool CAP>
+int launch_wgmma_dims(const void* q, const void* k, const void* v, const void* o,
+                      const void* dout, const float* lse, float* delta, void* dq, void* dk,
+                      void* dv, int B, int H, int KvH, int Sq, int Sk, int D,
+                      const long long* st, float scale, int causal, int window, int kv_len,
+                      float cap, cudaStream_t s) {
+  switch (D) {
+    case 16: return launch_wgmma_d<16, 16, CAP>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, KvH, Sq, Sk, st, scale, causal, window, kv_len, cap, s);
+    case 32: return launch_wgmma_d<32, 32, CAP>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, KvH, Sq, Sk, st, scale, causal, window, kv_len, cap, s);
+    case 64: return launch_wgmma_d<64, 64, CAP>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, KvH, Sq, Sk, st, scale, causal, window, kv_len, cap, s);
+    case 128: return launch_wgmma_d<128, 128, CAP>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, KvH, Sq, Sk, st, scale, causal, window, kv_len, cap, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -903,36 +978,38 @@ int launch_wgmma_d(const void* q, const void* k, const void* v, const void* o, c
 // (bfloat16); the wgmma one (D, Dv) of (16, 16), (32, 32), (64, 64),
 // (128, 128) or (192, 128), with q, k, v, o and dout 16-byte aligned and their strides whole 16 bytes (TMA's rule),
 // dq, dk and dv 4-byte aligned with even strides.  `window` <= 0 means none;
-// keys at positions >= `kv_len` are masked.  They launch the three kernels on
+// keys at positions >= `kv_len` are masked.  `cap` > 0 is the forward's logit
+// cap, 0 none; (192, 128) takes none.  They launch the three kernels on
 // `stream` and return cudaGetLastError() (cudaErrorInvalidValue for a shape
 // they do not take).
 extern "C" int launch_flash_attention_bwd_f32(
     const void* q, const void* k, const void* v, const void* o, const void* dout,
     const float* lse, float* delta, void* dq, void* dk, void* dv, int B, int H, int KvH, int Sq,
     int Sk, int D, int Dv, const long long* strides, float scale, int causal, int window,
-    int kv_len, void* stream) {
+    int kv_len, float cap, void* stream) {
   if (Dv != D) return (int)cudaErrorInvalidValue;
-  return launch_any<float>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, KvH, Sq, Sk, D,
-                           strides, scale, causal, window, kv_len, (cudaStream_t)stream);
+  return launch_any_cap<float>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, KvH, Sq, Sk, D,
+                               strides, scale, causal, window, kv_len, cap,
+                               (cudaStream_t)stream);
 }
 
 extern "C" int launch_flash_attention_bwd_bf16(
     const void* q, const void* k, const void* v, const void* o, const void* dout,
     const float* lse, float* delta, void* dq, void* dk, void* dv, int B, int H, int KvH, int Sq,
     int Sk, int D, int Dv, const long long* strides, float scale, int causal, int window,
-    int kv_len, void* stream) {
+    int kv_len, float cap, void* stream) {
   if (Dv != D) return (int)cudaErrorInvalidValue;
-  return launch_any<__nv_bfloat16>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, KvH, Sq,
-                                   Sk, D, strides, scale, causal, window, kv_len,
-                                   (cudaStream_t)stream);
+  return launch_any_cap<__nv_bfloat16>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, KvH, Sq,
+                                       Sk, D, strides, scale, causal, window, kv_len, cap,
+                                       (cudaStream_t)stream);
 }
 
 extern "C" int launch_flash_attention_bwd_bf16_wgmma(
     const void* q, const void* k, const void* v, const void* o, const void* dout,
     const float* lse, float* delta, void* dq, void* dk, void* dv, int B, int H, int KvH, int Sq,
     int Sk, int D, int Dv, const long long* strides, float scale, int causal, int window,
-    int kv_len, void* stream) {
-  if (bad_shape(B, H, KvH, Sq, Sk, kv_len) ||
+    int kv_len, float cap, void* stream) {
+  if (bad_shape(B, H, KvH, Sq, Sk, kv_len) || cap < 0.f ||
       ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o | (uintptr_t)dout) % 16 ||
       ((uintptr_t)dq | (uintptr_t)dk | (uintptr_t)dv) % 4)
     return (int)cudaErrorInvalidValue;
@@ -941,14 +1018,10 @@ extern "C" int launch_flash_attention_bwd_bf16_wgmma(
     if (strides[i] % (i < 15 ? 8 : 2)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   // the pairs with D != Dv are BF16_PAIRS of kernels/flash_attention.py
-  if (D == 192 && Dv == 128)
-    return launch_wgmma_d<192, 128>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, KvH, Sq, Sk, strides, scale, causal, window, kv_len, s);
+  if (D == 192 && Dv == 128 && cap == 0.f)
+    return launch_wgmma_d<192, 128, false>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, KvH, Sq, Sk, strides, scale, causal, window, kv_len, cap, s);
   if (Dv != D) return (int)cudaErrorInvalidValue;
-  switch (D) {
-    case 16: return launch_wgmma_d<16, 16>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, KvH, Sq, Sk, strides, scale, causal, window, kv_len, s);
-    case 32: return launch_wgmma_d<32, 32>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, KvH, Sq, Sk, strides, scale, causal, window, kv_len, s);
-    case 64: return launch_wgmma_d<64, 64>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, KvH, Sq, Sk, strides, scale, causal, window, kv_len, s);
-    case 128: return launch_wgmma_d<128, 128>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, KvH, Sq, Sk, strides, scale, causal, window, kv_len, s);
-  }
-  return (int)cudaErrorInvalidValue;
+  if (cap > 0.f)
+    return launch_wgmma_dims<true>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, KvH, Sq, Sk, D, strides, scale, causal, window, kv_len, cap, s);
+  return launch_wgmma_dims<false>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, KvH, Sq, Sk, D, strides, scale, causal, window, kv_len, cap, s);
 }

@@ -2,7 +2,8 @@
 // addresses, cp.async, mbarriers, TMA loads and tensor maps, wgmma's
 // shared-memory descriptors and its m64nNk16 bf16 products (both operands from
 // shared memory, or A from registers), and the tensor maps of (B, heads, S, D)
-// views that the attention kernels load by TMA.  Included by the hand-written sources
+// views that the attention kernels load by TMA; the special-function tanh of
+// their logit cap.  Included by the hand-written sources
 // of csrc/; `_build.csrc_source` splices it into their text, so its
 // edits enter their hashes and rebuild them.
 #pragma once
@@ -26,6 +27,17 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
 // A 4-byte cp.async of `bytes` (4, or 0 for zeros) from src
 __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, uint32_t bytes) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" :: "r"(dst), "l"(src), "r"(bytes));
+}
+
+// tanh on the special-function unit (one MUFU op, relative error up to about
+// 2^-11): the logit cap of the bfloat16 attention kernels.  The error is
+// absolute in the capped score c t, up to about c 2^-11 |t| (0.024 at cap 50
+// near saturation, a 2.4 % move of P, above bf16's rounding of P); the
+// float32 kernels take the accurate tanhf
+__device__ __forceinline__ float tanh_approx(float x) {
+  float y;
+  asm("tanh.approx.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // -- mbarriers ------------------------------------------------------------------

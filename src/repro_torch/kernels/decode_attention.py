@@ -16,6 +16,12 @@ length are not read.  bfloat16 runs ``decode_bf16_mma`` (the query heads of
 a KV head as the rows of ``mma.sync`` tiles), float32 ``decode_f32`` (the
 CUDA cores, held to 2e-5).
 
+``softcap`` (a cap c > 0, or None) caps each scaled score s to
+``tanh(s / c) * c`` before the length mask, as the reference's decode does;
+the partials' (m, l) are over the capped scores.  Both kernels are templates
+on a compile-time cap, so the uncapped instantiations are the code they
+were; bfloat16 takes ``tanh.approx.f32``, float32 ``tanhf``.
+
 ``normalize=False`` (``partial_decode_attention``) is the same kernel
 returning the unnormalised accumulator and (m, l), so that sequence shards
 merge with ``merge_partials``, which stays plain tensor math as in the
@@ -54,7 +60,7 @@ from typing import Optional, Union
 import torch
 
 from . import _build
-from .flash_attention import kernel_head_dim, kernel_operands
+from .flash_attention import check_softcap, kernel_head_dim, kernel_operands
 from .ref import decode_attention_ref
 
 CHUNK = 64          # chunks are whole multiples of this many cache positions
@@ -63,7 +69,8 @@ SMS = 132           # SMs of an H100 SXM; a call asks its own device
 
 #: kernel launches made by ``decode_attention`` and ``partial_decode_attention``
 launches = 0
-#: the same launches by the call's shape: (B, H, KvH, L, D, a length per lane)
+#: the same launches by the call's shape: (B, H, KvH, L, D, a length per
+#: lane, softcap), the cap None where there is none
 by_shape: collections.Counter = collections.Counter()
 
 #: the kernel each dtype runs
@@ -75,12 +82,14 @@ _launchers: dict = {}
 
 
 # the kernel's DecodeArgs, field by field: pointers, strides, ints, the scale
+# and the cap (0: none), in the struct's order
 _POINTERS = ("q", "k", "v", "lengths", "out", "m_out", "l_out", "partials", "counters")
 _STRIDES = ("q_sb", "q_sh", "k_sb", "k_sl", "k_sh", "v_sb", "v_sl", "v_sh")
 _INTS = ("length", "B", "H", "KvH", "L", "D", "chunk", "n_chunks", "normalize")
 ARGS_FIELDS = ([(n, "P") for n in _POINTERS] + [(n, "q") for n in _STRIDES]
-               + [(n, "i") for n in _INTS] + [("scale", "f")])
-_ARGS = struct.Struct("@" + "".join(code for _, code in ARGS_FIELDS))
+               + [(n, "i") for n in _INTS] + [("scale", "f"), ("softcap", "f")])
+# "0P" pads the end to a pointer's alignment, as sizeof(DecodeArgs) is
+_ARGS = struct.Struct("@" + "".join(code for _, code in ARGS_FIELDS) + "0P")
 
 
 def _launcher(dtype: torch.dtype):
@@ -154,7 +163,7 @@ def _lengths(length, B: int, device: torch.device) -> tuple[Optional[torch.Tenso
     return None, int(length)
 
 
-def _call(q, k, v, length, scale, normalize):
+def _call(q, k, v, length, scale, normalize, softcap):
     B, H, D = q.shape
     _, L, KvH, _ = k.shape
     if H % KvH != 0:
@@ -165,8 +174,10 @@ def _call(q, k, v, length, scale, normalize):
     if isinstance(length, torch.Tensor) and length.numel() not in (1, B):
         raise ValueError(f"decode_attention: length has {length.numel()} values for {B} lanes")
     sc = scale if scale is not None else D ** -0.5
+    cap = check_softcap(softcap, "decode_attention")
     if q.device.type != "cuda":
-        return decode_attention_ref(q, k, v, length, scale=sc, normalize=normalize)
+        return decode_attention_ref(q, k, v, length, scale=sc, normalize=normalize,
+                                    softcap=cap)
     _build.refuse_grad("decode_attention", q, k, v)
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _SYMBOL:
         raise TypeError(f"decode_attention takes float32 or bfloat16, got "
@@ -192,29 +203,30 @@ def _call(q, k, v, length, scale, normalize):
                       m.data_ptr() if m is not None else 0, l.data_ptr() if l is not None else 0,
                       partials.data_ptr(), counters.data_ptr(), *q.stride()[:2], *k.stride()[:3],
                       *v.stride()[:3], scalar, B, H, KvH, L, Dk, chunk, n_chunks, int(normalize),
-                      sc)
+                      sc, cap or 0.0)
     global launches
     rc = _build.on_device(dev, _launcher(q.dtype), args)
     _build.check_launch(rc, KERNEL[q.dtype])
     launches += 1
-    by_shape[(B, H, KvH, L, D, per_lane is not None)] += 1
+    by_shape[(B, H, KvH, L, D, per_lane is not None, cap)] += 1
     out = out[..., :D]
     return out if normalize else (out, m, l)
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     length: Union[int, torch.Tensor], *,
-                     scale: Optional[float] = None) -> torch.Tensor:
+                     length: Union[int, torch.Tensor], *, scale: Optional[float] = None,
+                     softcap: Optional[float] = None) -> torch.Tensor:
     """q: (B,H,D); k,v: (B,L,KvH,D); positions >= length are masked, with
-    ``length`` a scalar or one per lane (B,)."""
-    return _call(q, k, v, length, scale, True)
+    ``length`` a scalar or one per lane (B,); ``softcap`` caps the scaled
+    scores."""
+    return _call(q, k, v, length, scale, True, softcap)
 
 
 def partial_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              length: Union[int, torch.Tensor], *,
-                             scale: Optional[float] = None):
+                             scale: Optional[float] = None, softcap: Optional[float] = None):
     """Unnormalised partial result + (m, l) for cross-shard merging."""
-    return _call(q, k, v, length, scale, False)
+    return _call(q, k, v, length, scale, False, softcap)
 
 
 def merge_partials(outs: torch.Tensor, ms: torch.Tensor, ls: torch.Tensor) -> torch.Tensor:

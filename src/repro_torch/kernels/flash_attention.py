@@ -35,6 +35,16 @@ checks, takes such a pair padded to one head dim, the least of ``HEAD_DIMS``
 that holds both (256 for MLA's), by the same zero columns, under the scale
 of the true D, with the output cut back to Dv.
 
+Logit soft-capping (``softcap``, a cap c > 0): each scaled score s becomes
+``tanh(s / c) * c`` before the masks, and the softmax and each row's lse are
+taken over the capped scores, as the reference's ``softcap`` in its plain
+attention.  Both kernels are templates on a compile-time cap (``CAP``), so
+the uncapped instantiations are the code they were; bfloat16 takes the tanh
+of the special-function unit (``tanh.approx.f32``, relative error about
+2^-11, below P's rounding to bf16), float32 an accurate ``tanhf``.  A capped
+call at MLA's (192, 128), which no capped model reaches (the reference's MLA
+ignores the cap), raises ``ValueError`` before any launch.
+
 CUDA tensors launch the kernel or raise; CPU tensors take the plain version
 (``ref.flash_attention_ref``).
 
@@ -69,7 +79,8 @@ BF16_PAIRS = ((192, 128),)
 #: kernel launches made by ``flash_attention`` (a run resets it to 0, drives
 #: its path, and reads it to show the path used the kernel)
 launches = 0
-#: the same launches by the call's shape: (B, H, KvH, Sq, Sk, D, Dv, causal)
+#: the same launches by the call's shape: (B, H, KvH, Sq, Sk, D, Dv, causal,
+#: softcap), the cap None where there is none
 by_shape: collections.Counter = collections.Counter()
 
 #: the kernel each dtype runs (no other is tried: a call it refuses raises)
@@ -86,8 +97,18 @@ def _launcher(dtype: torch.dtype):
         _launchers[dtype] = _build.bind(
             lib, _SYMBOL[dtype],
             [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p, ctypes.c_float]
-            + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+            + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p])
     return _launchers[dtype]
+
+
+def check_softcap(softcap: Optional[float], who: str) -> Optional[float]:
+    """The cap as a float, or None for none; a cap must be finite and > 0."""
+    if softcap is None:
+        return None
+    cap = float(softcap)
+    if not 0.0 < cap < float("inf"):
+        raise ValueError(f"{who}: softcap={softcap} must be a finite number above 0, or None")
+    return cap
 
 
 def kernel_head_dim(D: int, who: str) -> int:
@@ -98,16 +119,22 @@ def kernel_head_dim(D: int, who: str) -> int:
     return next(d for d in HEAD_DIMS if d >= D)
 
 
-def kernel_dims(D: int, Dv: int, dtype: torch.dtype) -> tuple[int, int]:
+def kernel_dims(D: int, Dv: int, dtype: torch.dtype,
+                capped: bool = False) -> tuple[int, int]:
     """The head dims (of Q and K, of V) the kernel of ``dtype`` runs a call of
     head dims (D, Dv) at: one member of ``HEAD_DIMS`` for both where D == Dv
     or the dtype is float32; the pair itself where it is one of
-    ``BF16_PAIRS``.  Any other bfloat16 pair raises ``ValueError``."""
+    ``BF16_PAIRS`` and the call is not ``capped`` (no capped instantiation
+    of a pair is built).  Any other bfloat16 pair raises ``ValueError``."""
     if D == Dv:
         return (kernel_head_dim(D, "flash_attention"),) * 2
     if dtype == torch.float32:
         return (kernel_head_dim(max(D, Dv), "flash_attention"),) * 2
     if (D, Dv) in BF16_PAIRS:
+        if capped:
+            raise ValueError(f"flash_attention: the bfloat16 kernel at head dims (D {D}, "
+                             f"Dv {Dv}) is built without a logit cap (no capped model runs "
+                             "that pair: the reference's MLA ignores the cap)")
         return D, Dv
     raise ValueError(f"flash_attention: the bfloat16 kernel is not built for head dims "
                      f"(D {D}, Dv {Dv}); its pairs with D != Dv are {BF16_PAIRS}")
@@ -120,16 +147,17 @@ BWD_KERNELS = {"wgmma": ("flash_bwd_delta", "flash_bwd_dkdv_wgmma", "flash_bwd_d
 BWD_WGMMA_HEAD_DIMS = (16, 32, 64, 128)
 
 
-def bwd_route(D: int, Dv: int, dtype: torch.dtype) -> tuple[str, int, int]:
+def bwd_route(D: int, Dv: int, dtype: torch.dtype,
+              capped: bool = False) -> tuple[str, int, int]:
     """``(route, Dk, Dvk)``: the backward kernels (a key of ``BWD_KERNELS``)
     that a call of head dims (D, Dv) in ``dtype`` takes, and the head dims
     they run it at (``kernel_dims``, whose ``ValueError`` a bfloat16 pair that
-    is not built raises).  bfloat16 takes the tensor cores at the dims of
-    ``BWD_WGMMA_HEAD_DIMS`` and ``BF16_PAIRS``, the CUDA cores at 256;
-    float32 takes the CUDA cores."""
+    is not built, or a ``capped`` call at one, raises).  bfloat16 takes the
+    tensor cores at the dims of ``BWD_WGMMA_HEAD_DIMS`` and ``BF16_PAIRS``,
+    the CUDA cores at 256; float32 takes the CUDA cores."""
     if dtype not in _SYMBOL:
         raise TypeError(f"flash_attention_bwd takes float32 or bfloat16, got {dtype}")
-    Dk, Dvk = kernel_dims(D, Dv, dtype)
+    Dk, Dvk = kernel_dims(D, Dv, dtype, capped)
     if dtype == torch.bfloat16 and (Dk in BWD_WGMMA_HEAD_DIMS or (Dk, Dvk) in BF16_PAIRS):
         return "wgmma", Dk, Dvk
     return "cuda_cores", Dk, Dvk
@@ -161,12 +189,12 @@ def kernel_operands(Dk: int, *tensors: torch.Tensor) -> list[torch.Tensor]:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
-                    scale: Optional[float] = None,
-                    kv_len: Optional[int] = None) -> torch.Tensor:
+                    scale: Optional[float] = None, kv_len: Optional[int] = None,
+                    softcap: Optional[float] = None) -> torch.Tensor:
     """q: (B, H, Sq, D); k: (B, KvH, Sk, D); v: (B, KvH, Sk, Dv) with
     H % KvH == 0.  Keys at positions >= ``kv_len`` (default Sk) are masked
     out of the softmax; every query row must see at least one key.  ``scale``
-    defaults to D ** -0.5.
+    defaults to D ** -0.5; ``softcap`` caps the scaled scores.
     Returns (B, H, Sq, Dv) in q's dtype — on the card a (B,H,Sq,Dv) view of
     a contiguous (B,Sq,H,Dv) tensor, the model's layout (of a (B,Sq,H,Dk)
     one where the head dims are padded to the kernel's Dk) — differentiable
@@ -189,19 +217,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: with window={window} and kv_len={n_keys}, query "
                          f"rows {n_keys + window - 1}..{Sq - 1} see no key")
     sc = scale if scale is not None else D ** -0.5
+    cap = check_softcap(softcap, "flash_attention")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return FlashAttention.apply(q, k, v, causal, window, sc, kv_len)
-    return _forward(q, k, v, causal, window, sc, kv_len, with_lse=False)[0]
+        return FlashAttention.apply(q, k, v, causal, window, sc, kv_len, cap)
+    return _forward(q, k, v, causal, window, sc, kv_len, cap, with_lse=False)[0]
 
 
-def _forward(q, k, v, causal, window, sc, kv_len, *, with_lse: bool):
+def _forward(q, k, v, causal, window, sc, kv_len, cap=None, *, with_lse: bool):
     """(out, lse or None): the plain version on the CPU, else one launch."""
     if q.device.type != "cuda":
+        kw = dict(causal=causal, window=window, scale=sc, kv_len=kv_len, softcap=cap)
         if with_lse:
-            return flash_attention_ref(q, k, v, causal=causal, window=window, scale=sc,
-                                       kv_len=kv_len, return_lse=True)
-        return flash_attention_ref(q, k, v, causal=causal, window=window, scale=sc,
-                                   kv_len=kv_len), None
+            return flash_attention_ref(q, k, v, return_lse=True, **kw)
+        return flash_attention_ref(q, k, v, **kw), None
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _SYMBOL:
         raise TypeError(f"flash_attention takes float32 or bfloat16, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
@@ -210,7 +238,7 @@ def _forward(q, k, v, causal, window, sc, kv_len, *, with_lse: bool):
     B, H, Sq, D = q.shape
     _, KvH, Sk, _ = k.shape
     Dv = v.shape[-1]
-    Dk, Dvk = kernel_dims(D, Dv, q.dtype)
+    Dk, Dvk = kernel_dims(D, Dv, q.dtype, cap is not None)
     q, k = kernel_operands(Dk, q, k)
     v, = kernel_operands(Dvk, v)
     out = torch.empty((B, Sq, H, Dvk), dtype=q.dtype, device=q.device).transpose(1, 2)
@@ -222,27 +250,28 @@ def _forward(q, k, v, causal, window, sc, kv_len, *, with_lse: bool):
     rc = _build.on_device(q.device, _launcher(q.dtype), q.data_ptr(), k.data_ptr(),
                           v.data_ptr(), out.data_ptr(), lse.data_ptr() if with_lse else None,
                           B, H, KvH, Sq, Sk, Dk, Dvk, strides, sc, int(causal), window or 0,
-                          kv_len or Sk)
+                          kv_len or Sk, cap or 0.0)
     _build.check_launch(rc, KERNEL[q.dtype])
     launches += 1
-    by_shape[(B, H, KvH, Sq, Sk, D, Dv, bool(causal))] += 1
+    by_shape[(B, H, KvH, Sq, Sk, D, Dv, bool(causal), cap)] += 1
     return out[..., :Dv], lse
 
 
 class FlashAttention(torch.autograd.Function):
     """K3 with its gradient: the forward keeps q, k, v, the output and each
     row's log-sum-exp; the backward is ``flash_attention_bwd`` (S2 on the
-    card, the plain backward on the CPU)."""
+    card, the plain backward on the CPU) under the same masks and cap."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, scale, kv_len):
-        out, lse = _forward(q, k, v, causal, window, scale, kv_len, with_lse=True)
+    def forward(ctx, q, k, v, causal, window, scale, kv_len, softcap=None):
+        out, lse = _forward(q, k, v, causal, window, scale, kv_len, softcap, with_lse=True)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.masks = dict(causal=causal, window=window, scale=scale, kv_len=kv_len)
+        ctx.masks = dict(causal=causal, window=window, scale=scale, kv_len=kv_len,
+                         softcap=softcap)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = _bwd.flash_attention_bwd(q, k, v, out, lse, dout, **ctx.masks)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None

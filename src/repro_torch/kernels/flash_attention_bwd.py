@@ -13,7 +13,11 @@ and at head dim 256.  The masks are the forward's (``causal``, ``window``,
 ``kv_len``) and so are the layouts: any strides whose head dim is contiguous,
 a head dim up to 256 that is a multiple of 8 zero-padded to the kernel's
 (``flash_attention.kernel_operands``); float32 pads a pair with D != Dv to
-one head dim, as its forward does, and cuts dv back to Dv.
+one head dim, as its forward does, and cuts dv back to Dv.  Under the
+forward's logit cap c (``softcap``) both routes recompute P from the capped
+scores c t, t = tanh(s / c), and multiply dS by the cap's derivative
+1 - t^2; the cap is a compile-time template parameter, as in K3, and a
+capped call at MLA's (192, 128) raises ``ValueError``.
 
 CUDA tensors launch the kernels or raise; CPU tensors take the plain version
 (``ref.flash_attention_bwd_ref``).
@@ -34,7 +38,7 @@ from .ref import flash_attention_bwd_ref
 #: calls of ``flash_attention_bwd`` that launched the kernels (three launches
 #: a call; a run resets it to 0, drives its path, and reads it)
 launches = 0
-#: the same calls by shape: (B, H, KvH, Sq, Sk, D, Dv, causal)
+#: the same calls by shape: (B, H, KvH, Sq, Sk, D, Dv, causal, softcap)
 by_shape: collections.Counter = collections.Counter()
 
 _SYMBOL = {(torch.float32, "cuda_cores"): "launch_flash_attention_bwd_f32",
@@ -45,25 +49,26 @@ _launchers: dict = {}
 
 def _launcher(dtype: torch.dtype, route: str):
     """The launcher of a route; all take 10 pointers, (B, H, KvH, Sq, Sk, D,
-    Dv), the strides, the scale, the masks and the stream."""
+    Dv), the strides, the scale, the masks, the cap (0: none) and the
+    stream."""
     key = (dtype, route)
     if key not in _launchers:
         lib = _build.load_library(*_build.csrc_source("flash_attention_bwd.cu"))
         _launchers[key] = _build.bind(
             lib, _SYMBOL[key],
             [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p, ctypes.c_float]
-            + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+            + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p])
     return _launchers[key]
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
                         lse: torch.Tensor, do: torch.Tensor, *, causal: bool = True,
                         window: Optional[int] = None, scale: Optional[float] = None,
-                        kv_len: Optional[int] = None):
+                        kv_len: Optional[int] = None, softcap: Optional[float] = None):
     """q (B,H,Sq,D); k (B,KvH,Sk,D); v (B,KvH,Sk,Dv); o, do (B,H,Sq,Dv); lse
-    (B,H,Sq) float32, the forward's.  Returns (dq, dk, dv) in the inputs'
-    dtype — on the card (B,H,S,·) views of contiguous (B,S,H,·) tensors, the
-    model's layout."""
+    (B,H,Sq) float32, the forward's (under the same cap).  Returns (dq, dk,
+    dv) in the inputs' dtype — on the card (B,H,S,·) views of contiguous
+    (B,S,H,·) tensors, the model's layout."""
     B, H, Sq, D = q.shape
     KvH, Sk, Dv = k.shape[1], k.shape[2], v.shape[-1]
     if o.shape != (B, H, Sq, Dv) or do.shape != o.shape or lse.shape != (B, H, Sq):
@@ -71,9 +76,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
                          f"lse {tuple(lse.shape)} do not match q {tuple(q.shape)}, "
                          f"v {tuple(v.shape)}")
     sc = scale if scale is not None else D ** -0.5
+    cap = _fa.check_softcap(softcap, "flash_attention_bwd")
     if q.device.type != "cuda":
         return flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal, window=window,
-                                       scale=sc, kv_len=kv_len)
+                                       scale=sc, kv_len=kv_len, softcap=cap)
     if not all(t.dtype == q.dtype for t in (k, v, o, do)):
         raise TypeError(f"flash_attention_bwd takes one dtype, got "
                         f"{[t.dtype for t in (q, k, v, o, do)]}")
@@ -81,7 +87,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
         raise TypeError(f"flash_attention_bwd: lse must be float32, got {lse.dtype}")
     if not all(t.device == q.device for t in (k, v, o, do, lse)):
         raise ValueError("flash_attention_bwd: operands on different devices")
-    route, Dk, Dvk = _fa.bwd_route(D, Dv, q.dtype)
+    route, Dk, Dvk = _fa.bwd_route(D, Dv, q.dtype, cap is not None)
     q, k = _fa.kernel_operands(Dk, q, k)
     v, o, do = _fa.kernel_operands(Dvk, v, o, do)
     lse = lse.contiguous()
@@ -96,8 +102,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
                           v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
                           delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H,
                           KvH, Sq, Sk, Dk, Dvk, strides, sc, int(causal), window or 0,
-                          kv_len or Sk)
+                          kv_len or Sk, cap or 0.0)
     _build.check_launch(rc, "/".join(_fa.BWD_KERNELS[route]))
     launches += 1
-    by_shape[(B, H, KvH, Sq, Sk, D, Dv, bool(causal))] += 1
+    by_shape[(B, H, KvH, Sq, Sk, D, Dv, bool(causal), cap)] += 1
     return dq[..., :D], dk[..., :D], dv[..., :Dv]

@@ -49,22 +49,25 @@ def matmul(x: torch.Tensor, y: torch.Tensor, *, bm: int = 128, bn: int = 128,
 
 
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
-        window: Optional[int] = None, scale: Optional[float] = None) -> torch.Tensor:
+        window: Optional[int] = None, scale: Optional[float] = None,
+        softcap: Optional[float] = None) -> torch.Tensor:
     """Model layout: q (B,Sq,H,D); k (B,Sk,KvH,D); v (B,Sk,KvH,Dv).  Returns
-    (B,Sq,H,Dv).  ``scale`` defaults to D ** -0.5.
+    (B,Sq,H,Dv).  ``scale`` defaults to D ** -0.5; ``softcap`` caps the
+    scaled scores (``tanh(s / c) * c``).
 
     The kernel tiles by its own block sizes and masks keys past Sk itself, so
     nothing is padded: the true key length is the kernel's ``kv_len``."""
     out = _fa.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                              causal=causal, window=window, scale=scale)
+                              causal=causal, window=window, scale=scale, softcap=softcap)
     return out.transpose(1, 2)
 
 
 def decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           length: Union[int, torch.Tensor]) -> torch.Tensor:
+           length: Union[int, torch.Tensor], *,
+           softcap: Optional[float] = None) -> torch.Tensor:
     """q (B,H,D) single position; k,v (B,L,KvH,D); length: valid entries, a
-    scalar or one per lane (B,)."""
-    return _dec.decode_attention(q, k, v, length)
+    scalar or one per lane (B,); ``softcap`` caps the scaled scores."""
+    return _dec.decode_attention(q, k, v, length, softcap=softcap)
 
 
 decode_partial = _dec.partial_decode_attention

@@ -30,6 +30,11 @@ def _groups(H: int, KvH: int, who: str) -> int:
     return H // KvH
 
 
+def _capped(s: torch.Tensor, softcap: Optional[float]) -> torch.Tensor:
+    """The scores ``tanh(s / c) * c`` under a cap c, else s."""
+    return s if softcap is None else torch.tanh(s / softcap) * softcap
+
+
 def _visible(Sq: int, Sk: int, causal: bool, window: Optional[int], kv_len: Optional[int],
              device) -> torch.Tensor:
     """(Sq, Sk) bool: the (query, key) pairs the masks of K3 leave."""
@@ -48,21 +53,22 @@ def _visible(Sq: int, Sk: int, causal: bool, window: Optional[int], kv_len: Opti
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window: Optional[int] = None,
                         scale: Optional[float] = None,
-                        kv_len: Optional[int] = None, return_lse: bool = False):
+                        kv_len: Optional[int] = None, return_lse: bool = False,
+                        softcap: Optional[float] = None):
     """q (B,H,Sq,D); k (B,KvH,Sk,D); v (B,KvH,Sk,Dv) (kernel layout).  Keys
     at positions ``>= kv_len`` are masked, as are keys after the query
     (``causal``) and ``window`` or more positions before it.  ``scale``
-    defaults to D ** -0.5.  Returns (B,H,Sq,Dv) in q's dtype and, with
-    ``return_lse``, each row's log-sum-exp of its scaled scores, m + log l
-    (B,H,Sq) float32, which the backward takes.  The arithmetic is float32
-    (float64 for float64 inputs)."""
+    defaults to D ** -0.5; ``softcap`` caps the scaled scores.  Returns
+    (B,H,Sq,Dv) in q's dtype and, with ``return_lse``, each row's log-sum-exp
+    of its (capped) scaled scores, m + log l (B,H,Sq) float32, which the
+    backward takes.  The arithmetic is float32 (float64 for float64 inputs)."""
     B, H, Sq, D = q.shape
     KvH, Sk = k.shape[1], k.shape[2]
     G = _groups(H, KvH, "flash_attention")
     sc = scale if scale is not None else D ** -0.5
     acc = torch.promote_types(q.dtype, torch.float32)
     qf = (q.to(acc) * sc).reshape(B, KvH, G, Sq, D)
-    s = torch.einsum("bhgqd,bhkd->bhgqk", qf, k.to(acc))
+    s = _capped(torch.einsum("bhgqd,bhkd->bhgqk", qf, k.to(acc)), softcap)
     s = torch.where(_visible(Sq, Sk, causal, window, kv_len, q.device), s, NEG_INF)
     m = s.amax(-1, keepdim=True)
     p = torch.exp(s - m)
@@ -77,7 +83,8 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
                             causal: bool = True, window: Optional[int] = None,
-                            scale: Optional[float] = None, kv_len: Optional[int] = None):
+                            scale: Optional[float] = None, kv_len: Optional[int] = None,
+                            softcap: Optional[float] = None):
     """The gradient of ``flash_attention_ref`` written out, in float32: the
     ground truth of the backward kernel (S2) and the backward the CPU takes.
     q, o, do (B,H,Sq,·); k, v (B,KvH,Sk,·); lse (B,H,Sq) from the forward.
@@ -85,7 +92,9 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (``causal``, ``window``, ``kv_len``) cut the pair:
     dV = P^T dO, dP = dO V^T, Delta = rowsum(dO o O), dS = P o (dP - Delta),
     dQ = scale dS K, dK = scale dS^T Q; a KV head's dK and dV sum over its
-    group's G query heads.  Returns (dq, dk, dv) in the dtypes of q, k, v
+    group's G query heads.  Under a cap c, P = exp(c t - lse) with
+    t = tanh(s / c), and dS takes the cap's derivative, P o (dP - Delta) o
+    (1 - t^2).  Returns (dq, dk, dv) in the dtypes of q, k, v
     (float64 arithmetic for float64 inputs)."""
     B, H, Sq, D = q.shape
     KvH, Sk, Dv = k.shape[1], k.shape[2], v.shape[-1]
@@ -96,12 +105,17 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dof = do.to(acc).reshape(B, KvH, G, Sq, Dv)
     kf, vf = k.to(acc), v.to(acc)
     s = torch.einsum("bhgqd,bhkd->bhgqk", qf * sc, kf)
+    if softcap is not None:
+        t = torch.tanh(s / softcap)
+        s = t * softcap
     p = torch.where(_visible(Sq, Sk, causal, window, kv_len, q.device),
                     torch.exp(s - lse.to(acc).reshape(B, KvH, G, Sq, 1)), 0.0)
     dv = torch.einsum("bhgqk,bhgqd->bhkd", p, dof)
     dp = torch.einsum("bhgqd,bhkd->bhgqk", dof, vf)
     delta = (dof * o.to(acc).reshape(B, KvH, G, Sq, Dv)).sum(-1, keepdim=True)
     ds = p * (dp - delta)
+    if softcap is not None:
+        ds = ds * (1 - t * t)
     dq = torch.einsum("bhgqk,bhkd->bhgqd", ds, kf) * sc
     dk = torch.einsum("bhgqk,bhgqd->bhkd", ds, qf) * sc
     return dq.reshape(B, H, Sq, D).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
@@ -109,9 +123,11 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          length: Union[int, torch.Tensor], *,
-                         scale: Optional[float] = None, normalize: bool = True):
+                         scale: Optional[float] = None, normalize: bool = True,
+                         softcap: Optional[float] = None):
     """q (B,H,D) one token; k,v (B,L,KvH,D) cache; ``length`` a scalar or one
-    per lane (B,): positions ``< length`` attend.  Returns the output (B,H,D)
+    per lane (B,): positions ``< length`` attend; ``softcap`` caps the scaled
+    scores.  Returns the output (B,H,D)
     in q's dtype or, with ``normalize=False``, the unnormalised accumulator in
     q's dtype and the float32 statistics ``(acc, m, l)``, m and l (B,H)."""
     B, H, D = q.shape
@@ -119,7 +135,7 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     G = _groups(H, KvH, "decode_attention")
     sc = scale if scale is not None else D ** -0.5
     qf = (q.float() * sc).reshape(B, KvH, G, D)
-    s = torch.einsum("bhgd,blhd->bhgl", qf, k.float())
+    s = _capped(torch.einsum("bhgd,blhd->bhgl", qf, k.float()), softcap)
     n = torch.as_tensor(length, device=q.device).reshape(-1, 1)        # (1 or B, 1)
     valid = torch.arange(L, device=q.device)[None, :] < n               # (1 or B, L)
     s = torch.where(valid[:, None, None, :], s, NEG_INF)

@@ -9,9 +9,11 @@ device: ``attn_forward``'s attention is ``ops.mha`` (K3 on the card, its
 plain version on the CPU; non-causal with Sq != Sk for cross-attention),
 and ``attn_decode_step``'s and ``cross_attn_decode``'s softmax is
 ``ops.decode`` (K4; against the whole memory, ``length = Tm``, in cross
-decode).  What the port does not cover yet — logit soft-capping, the
-sequence-sharded decode — raises ``NotImplementedError``; nothing falls
-back to a plain path on the card.
+decode).  ``cfg.attn.logit_softcap`` caps the scaled scores inside those
+kernels (``softcap``), as the reference caps them in its plain attention
+and decode.  What the port does not cover yet — the sequence-sharded decode —
+raises ``NotImplementedError``; nothing falls back to a plain path on the
+card.
 """
 
 from __future__ import annotations
@@ -23,18 +25,13 @@ import torch
 from .._device import resolve_device
 from ..configs.base import ModelCfg
 from ..kernels import ops
-from .common import apply_rope, dense, dtype_of, ninit
+from .common import apply_rope, dense, dtype_of, ninit, softcap as softcap_scores
 
 NEG_INF = -1e30
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP.md queue A, item {item})")
-
-
-def _no_softcap(cfg: ModelCfg) -> None:
-    if cfg.attn.logit_softcap is not None:
-        raise _not_ported("attention logit soft-capping", "6d")
 
 
 # ---------------------------------------------------------------------------
@@ -64,10 +61,12 @@ def init_attn(gen: torch.Generator, cfg: ModelCfg, cross: bool = False):
 # ---------------------------------------------------------------------------
 
 
-def flash_attention(q, k, v, *, causal: bool = True, kv_chunk: int = 1024):
+def flash_attention(q, k, v, *, causal: bool = True, kv_chunk: int = 1024,
+                    softcap: Optional[float] = None):
     """q: (B, Sq, H, D); k/v: (B, Sk, KvH, D).  Online-softmax over KV chunks:
-    O(Sq * kv_chunk) live memory instead of O(Sq * Sk).  An oracle of the
-    flash kernel in the tests; the model calls ``ops.mha``."""
+    O(Sq * kv_chunk) live memory instead of O(Sq * Sk); ``softcap`` caps the
+    scaled scores.  An oracle of the flash kernel in the tests; the model
+    calls ``ops.mha``."""
     B, Sq, H, D = q.shape
     Sk, KvH = k.shape[1], k.shape[2]
     G = H // KvH
@@ -85,7 +84,7 @@ def flash_attention(q, k, v, *, causal: bool = True, kv_chunk: int = 1024):
         if pad:
             kb = torch.nn.functional.pad(kb, (0, 0, 0, 0, 0, pad))
             vb = torch.nn.functional.pad(vb, (0, 0, 0, 0, 0, pad))
-        s = torch.einsum("bqhgd,bkhd->bqhgk", qf, kb)          # (B,Sq,KvH,G,C)
+        s = softcap_scores(torch.einsum("bqhgd,bkhd->bqhgk", qf, kb), softcap)
         kv_pos = c0 + torch.arange(kv_chunk, device=q.device)
         valid = (kv_pos < Sk)[None, :]
         if causal:
@@ -101,13 +100,14 @@ def flash_attention(q, k, v, *, causal: bool = True, kv_chunk: int = 1024):
     return out.reshape(B, Sq, H, D).to(q.dtype)
 
 
-def dense_attention(q, k, v, *, causal=True):
-    """Reference O(Sq*Sk) attention (an oracle of the flash kernel in the tests)."""
+def dense_attention(q, k, v, *, causal=True, softcap: Optional[float] = None):
+    """Reference O(Sq*Sk) attention (an oracle of the flash kernel in the
+    tests); ``softcap`` caps the scaled scores."""
     B, Sq, H, D = q.shape
     KvH = k.shape[2]
     G = H // KvH
     qf = (q.float() * D ** -0.5).reshape(B, Sq, KvH, G, D)
-    s = torch.einsum("bqhgd,bkhd->bqhgk", qf, k.float())
+    s = softcap_scores(torch.einsum("bqhgd,bkhd->bqhgk", qf, k.float()), softcap)
     if causal:
         q_pos = torch.arange(Sq, device=q.device)
         kv_pos = torch.arange(k.shape[1], device=q.device)
@@ -140,8 +140,8 @@ def attn_forward(p, x, cfg: ModelCfg, *, positions=None, window=None, kv=None,
     if ``kv`` (memory hidden states (B,Sm,D)) is given: no RoPE, no bias,
     every query sees the whole memory.  ``causal=False`` gives bidirectional
     self-attention (encoder stacks).  The attention is ``ops.mha`` on every
-    device: K3 on the card, its plain version on the CPU."""
-    _no_softcap(cfg)
+    device: K3 on the card, its plain version on the CPU, under the config's
+    logit cap."""
     a = cfg.attn
     B, S, _ = x.shape
     if kv is None:
@@ -154,7 +154,7 @@ def attn_forward(p, x, cfg: ModelCfg, *, positions=None, window=None, kv=None,
         q = dense(x, p["wq"])
         k, v = cross_attn_kv(p, kv, cfg)
         causal = False  # cross-attention attends to the full memory
-    o = ops.mha(q, k, v, causal=causal, window=window)
+    o = ops.mha(q, k, v, causal=causal, window=window, softcap=a.logit_softcap)
     return dense(o, p["wo"], 2)
 
 
@@ -162,12 +162,11 @@ def cross_attn_decode(p, x1, k, v, cfg: ModelCfg):
     """Cross-attention decode against *precomputed* memory K/V (filled once
     at prefill by ``transformer.lm_prepare_decode_cache``).  x1: (B,1,D);
     k,v: (B,Tm,KvH,Dh).  The softmax over the memory is K4 (``ops.decode``)
-    with every lane's length the whole memory, Tm."""
-    _no_softcap(cfg)
+    with every lane's length the whole memory, Tm, under the config's logit cap."""
     a = cfg.attn
     B = x1.shape[0]
     q = dense(x1, p["wq"])
-    o = ops.decode(q[:, 0], k, v, k.shape[1])                     # (B, H, Dh)
+    o = ops.decode(q[:, 0], k, v, k.shape[1], softcap=a.logit_softcap)   # (B, H, Dh)
     o = o.reshape(B, 1, a.n_heads, a.d_head).to(x1.dtype)
     return dense(o, p["wo"], 2)
 
@@ -187,7 +186,6 @@ def init_attn_cache(batch: int, seq_len: int, cfg: ModelCfg, window: Optional[in
     """Zeroed K/V caches of ``L = min(window, seq_len)`` slots under a window
     (a ring buffer), else ``seq_len``, on ``device`` (``None``: the CUDA
     device; raises where there is none)."""
-    _no_softcap(cfg)
     device = resolve_device(device)
     a = cfg.attn
     L = min(window, seq_len) if window else seq_len
@@ -218,8 +216,8 @@ def attn_decode_step(p, x1, cache, index, cfg: ModelCfg, *, window=None):
     reference's set, ``age < min(index + 1, L)``: slots are written in order
     from position 0, so before the ring wraps the valid slots are
     ``0..index``, and after it all L are; RoPE is applied before the cache and
-    attention does not depend on the order of its keys."""
-    _no_softcap(cfg)
+    attention does not depend on the order of its keys.  The scores take the
+    config's logit cap, as the reference's do."""
     a = cfg.attn
     B = x1.shape[0]
     idx = torch.broadcast_to(torch.as_tensor(index, dtype=torch.int32, device=x1.device), (B,))
@@ -235,7 +233,7 @@ def attn_decode_step(p, x1, cache, index, cfg: ModelCfg, *, window=None):
     v[lane, slot] = v1[:, 0].to(v.dtype)
 
     length = torch.clamp(idx + 1, max=L) if window else idx + 1
-    o = ops.decode(q[:, 0], k, v, length)                         # (B, H, Dh)
+    o = ops.decode(q[:, 0], k, v, length, softcap=a.logit_softcap)   # (B, H, Dh)
     o = o.reshape(B, 1, a.n_heads, a.d_head).to(x1.dtype)
     out = dense(o, p["wo"], 2)
     return out, {"k": k, "v": v}

@@ -21,8 +21,8 @@ A ``cross_attn`` block scales its attention and its ffn by tanh of its own
 scalar gates.  The memory of cross-attention is the modality frontend's
 embeddings (``batch["frontend_embeds"]``, projected to d_model where their
 width differs), run through the encoder stack where the model has one.
-Attention logit soft-capping raises ``NotImplementedError`` (ROADMAP.md
-queue A, item 6d).
+``cfg.attn.logit_softcap`` caps the attention scores of every kind that
+attends but MLA, which ignores it as the reference's does.
 """
 
 from __future__ import annotations
@@ -49,9 +49,7 @@ def _check_kind(kind: str, ffn: str) -> None:
 
 
 def _check_cfg(cfg: ModelCfg) -> None:
-    """Refuses what the port does not run yet: attention logit soft-capping."""
-    if cfg.attn.logit_softcap is not None:
-        raise attention._not_ported("attention logit soft-capping", "6d")
+    """Refuses a block kind or ffn the port does not know."""
     for seg in cfg.segments + cfg.encoder_segments:
         for pos, kind in enumerate(seg.pattern):
             _check_kind(kind, seg.ffn_at(pos))

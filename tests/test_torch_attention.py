@@ -11,14 +11,18 @@ CPU mode; ``tests/test_torch_gpu.py`` holds them to these plain versions
 where there is a card.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.configs import registry as ref_registry
 from repro.kernels import ops as ref_ops
 from repro.kernels import ref as ref_oracles
+from repro.models import attention as ref_attention
 from repro.models.attention import flash_attention as ref_model_flash
 
 from repro_torch.configs.registry import get_smoke_config
@@ -219,11 +223,13 @@ def test_decode_attention_contract_errors():
 
 
 def test_model_attention_raises_for_what_the_dense_slice_leaves_out():
-    """No silent plain path for soft-capping or the sequence-sharded decode.
-    Windows are ported (a windowed cache is a ring of ``min(window,
-    seq_len)`` slots), and so is cross-attention (tests/test_torch_cross.py):
-    its parameters are the self-attention's, and a memory of another length
-    gives the query's shape back."""
+    """No silent plain path for the sequence-sharded decode.  Windows are
+    ported (a windowed cache is a ring of ``min(window, seq_len)`` slots), and
+    so is cross-attention (tests/test_torch_cross.py): its parameters are the
+    self-attention's, and a memory of another length gives the query's shape
+    back.  Logit soft-capping runs: a capped self- and cross-attention equal
+    the reference's ``attn_forward`` under the same cap, with queries and
+    keys 16 times larger so that the cap moves the result."""
     cfg = get_smoke_config("tinyllama-1.1b")
     gen = torch.Generator().manual_seed(0)
     p = attention.init_attn(gen, cfg)
@@ -236,10 +242,17 @@ def test_model_attention_raises_for_what_the_dense_slice_leaves_out():
     memory = torch.ones((1, 7, cfg.d_model))
     assert attention.attn_forward(p, x, cfg, kv=memory).shape == x.shape
     capped = cfg.scaled(attn=cfg.attn.__class__(**{**cfg.attn.__dict__, "logit_softcap": 30.0}))
-    with pytest.raises(NotImplementedError, match="soft-capping"):
-        attention.attn_forward(p, x, capped)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        attention.attn_forward(p, x, capped, kv=memory)
+    ref_capped = ref_registry.get_smoke_config("tinyllama-1.1b")
+    ref_capped = ref_capped.scaled(attn=dataclasses.replace(ref_capped.attn, logit_softcap=30.0))
+    sharp = dict(p, wq=p["wq"] * 16, wk=p["wk"] * 16)
+    jp = {k: jnp.asarray(v.float().numpy()).astype(jnp.bfloat16) for k, v in sharp.items()}
+    xs = torch.as_tensor(normal((1, 4, cfg.d_model), "float32", 3))
+    ms = torch.as_tensor(normal((1, 7, cfg.d_model), "float32", 4))
+    for kv, jkv in ((None, None), (ms, jnp.asarray(ms.numpy()))):
+        got = attention.attn_forward(sharp, xs, capped, kv=kv)
+        want = ref_attention.attn_forward(jp, jnp.asarray(xs.numpy()), ref_capped, kv=jkv)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+        assert float((got - attention.attn_forward(sharp, xs, cfg, kv=kv)).abs().max()) > 1e-4
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         attention._sharded_flash_decode(None, None, None, None, cfg, None)
     cross = attention.init_attn(gen, cfg, cross=True)

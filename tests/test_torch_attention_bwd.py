@@ -194,12 +194,14 @@ def test_bwd_route_refuses_what_no_kernel_takes(D, Dv, dtype, error, match):
 
 def test_bwd_routes_are_what_the_source_builds():
     """The tensor-core launcher's dispatch instantiates exactly
-    ``BWD_WGMMA_HEAD_DIMS`` and ``BF16_PAIRS``, and each route's kernels are
-    defined in the source."""
+    ``BWD_WGMMA_HEAD_DIMS`` and ``BF16_PAIRS`` (a pair without the logit cap
+    only), and each route's kernels are defined in the source."""
     src = (Path(fa.__file__).parent.parent / "csrc" / "flash_attention_bwd.cu").read_text()
-    built = {(int(d), int(dv)) for d, dv in re.findall(r"launch_wgmma_d<(\d+), (\d+)>\(q", src)}
+    inst = re.findall(r"launch_wgmma_d<(\d+), (\d+), (CAP|false)>\(q", src)
+    built = {(int(d), int(dv)) for d, dv, _ in inst}
     assert {pair for pair in built if pair[0] != pair[1]} == set(fa.BF16_PAIRS)
     assert {d for d, dv in built if d == dv} == set(fa.BWD_WGMMA_HEAD_DIMS)
+    assert all(cap == "false" for d, dv, cap in inst if d != dv)
     for names in fa.BWD_KERNELS.values():
         for name in names:
             assert re.search(rf"^{name}\(", src, re.M), name

@@ -67,4 +67,5 @@ def test_decode_args_match_the_kernels_struct():
 
     kinds = {"P": "pointer", "q": "int64", "i": "int32", "f": "float"}
     assert [(n, kinds[code]) for n, code in dec.ARGS_FIELDS] == c_fields
-    assert dec._ARGS.size == 9 * 8 + 8 * 8 + 9 * 4 + 4     # no padding between the groups
+    # no padding between the groups; the end padded to 8 bytes, as sizeof is
+    assert dec._ARGS.size == 9 * 8 + 8 * 8 + 9 * 4 + 2 * 4 + 4

@@ -1883,14 +1883,23 @@ def test_smoke_train_step_on_card_equals_the_cpu(arch):
     the gradient check fixes (``adamw.fixed_by_gradients``, which leaves out
     at most 1 % of the elements)."""
     from repro_torch import _tree
-    from repro_torch.configs.base import ShapeCfg
-    from repro_torch.data.pipeline import make_batch
-    from repro_torch.optim.adamw import OptCfg, fixed_by_gradients
-    from repro_torch.train.steps import init_train_state, make_grad_fn, make_train_step
+    from repro_torch.train.steps import init_train_state
     dev = _cuda_or_skip()
     cfg = get_smoke_config(arch)
     state = _tree.map(lambda t: t.float() if t.dtype == torch.bfloat16 else t,
                       init_train_state(0, cfg, device="cpu"))
+    train_step_card_vs_cpu(cfg, state, dev)
+
+
+def train_step_card_vs_cpu(cfg, state, dev):
+    """The gradients and one train step of ``cfg`` from the float32 ``state``
+    on the card against the CPU, as ``test_smoke_train_step_on_card_equals_the_cpu``
+    states them."""
+    from repro_torch import _tree
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.optim.adamw import OptCfg, fixed_by_gradients
+    from repro_torch.train.steps import make_grad_fn, make_train_step
     batch = make_batch(cfg, ShapeCfg("t", seq_len=64, global_batch=4, kind="train"))
     tensors = {k: torch.as_tensor(v) for k, v in batch.items()}
     before = train_counts()
@@ -1914,3 +1923,188 @@ def test_smoke_train_step_on_card_equals_the_cpu(arch):
         want = _tree.with_paths(cpu["params"])[key]
         err = float(((got.cpu() - want).abs() * fixed[key]).max())
         assert err <= 1e-4 * float(want.abs().max()), (key, err, float(want.abs().max()))
+
+
+# -- attention logit soft-capping: K3, K4 and S2 with a cap ---------------------------------
+
+SOFTCAP = 50.0                   # Gemma-2's attention cap
+# (B, Sq, Sk, H, KvH, D, causal, window): the head dims 64, 128 and 256 (RecurrentGemma's
+# 16 heads over one KV head, under a window), GQA, non-causal with Sq != Sk, head dim 16
+CAPPED_FLASH_CASES = [
+    (2, 256, 256, 8, 2, 64, True, None),
+    (2, 300, 300, 8, 2, 128, True, 64),
+    (2, 300, 300, 16, 1, 256, True, 128),
+    (2, 130, 200, 4, 4, 64, False, None),
+    (2, 100, 100, 4, 2, 16, True, None),
+]
+# the same for S2: wgmma (bf16 below 256), the CUDA cores (bf16 at 256, float32)
+CAPPED_BWD_CASES = [
+    (2, 512, 512, 16, 2, 64, True, None),
+    (2, 300, 300, 8, 2, 128, True, 64),
+    (2, 512, 512, 16, 1, 256, True, 128),
+    (2, 200, 130, 8, 2, 64, False, None),
+]
+
+
+def _held(got, want, dtype):
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                               **tol(dtype))
+
+
+def _moved(got, uncapped, dtype):
+    """The cap moved the result past the tolerance somewhere."""
+    t = tol(dtype)
+    g, u = got.float().cpu(), uncapped.float().cpu()
+    return bool(((g - u).abs() > t["atol"] + t["rtol"] * u.abs()).any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("B,Sq,Sk,H,KvH,D,causal,window", CAPPED_FLASH_CASES)
+def test_capped_flash_attention_matches_plain_on_card(B, Sq, Sk, H, KvH, D, causal, window,
+                                                      dtype):
+    """K3 with a cap: one launch of the capped kernel (counted under the cap
+    in ``by_shape``), its output and its rows' lse against the capped plain
+    version, and the cap moves the output."""
+    dev = _cuda_or_skip()
+    q, k, v, _ = bwd_operands(dev, B, Sq, Sk, H, KvH, D, dtype)   # scores the cap bends
+    kw = dict(causal=causal, window=window)
+    before, shaped = fa.launches, fa.by_shape[(B, H, KvH, Sq, Sk, D, D, causal, SOFTCAP)]
+    out, lse = fa._forward(q, k, v, causal, window, D ** -0.5, None, SOFTCAP, with_lse=True)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    assert fa.by_shape[(B, H, KvH, Sq, Sk, D, D, causal, SOFTCAP)] == shaped + 1
+    plain, want_lse = ref.flash_attention_ref(q, k, v, softcap=SOFTCAP, return_lse=True, **kw)
+    _held(out, plain, dtype)
+    np.testing.assert_allclose(lse.cpu().numpy(), want_lse.cpu().numpy(), rtol=1e-4, atol=1e-4)
+    assert _moved(out, ref.flash_attention_ref(q, k, v, **kw), dtype)
+    got = ops.mha(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), softcap=SOFTCAP, **kw)
+    _held(got.transpose(1, 2), plain, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("L,H,KvH,D,length", DECODE_CASES_CARD)
+def test_capped_decode_attention_matches_plain_on_card(L, H, KvH, D, length, dtype):
+    """K4 with a cap, a scalar length and one per lane: one launch each,
+    against the capped plain version; the cap moves the output."""
+    dev = _cuda_or_skip()
+    q, k, v = _on(dev, dtype, *attention_operands((3, H, D), (3, L, KvH, D), dtype, seed=3))
+    q = q * 4
+    lanes = torch.tensor([length, max(1, length // 3), L], dtype=torch.int32, device=dev)
+    for n in (length, lanes):
+        before = dec.launches
+        got = ops.decode(q, k, v, n, softcap=SOFTCAP)
+        torch.cuda.synchronize()
+        assert dec.launches == before + 1 and got.shape == q.shape
+        _held(got, ref.decode_attention_ref(q, k, v, n, softcap=SOFTCAP), dtype)
+        if int(torch.as_tensor(n).max()) > 1:     # over one key the softmax is 1, capped or not
+            assert _moved(got, ref.decode_attention_ref(q, k, v, n), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_capped_decode_partials_merge_to_the_full_result_on_card(dtype):
+    """The capped partials against their plain version (``normalize=False``),
+    and over 4 sequence shards, merged, equal to the capped full decode.  The
+    statistics (m, l) are held to 2e-5 in float32; in bfloat16 to the
+    bfloat16 tolerance, as the output (the special-function tanh moves a
+    capped score by about 2^-11 of itself)."""
+    dev = _cuda_or_skip()
+    B, L, H, KvH, D, S = 4, 1024, 32, 4, 64, 4
+    q, k, v = _on(dev, dtype, *attention_operands((B, H, D), (B, L, KvH, D), dtype, 4))
+    q = q * 4
+    lengths = torch.tensor([1, 100, 513, 1024], dtype=torch.int32, device=dev)
+    full = ops.decode(q, k, v, lengths, softcap=SOFTCAP)
+    shard = L // S
+    parts = [ops.decode_partial(q, k[:, s * shard:(s + 1) * shard], v[:, s * shard:(s + 1) * shard],
+                                (lengths - s * shard).clamp(0, shard), softcap=SOFTCAP)
+             for s in range(S)]
+    merged = ops.merge_partials(*(torch.stack(x) for x in zip(*parts)))
+    _held(merged, full, dtype)
+    got = ops.decode_partial(q, k, v, lengths, softcap=SOFTCAP)
+    want = ref.decode_attention_ref(q, k, v, lengths, normalize=False, softcap=SOFTCAP)
+    _held(got[0], want[0], dtype)
+    for g, w in zip(got[1:], want[1:]):
+        _held(g, w, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("B,Sq,Sk,H,KvH,D,causal,window", CAPPED_BWD_CASES)
+def test_capped_flash_attention_bwd_matches_plain_on_card(B, Sq, Sk, H, KvH, D, causal, window,
+                                                          dtype):
+    """S2 under the forward's cap on the route ``bwd_route`` names, against
+    the capped plain backward from the same forward (each output within
+    ``BWD_TOL`` of its largest magnitude); then under grad through
+    ``ops.mha``: one capped K3 and one capped S2 launch."""
+    from repro_torch.kernels import flash_attention_bwd as fab
+    dev = _cuda_or_skip()
+    q, k, v, do = bwd_operands(dev, B, Sq, Sk, H, KvH, D, dtype, seed=2)
+    kw = dict(causal=causal, window=window, softcap=SOFTCAP)
+    o, lse = fa._forward(q, k, v, causal, window, D ** -0.5, None, SOFTCAP, with_lse=True)
+    before = fab.launches
+    got = fab.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert fab.launches == before + 1
+    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= BWD_TOL[dtype] * float(w.float().abs().max()), (name, err)
+    ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+    before = (fa.launches, fab.launches)
+    out = ops.mha(ql.transpose(1, 2), kl.transpose(1, 2), vl.transpose(1, 2), **kw)
+    grads = torch.autograd.grad(out, (ql, kl, vl), do.transpose(1, 2))
+    torch.cuda.synchronize()
+    assert (fa.launches, fab.launches) == (before[0] + 1, before[1] + 1)
+    assert fab.by_shape[(B, H, KvH, Sq, Sk, D, D, causal, SOFTCAP)] >= 2
+    for name, g, w in zip(("dq", "dk", "dv"), grads, want):
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= BWD_TOL[dtype] * float(w.float().abs().max()), (name, err)
+
+
+@pytest.mark.gpu
+def test_capped_mla_pair_raises_before_any_launch_on_card():
+    """No capped ``<192, 128>`` is built (the reference's MLA ignores the
+    cap): K3 and S2 raise ``ValueError`` for a cap there and launch nothing;
+    float32, padded to 256, runs it."""
+    from repro_torch.kernels import flash_attention_bwd as fab
+    dev = _cuda_or_skip()
+    q, k, v = (t.transpose(1, 2) for t in mla_operands(dev, "bfloat16", 1, 128))
+    do, lse = torch.zeros_like(q[..., :MLA_DV]), torch.zeros(q.shape[:3], device=dev)
+    before = (fa.launches, fab.launches)
+    with pytest.raises(ValueError, match="logit cap"):
+        fa.flash_attention(q, k, v, softcap=SOFTCAP)
+    with pytest.raises(ValueError, match="logit cap"):
+        fab.flash_attention_bwd(q, k, v, do, lse, do, softcap=SOFTCAP)
+    assert (fa.launches, fab.launches) == before
+    q, k, v = (t.float() for t in (q, k, v))
+    _held(fa.flash_attention(q, k, v, softcap=SOFTCAP),
+          ref.flash_attention_ref(q, k, v, softcap=SOFTCAP), "float32")
+
+
+@pytest.mark.gpu
+def test_capped_smoke_train_step_on_card_equals_the_cpu():
+    """tinyllama's smoke config under the attention cap, on the card against
+    the CPU as ``test_smoke_train_step_on_card_equals_the_cpu`` holds each
+    arch: capped K3 and S2 in float32.  Its query and key weights are 4
+    times larger, so that the cap moves the gradients (by 2e-3 of a leaf's
+    largest, on the CPU) while float32 still gives them to 1e-6 of it (at
+    16 times the softmax is so sharp that the CPU's own float32 gradients
+    are 3e-5 from float64's)."""
+    import dataclasses
+
+    from repro_torch import _tree
+    from repro_torch.train.steps import init_train_state
+    dev = _cuda_or_skip()
+    cfg = get_smoke_config("tinyllama-1.1b")
+    cfg = cfg.scaled(attn=dataclasses.replace(cfg.attn, logit_softcap=SOFTCAP))
+    state = _tree.map(lambda t: t.float() if t.dtype == torch.bfloat16 else t,
+                      init_train_state(0, cfg, device="cpu"))
+    for block in state["params"]["segments"][0]:
+        for name in ("wq", "wk"):
+            block["mixer"][name] = block["mixer"][name] * 4
+    before = dict(fa.by_shape)
+    train_step_card_vs_cpu(cfg, state, dev)
+    capped = {key: n - before.get(key, 0) for key, n in fa.by_shape.items() if key[-1] == SOFTCAP}
+    assert sum(capped.values()) >= 2 * cfg.n_layers      # the gradient's and the step's

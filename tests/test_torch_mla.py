@@ -228,11 +228,14 @@ def test_kernel_dims_refuse_a_bf16_pair_the_kernel_is_not_built_for(D, Dv):
 
 
 def test_bf16_pairs_are_the_pairs_the_source_instantiates():
-    """The kernel's C++ dispatch and ``BF16_PAIRS`` list the same pairs."""
+    """The kernel's C++ dispatch and ``BF16_PAIRS`` list the same pairs; a
+    pair is instantiated without the logit cap only (a capped call raises)."""
     src = (Path(fa.__file__).parent.parent / "csrc" / "flash_attention.cu").read_text()
-    built = {(int(d), int(dv)) for d, dv in re.findall(r"launch_bf16_d<(\d+), (\d+)>\(q", src)}
+    inst = re.findall(r"launch_bf16_d<(\d+), (\d+), (CAP|false)>\(q", src)
+    built = {(int(d), int(dv)) for d, dv, _ in inst}
     assert {pair for pair in built if pair[0] != pair[1]} == set(fa.BF16_PAIRS)
     assert {d for d, dv in built if d == dv} == set(fa.HEAD_DIMS)
+    assert all(cap == "false" for d, dv, cap in inst if d != dv)
 
 
 def test_flash_attention_keeps_its_shape_checks_with_a_value_dim_of_its_own():

@@ -28,6 +28,7 @@ import torch
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
+from repro.configs import base as ref_base
 from repro.configs import registry as ref_registry
 from repro.kernels import ops as ref_ops
 from repro.kernels import ref as ref_oracles
@@ -37,7 +38,7 @@ from repro.models import rglru as ref_rglru
 from repro.models import ssd as ref_ssd
 from repro.models import transformer as ref_transformer
 
-from repro_torch import compat
+from repro_torch import _tree, compat
 from repro_torch.configs import registry
 from repro_torch.configs.base import Segment
 from repro_torch.kernels import ops, ref
@@ -364,18 +365,34 @@ def test_params_carry_over_the_recurrent_trees():
 
 def test_unported_kinds_still_raise():
     """Every block kind is ported (the MoE ffn: tests/test_torch_moe.py; mla,
-    enc_attn and cross_attn: tests/test_torch_mla.py, test_torch_cross.py);
-    what still raises is attention logit soft-capping, on every kind that
-    attends, and the sequence-sharded decode.  An unknown kind is a
-    ValueError."""
+    enc_attn and cross_attn: tests/test_torch_mla.py, test_torch_cross.py),
+    and so is attention logit soft-capping: a capped config of every kind
+    builds the uncapped one's parameters, and where the kind runs without a
+    frontend (mla, which ignores the cap, and ssd) its ``lm_forward`` equals
+    the reference's under the cap (the capped cross and encoder models:
+    tests/test_torch_softcap.py).  What still raises is the sequence-sharded
+    decode.  An unknown kind is a ValueError."""
     cfg = registry.get_smoke_config("mamba2-780m")
+    ref_cfg = ref_registry.get_smoke_config("mamba2-780m")
     capped = dataclasses.replace(cfg.attn, logit_softcap=30.0)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab, (2, 12)).astype(np.int32)
     for pattern, ffn in ((("mla",), "none"), (("cross_attn",), "mlp"), (("enc_attn",), "mlp"),
                          (("ssd",), "none")):
         ok = cfg.scaled(segments=(Segment(pattern, 1, ffn),))
-        assert transformer.param_count(transformer.init_lm(0, ok, device="cpu")) > 0
-        with pytest.raises(NotImplementedError, match="soft-capping.*ROADMAP"):
-            transformer.init_lm(0, ok.scaled(attn=capped), device="cpu")
+        plain = transformer.init_lm(0, ok, device="cpu")
+        assert transformer.param_count(plain) > 0
+        capped_params = transformer.init_lm(0, ok.scaled(attn=capped), device="cpu")
+        assert all(torch.equal(a, b) for a, b in zip(_tree.leaves(capped_params),
+                                                     _tree.leaves(plain)))
+        if pattern[0] in ("mla", "ssd"):
+            rc = ref_cfg.scaled(segments=(ref_base.Segment(pattern, 1, ffn),),
+                                attn=dataclasses.replace(ref_cfg.attn, logit_softcap=30.0))
+            params = ref_transformer.init_lm(jax.random.key(0), rc)
+            got, _ = transformer.lm_forward(compat.params_from_reference(
+                jax.device_get(params), "cpu"), {"tokens": torch.as_tensor(toks)},
+                ok.scaled(attn=capped))
+            want, _ = ref_transformer.lm_forward(params, {"tokens": jnp.asarray(toks)}, rc)
+            np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
     with pytest.raises(NotImplementedError, match="sequence-sharded.*ROADMAP"):
         attention._sharded_flash_decode(None, None, None, None, cfg, None)
     with pytest.raises(ValueError, match="kind 'conv'"):

@@ -63,6 +63,16 @@ PyTorch version on the card, then drives:
   gradients only, each with its launches by kernel and a profiled step);
   the capped tinyllama's first two layers' gradients at 4 x 2048 through
   the capped K3 and S2 against float32 plain ones (``train_grads[...]``);
+* the mesh, on one rank: a ``("pod", "data", "model") = (1, 1, 1)`` mesh
+  over NCCL (``launch.mesh.make_mesh``; NCCL takes one rank a card, the
+  multi-rank paths run over gloo in the CPU tests): tinyllama-1.1b's decode
+  under the flash-decode rules, every attention layer through K4's partials
+  (``normalize=False``), an all-gather of (acc, m, l) and
+  ``merge_partials``, against the unsharded step (``mesh_decode``, both
+  timed); qwen2-moe's first MoE layer through ``moe_forward_ep`` against
+  the local dispatch (``mesh_moe``); one int8-compressed gradient of
+  tinyllama-1.1b at 4 x 2048 against the plain one, and the int8 and
+  plain train steps timed (``mesh_train``);
 * ``examples/serve_batched_torch.py`` as a user runs it on the card
   (``serve_example``);
 * the designer's differential check (``differential``): the design lowered
@@ -127,7 +137,8 @@ keep their launch counts.
 Output: one JSON object per line (``env``, ``build``,
 ``k1_without_staging``, ``main_path``, ``differential``, ``s1_gap``, then
 ``serve``, ``prefill``, ``consistency`` and ``profile`` for each model,
-``serve_example``, the training lines, ``softcap``, ``phases``,
+``mesh_decode`` and ``mesh_moe`` beside tinyllama's and qwen2-moe's,
+``serve_example``, the training lines, ``mesh_train``, ``softcap``, ``phases``,
 ``kernels``), the card's name and power limit as ``nvidia-smi`` gives them, and a last line
 ``{"ok": true, "device": {...}}``.  Any mismatch or failure exits non-zero
 before that line.  A ``phases`` line gives the host seconds of each group of
@@ -186,7 +197,11 @@ from repro_torch.configs.registry import get_smoke_config, list_archs  # noqa: E
 from repro_torch.data.pipeline import make_batch  # noqa: E402
 from repro_torch.launch import train as train_driver  # noqa: E402
 from repro_torch.launch.serve import Engine, make_requests, serve_requests  # noqa: E402
-from repro_torch.models import mla, ssd, transformer  # noqa: E402
+from repro_torch.launch.mesh import make_mesh  # noqa: E402
+from repro_torch.models import mla, mlp, ssd, transformer  # noqa: E402
+from repro_torch.parallel import compression  # noqa: E402
+from repro_torch.parallel.api import use_rules  # noqa: E402
+from repro_torch.parallel.rules import rules_for  # noqa: E402
 from repro_torch.optim.adamw import OptCfg, adamw_update, fixed_by_gradients  # noqa: E402
 from repro_torch.train.steps import (init_train_state, make_grad_fn,  # noqa: E402
                                      make_prefill_step, make_train_step)
@@ -413,6 +428,14 @@ GRAD_ONLY = {VISION: "the AdamW step of one group needs over 153 GB (24 bytes a 
                      "before AdamW's float32 temporaries); one layer alone about 92 GB"}
 # the examples/train_tinylm_torch.py run: 40 steps, a failure injected at 12
 EXAMPLE_STEPS, EXAMPLE_FAIL_AT = 40, 12
+# the mesh: one rank, one NCCL process group over an in-process store (NCCL
+# takes one rank a card; the multi-rank paths run over gloo in the CPU tests).
+# tinyllama's decode under the flash-decode rules, 16 steps from each lane's
+# first position, and one int8-compressed train step at the training shape
+MESH_SHAPE, MESH_AXES = (1, 1, 1), ("pod", "data", "model")
+MESH_DECODE_STEPS, MESH_START = 16, (0, 100, 513, 900)
+# qwen2-moe's first MoE layer on 4 x 64 tokens, expert-parallel against local
+MESH_MOE_TOKENS = 64
 
 
 def emit(key: str, value) -> None:
@@ -1426,6 +1449,47 @@ def partial_merge_check(device, g, softcap=None) -> dict:
             "max_abs_err": err, "tolerance": 1e-5}
 
 
+NO_PARTIAL_LIBRARY = ("none: no single PyTorch call returns a softmax's unnormalised "
+                      "partial with its row maximum and sum")
+
+
+def k4_partial_case(case: str, B, L, H, KvH, D, dtype, lengths, device, g) -> dict:
+    """K4 with ``normalize=False`` (``ops.decode_partial``: the sequence-
+    sharded decode's partial, the accumulator unnormalised in the inputs'
+    dtype and (m, l) in float32) against its plain version, each output
+    within the dtype's tolerance."""
+    q = seeded((B, H, D), dtype, device, g)
+    k, v = (seeded((B, L, KvH, D), dtype, device, g) for _ in range(2))
+    n = torch.tensor(lengths, dtype=torch.int32, device=device)
+    name = f"decode_attention[{case} partial {B}x{L} H{H}/{KvH} D{D} {dtype_name(dtype)}]"
+    got = ops.decode_partial(q, k, v, n)
+    torch.cuda.synchronize()
+    want = ref.decode_attention_ref(q, k, v, n, normalize=False)
+    errs = {what: check_close(f"{name}: {what}", a, b, dtype)
+            for what, a, b in zip(("acc", "m", "l"), got, want)}
+    rows_read = int(n.clamp(max=L).sum())
+    es = q.element_size()
+    bound_ms, bound_by = bound(4.0 * H * D * rows_read,
+                               (2 * B * H * D + 2 * rows_read * KvH * D) * es + 8 * B * H, dtype)
+    kernel = lambda: ops.decode_partial(q, k, v, n)
+    groups = B * dec.groups(H, KvH)
+    chunk, n_chunks = dec.split(L, groups, D, torch.cuda.get_device_properties(device)
+                                .multi_processor_count)
+    return {
+        "name": name, "route": "cuda", "source": "src/repro_torch/csrc/decode_attention.cu",
+        "replaces": "src/repro/kernels/decode_attention.py:73", "kernel": dec.KERNEL[dtype],
+        "shape": {"B": B, "L": L, "H": H, "KvH": KvH, "D": D, "dtype": dtype_name(dtype),
+                  "length": lengths, "softcap": None, "normalize": False},
+        "split": {"chunk": chunk, "chunks": n_chunks, "blocks": n_chunks * groups},
+        "launches": None, "max_abs_err": max(errs.values()), "max_abs_err_by_output": errs,
+        "tolerance": f"{ATTN_TOL[dtype]} + {ATTN_TOL[dtype]}*|plain| each output",
+        "ms": time_ms(kernel, 50),
+        "plain_ms": time_ms(lambda: ref.decode_attention_ref(q, k, v, n, normalize=False), 20),
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "library_note": NO_PARTIAL_LIBRARY, "device_ms": graph_ms(kernel)[0],
+    }
+
+
 def phase_kernels_k4(device) -> list[dict]:
     """K4 at the two shapes the main paths run it at (serving with a length
     per lane, the consistency check), then checks that no main path counts
@@ -2133,6 +2197,7 @@ def zero_counts() -> None:
     fa.by_shape.clear()
     fab.by_shape.clear()
     dec.by_shape.clear()
+    dec.partial_by_shape.clear()
 
 
 def counts() -> dict:
@@ -2495,18 +2560,145 @@ def mla_decode_times(eng) -> dict:
     return out
 
 
-def serve_model(arch: str, device) -> dict:
-    """Serve, prefill, consistency and profile of one model; frees it after.
-    Returns the launches of each phase, and those of serving and the
+def phase_mesh_decode(eng, mesh, device) -> dict:
+    """The served tinyllama's decode on the one-rank mesh under
+    ``rules_for(cfg, mesh, "decode", flash_decode=True)``: the caches made
+    under the rules hold the rank's slots of the length, and every attention
+    layer takes ``_sharded_flash_decode`` — K4's partial (``normalize=False``),
+    the all-gather of (acc, m, l) over ``model`` (NCCL) and ``merge_partials``.
+    ``MESH_DECODE_STEPS`` steps of seeded tokens from ``MESH_START`` (a
+    position per lane) in bfloat16, the counts at 0 just before and read
+    just after.  Then the same steps on the same weights sharded in float32,
+    and unsharded in both dtypes, each on a fresh cache, held as the
+    consistency check holds the decode: in float32 within 2e-3 + 2e-3
+    |unsharded| of the unsharded logits (one sum's order apart in each
+    layer); in bfloat16 within ``CONSIST_NOISE`` times the unsharded bf16
+    logits' distance from the float32 ones (the partial's accumulator is
+    rounded to bfloat16 before it is normalised, one rounding the
+    unsharded kernel does not make, and 22 layers carry that apart).  One
+    step timed both ways (CUDA events, 20 calls)."""
+    cfg, a = eng.cfg, eng.cfg.attn
+    rules = rules_for(cfg, mesh, "decode", batch=SLOTS, flash_decode=True)
+    g = torch.Generator(device="cpu").manual_seed(SEED + 13)
+    toks = torch.randint(1, cfg.vocab, (MESH_DECODE_STEPS, SLOTS, 1), generator=g).to(device)
+    start = torch.tensor(MESH_START, dtype=torch.int32, device=device)
+
+    def run(params, c, sharded: bool):
+        with contextlib.ExitStack() as stack:
+            if sharded:
+                stack.enter_context(use_rules(rules, mesh))
+            cache = transformer.init_lm_cache(c, SLOTS, MAX_LEN, device=device)
+            out = [transformer.lm_decode_step(params, cache, toks[t], start + t, c)[0].float()
+                   for t in range(MESH_DECODE_STEPS)]
+        return torch.stack(out), cache
+
+    zero_counts()
+    t0 = time.perf_counter()
+    got16, sharded_cache = run(eng.params, cfg, True)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    n, partial = counts(), dict(dec.partial_by_shape)
+    calls = cfg.n_layers * MESH_DECODE_STEPS
+    expect("mesh decode", n, decode_attention=calls)
+    key = (SLOTS, a.n_heads, a.n_kv_heads, MAX_LEN, a.d_head, True, None)
+    if partial != {key: calls}:
+        fail(f"mesh decode: K4 partial launches {printable(partial)}, expected {calls} at {key}")
+    want16, plain_cache = run(eng.params, cfg, False)
+    cfg32 = cfg.scaled(dtype="float32")
+    params32 = as_float32(eng.params)
+    got32, _ = run(params32, cfg32, True)
+    want32, _ = run(params32, cfg32, False)
+    del params32
+    torch.cuda.empty_cache()
+    err32 = check_close("mesh decode float32: logits against the unsharded step", got32, want32,
+                        F32, tol=CONSIST_TOL32)
+    err16 = float((got16 - want16).abs().max())
+    noise = float((want16 - want32).abs().max())
+    if not err16 <= CONSIST_NOISE * noise:
+        fail(f"mesh decode bf16: logits {err16} from the unsharded step's, over {CONSIST_NOISE} x "
+             f"{noise}, the unsharded bf16 logits' distance from float32")
+    idx = start + MESH_DECODE_STEPS
+
+    def sharded_step():
+        with use_rules(rules, mesh):
+            transformer.lm_decode_step(eng.params, sharded_cache, toks[0], idx, cfg)
+
+    out = {"arch": cfg.name, "mesh": dict(zip(MESH_AXES, MESH_SHAPE)),
+           "rules": "rules_for(cfg, mesh, 'decode', flash_decode=True)",
+           "slots": SLOTS, "max_len": MAX_LEN, "start": list(MESH_START),
+           "steps": MESH_DECODE_STEPS, "seconds": secs, "launches": n,
+           "partial_launches_by_shape": printable(partial),
+           "max_abs_logit": float(want32.abs().max()),
+           "f32_vs_unsharded": err32, "f32_limit": f"{CONSIST_TOL32} + {CONSIST_TOL32}*|unsharded|",
+           "bf16_vs_unsharded": err16, "bf16_unsharded_vs_f32": noise,
+           "bf16_limit": CONSIST_NOISE * noise,
+           "sharded_step_ms": time_ms(sharded_step, 20),
+           "unsharded_step_ms": time_ms(lambda: transformer.lm_decode_step(
+               eng.params, plain_cache, toks[0], idx, cfg), 20)}
+    emit("mesh_decode", out)
+    return {"launches": n, "partial_shapes": partial}
+
+
+def first_moe_layer(params, cfg):
+    """The first MoE ffn's parameters of a served model (its first repeat)."""
+    for seg_p, seg in zip(params["segments"], cfg.segments):
+        for pos in range(len(seg.pattern)):
+            if seg.ffn_at(pos) == "moe":
+                return transformer._take(seg_p[pos]["ffn"], 0)
+    fail(f"{cfg.name} has no MoE layer")
+
+
+def phase_mesh_moe(eng, mesh, device) -> dict:
+    """qwen2-moe's first MoE layer at full width under ``moe_ep=True`` rules
+    on the one-rank mesh (``moe_forward_ep``: the rank's shard of the 60
+    experts, the FSDP gathers, the sum over ``model`` and the aux mean over
+    the dp axes, through NCCL) against ``moe_forward_local`` on the same
+    seeded bfloat16 tokens: the outputs within the bfloat16 tolerance (the
+    token sums are atomic on the card), the aux losses to 1e-6."""
+    cfg = eng.cfg
+    p = first_moe_layer(eng.params, cfg)
+    g = torch.Generator(device="cpu").manual_seed(SEED + 14)
+    x = seeded((SLOTS, MESH_MOE_TOKENS, cfg.d_model), BF16, device, g)
+    rules = rules_for(cfg, mesh, "train", batch=SLOTS, moe_ep=True)
+    y0, aux0 = mlp.moe_forward_local(p, x, cfg)
+
+    def ep():
+        with use_rules(rules, mesh):
+            return mlp.moe_forward(p, x, cfg)
+
+    y1, aux1 = ep()
+    err = check_close("mesh moe: moe_ep against moe_forward_local", y1, y0, BF16)
+    if not abs(float(aux1) - float(aux0)) <= 1e-6 * abs(float(aux0)):
+        fail(f"mesh moe: aux {float(aux1)} against the local {float(aux0)}")
+    out = {"arch": cfg.name, "mesh": dict(zip(MESH_AXES, MESH_SHAPE)),
+           "rules": "rules_for(cfg, mesh, 'train', moe_ep=True)",
+           "tokens": [SLOTS, MESH_MOE_TOKENS], "experts": cfg.moe.n_routed,
+           "max_abs_err": err, "tolerance": f"{ATTN_TOL[BF16]} + {ATTN_TOL[BF16]}*|local|",
+           "aux": float(aux1), "aux_local": float(aux0),
+           "ep_ms": time_ms(ep, 10), "local_ms": time_ms(lambda: mlp.moe_forward_local(p, x, cfg),
+                                                         10)}
+    emit("mesh_moe", out)
+    return out
+
+
+def serve_model(arch: str, device, mesh=None) -> dict:
+    """Serve, prefill, consistency and profile of one model, and for
+    tinyllama and qwen2-moe their paths on the one-rank ``mesh``; frees it
+    after.  Returns the launches of each phase, and those of serving and the
     prefill by shape."""
     eng, served, served_shapes = phase_serve(arch, device)
     prefilled, prefill_shapes = phase_prefill(eng, device)
     consistent = phase_consistency(eng, device)
     phase_profile(eng)
+    out = {"serve": served, "prefill": prefilled, "consistency": consistent,
+           "serve_shapes": served_shapes, "prefill_shapes": prefill_shapes}
+    if mesh is not None and arch == ARCH:
+        out["mesh_decode"] = phase_mesh_decode(eng, mesh, device)
+    if mesh is not None and arch == MOE:
+        phase_mesh_moe(eng, mesh, device)
     del eng
     torch.cuda.empty_cache()
-    return {"serve": served, "prefill": prefilled, "consistency": consistent,
-            "serve_shapes": served_shapes, "prefill_shapes": prefill_shapes}
+    return out
 
 
 # -- training ------------------------------------------------------------------------
@@ -2961,6 +3153,81 @@ def phase_train_example(device) -> dict:
     return {"launches": n, "shapes": shapes}
 
 
+def phase_mesh_train(mesh, device) -> dict:
+    """One int8-compressed gradient at the training phase's shape
+    (tinyllama-1.1b, full width and depth, 4 x 2048 tokens) over the
+    one-rank ``pod`` axis (``pod_grads_compressed``: the data mean, the int8
+    payload and its scale all-gathered over ``pod`` through NCCL, the
+    dequantised sum), the counts at 0 just before and read just after;
+    against the plain gradients of the same state and batch: the loss equal,
+    each leaf within max|g| / 254 (the rounding's half step, plus 2^-21
+    max|g| for float32's rounding of the quotient, the scale and the
+    product) of the gradients it compressed, and of the plain ones within
+    that plus their run-to-run difference (0 where the backward is
+    deterministic).  Then the int8 ``make_train_step`` and the plain one,
+    timed twice each, alternately."""
+    cfg = get_config(ARCH)
+    state = init_train_state(SEED, cfg, device=device)
+    params = state["params"]
+    batch = {k: torch.as_tensor(v, device=device) for k, v in make_batch(
+        cfg, ShapeCfg("train", TRAIN_S, TRAIN_B, "train"), step=0).items()}
+    grad_fn = make_grad_fn(cfg)
+    seen = {}
+
+    def recording(p, b):
+        seen["raw"] = grad_fn(p, b)
+        return seen["raw"]
+
+    zero_counts()
+    loss_c, _, g_c = compression.pod_grads_compressed(recording, params, batch, mesh)
+    torch.cuda.synchronize()
+    n = counts()
+    expect("mesh train", n, **train_launches(cfg))
+    loss_r, _, g_r = seen.pop("raw")
+    loss_p, _, g_p = grad_fn(params, batch)
+    if not float(loss_c) == float(loss_r) == float(loss_p):
+        fail(f"mesh train: loss {float(loss_c)} (int8) against {float(loss_p)} (plain)")
+    worst, worst_plain, noise = 0.0, 0.0, 0.0
+    for key, c, r, pl in zip(_tree.with_paths(g_c), _tree.leaves(g_c), _tree.leaves(g_r),
+                             _tree.leaves(g_p)):
+        top = float(r.float().abs().max())
+        limit = top * (1 / 254 + 2.0 ** -21)
+        run_diff = float((r.float() - pl.float()).abs().max())
+        err_raw = float((c - r.float()).abs().max())
+        err_plain = float((c - pl.float()).abs().max())
+        if not (err_raw <= limit and err_plain <= limit + run_diff):
+            fail(f"mesh train: gradient {key} off by {err_raw} (of what it compressed) and "
+                 f"{err_plain} (of the plain step's), limit {limit} + {run_diff}")
+        worst = max(worst, err_raw / limit if limit else 0.0)
+        worst_plain = max(worst_plain, err_plain / (limit + run_diff) if limit else 0.0)
+        noise = max(noise, run_diff / top if top else 0.0)
+    del g_c, g_r, g_p
+    torch.cuda.empty_cache()
+    steps = {"int8": make_train_step(cfg, OptCfg(**TRAIN_OPT), grad_compression="int8",
+                                     mesh=mesh, device=device),
+             "plain": make_train_step(cfg, OptCfg(**TRAIN_OPT), device=device)}
+    times, losses = {"int8": [], "plain": []}, {}
+    for which in ("plain", "int8", "plain", "int8"):
+        out = {}
+        times[which].append(wall_ms(lambda: out.update(r=steps[which](state, batch))))
+        losses[which] = float(out["r"][1]["loss"])
+        del out
+        torch.cuda.empty_cache()
+    if losses["int8"] != losses["plain"]:
+        fail(f"mesh train: the int8 step's loss {losses['int8']} against {losses['plain']}")
+    res = {"arch": cfg.name, "mesh": dict(zip(MESH_AXES, MESH_SHAPE)), "batch": TRAIN_B,
+           "seq": TRAIN_S, "launches": n, "loss": float(loss_c),
+           "worst_err_share_of_limit": worst, "worst_err_share_vs_plain": worst_plain,
+           "plain_run_to_run_max_rel": noise,
+           "limit": "max|g| / 254 + 2^-21 max|g| (float32 rounding of the quotient, "
+                    "the scale and the product), a leaf",
+           "int8_step_ms": times["int8"], "plain_step_ms": times["plain"]}
+    del state, params
+    torch.cuda.empty_cache()
+    emit("mesh_train", res)
+    return res
+
+
 def phase_serve_example(device) -> dict:
     """examples/serve_batched_torch.py as a user runs it on the card (no
     ``--device``): its smoke defaults, 10 requests over 4 slots, every
@@ -3047,6 +3314,10 @@ def main() -> None:
         phase_k1_without_staging(device)
     with timed("kernels K3-K6"):
         k3_rows, k4_rows = phase_kernels_k3(device), phase_kernels_k4(device)
+        a = get_config(ARCH).attn
+        k4_partial = [k4_partial_case("mesh decode", SLOTS, MAX_LEN, a.n_heads, a.n_kv_heads,
+                                      a.d_head, BF16, [s + 1 for s in MESH_START], device,
+                                      torch.Generator().manual_seed(SEED + 15))]
         k5_rows, k6_rows = phase_kernels_k5(device), phase_kernels_k6(device)
         k3_256, k4_256 = phase_kernels_d256(device)
         k3_moe, k4_moe = phase_kernels_moe(device)
@@ -3090,15 +3361,19 @@ def main() -> None:
                 fail(f"the main path never launched {row['large']['name']}")
     emit("s1_gap", s1_gap(s1_rows))
 
+    # the mesh: one rank, NCCL (its own process group where none exists)
+    with timed("mesh setup"):
+        mesh = make_mesh(MESH_SHAPE, MESH_AXES, device_type="cuda")
     # the serving paths, each phase with the counts at 0 just before it
+    # (tinyllama's and qwen2-moe's with their mesh paths)
     with timed(ARCH):
-        dense = serve_model(ARCH, device)
+        dense = serve_model(ARCH, device, mesh)
     with timed(MAMBA):
         mamba = serve_model(MAMBA, device)
     with timed(RGEMMA):
         rgemma = serve_model(RGEMMA, device)
     with timed(MOE):
-        moe = serve_model(MOE, device)
+        moe = serve_model(MOE, device, mesh)
     with timed(DEEPSEEK):
         deepseek = serve_model(DEEPSEEK, device)
     cross = {}
@@ -3118,6 +3393,9 @@ def main() -> None:
         mla_grads = phase_train_grads(device, DEEPSEEK, MLA_GRAD_B, MLA_GRAD_S)
         capped_grads = phase_train_grads(device, CAPPED, TRAIN_B, TRAIN_S)
         example = phase_train_example(device)
+    with timed("mesh train"):
+        phase_mesh_train(mesh, device)
+    torch.distributed.destroy_process_group()
     # every other arch at full width, each with the counts at 0 just before it
     with timed("train archs"):
         archs = phase_train_archs(device)
@@ -3145,6 +3423,11 @@ def main() -> None:
     # runs in float32 under both of its passes; RecurrentGemma's cut check in float32
     k3_rows[1]["launches"] = dense["consistency"]["bf16"]["flash_attention"]
     k4_rows[0]["launches"] = dense["serve"]["decode_attention"]
+    # the sharded decode's partials: all of its phase's K4 launches
+    k4_partial[0]["launches"] = dense["mesh_decode"]["partial_shapes"].get(
+        shape_key(k4_partial[0]), 0)
+    if k4_partial[0]["launches"] != dense["mesh_decode"]["launches"]["decode_attention"]:
+        fail(f"{k4_partial[0]['name']}: launches at its shape do not add up to its phase's")
     k4_rows[1]["launches"] = dense["consistency"]["bf16"]["decode_attention"]
     k5_rows[0]["launches"] = mamba["prefill"]["ssd_scan"]
     k5_rows[1]["launches"] = sum(n["ssd_scan"] for n in mamba["consistency"].values())
@@ -3198,7 +3481,7 @@ def main() -> None:
             fail(f"{row['name']}: {row['launches']} launches at its shape under the cap, of "
                  f"{total} in its phase")
     emit("softcap", softcap_launches(dense, capped, k3_rows, k4_rows, k3_cap, k4_cap))
-    rows += (k3_rows + k4_rows + k5_rows + k6_rows + k3_256 + k4_256 + k3_moe + k4_moe
+    rows += (k3_rows + k4_rows + k4_partial + k5_rows + k6_rows + k3_256 + k4_256 + k3_moe + k4_moe
              + k3_mla + s1_rows + [k3_train] + s2_rows + s3_rows + s4_rows
              + k3_cap + k4_cap + s2_cap)
     for row in rows:

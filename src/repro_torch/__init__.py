@@ -17,8 +17,10 @@ module, so a reader finds the counterpart of each file under the same name:
   data/           the synthetic, seekable token stream (a copy)
   checkpoint/     atomic checkpoints in the reference's on-disk layout
   ft/             the checkpoint-restart driver (the reference's file)
+  parallel/       the mesh over ``torch.distributed``: logical-axis sharding
+                  rules, the int8 cross-pod gradient all-reduce
   launch/         ``serve``: the continuous-batching ``Engine``; ``train``:
-                  the training driver
+                  the training driver; ``mesh``: the device meshes
   compat          carries a design, its stimulus and a model's parameters
                   over from the reference
 

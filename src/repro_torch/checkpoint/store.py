@@ -17,8 +17,11 @@ are atomic (write to ``.tmp-<step>`` then rename) so a failure mid-write
 never corrupts the latest checkpoint — the restart driver (``repro_torch.ft``)
 always restores a complete state.  ``AsyncCheckpointer`` copies the state to
 host memory synchronously and writes on a background thread, overlapping I/O
-with the next training steps.  Restoring onto a mesh (``shardings``) goes with
-the mesh (ROADMAP.md queue A, item 9).
+with the next training steps.
+
+Arrays are stored *unsharded*; ``restore`` with ``shardings`` re-shards onto
+whatever mesh the restored run uses: each rank reads its own slice of every
+leaf (elastic scaling — a checkpoint of one mesh restores onto any other).
 """
 
 from __future__ import annotations
@@ -34,6 +37,8 @@ import numpy as np
 import torch
 
 from .. import _tree
+from ..parallel.api import (Replicate, Shard, coordinate, current_mesh, mesh_axis_names,
+                            mesh_shape, spec_leaves)
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
@@ -103,10 +108,31 @@ def latest_step(directory: str | Path) -> Optional[int]:
     return int(name.split("_")[1])
 
 
-def restore(directory: str | Path, like, *, step: Optional[int] = None, device=None):
+def _local(x: torch.Tensor, placements, sizes: list, coord: list) -> torch.Tensor:
+    """This rank's slice of ``x`` under DTensor placements, one a mesh dim:
+    ``Shard(d)`` splits dim d among that mesh dim's ranks, the mesh dims
+    that split one tensor dim taken in mesh order (major to minor)."""
+    for j, pl in enumerate(placements):
+        if isinstance(pl, Shard):
+            d, n = pl.dim, sizes[j]
+            if x.shape[d] % n:
+                raise ValueError(f"restore: dim {d} of size {x.shape[d]} does not split over "
+                                 f"{n} ranks")
+            w = x.shape[d] // n
+            x = x.narrow(d, coord[j] * w, w)
+        elif not isinstance(pl, Replicate):
+            raise ValueError(f"restore: placement {pl!r} is neither Shard nor Replicate")
+    return x
+
+
+def restore(directory: str | Path, like, *, step: Optional[int] = None, device=None,
+            shardings=None, mesh=None):
     """Restore into the structure of ``like`` (a state tree): each leaf in
     the dtype of ``like``'s leaf, on ``device`` or else on the device of
-    ``like``'s leaf.  Returns (state, step)."""
+    ``like``'s leaf.  ``shardings``: optional matching tree of DTensor
+    placements (``parallel.api.named_sharding``) on ``mesh`` (default: the
+    current one); each leaf is then this rank's slice of the saved array
+    (elastic re-mesh).  Returns (state, step)."""
     directory = Path(directory)
     if step is None:
         step = latest_step(directory)
@@ -129,6 +155,14 @@ def restore(directory: str | Path, like, *, step: Optional[int] = None, device=N
     if missing or extra:
         raise ValueError(f"checkpoint/state mismatch: missing={sorted(missing)[:5]} "
                          f"extra={sorted(extra)[:5]}")
+    if shardings is not None:
+        mesh = mesh if mesh is not None else current_mesh()
+        sizes = list(mesh_shape(mesh).values())
+        coord = [coordinate(mesh)[a] for a in mesh_axis_names(mesh)]
+        flat_sh = spec_leaves(shardings)
+        if len(flat_sh) != len(flat_like):
+            raise ValueError(f"restore: {len(flat_sh)} shardings for {len(flat_like)} leaves")
+        arrays = {k: _local(arrays[k], pl, sizes, coord) for k, pl in zip(flat_like, flat_sh)}
     out = [arrays[k].to(device=device if device is not None else leaf.device, dtype=leaf.dtype)
            for k, leaf in flat_like.items()]
     return _tree.unflatten(like, out), step

@@ -72,6 +72,9 @@ launches = 0
 #: the same launches by the call's shape: (B, H, KvH, L, D, a length per
 #: lane, softcap), the cap None where there is none
 by_shape: collections.Counter = collections.Counter()
+#: the launches of ``partial_decode_attention`` alone (``normalize=False``,
+#: the sequence-sharded decode's partials), keyed as ``by_shape``
+partial_by_shape: collections.Counter = collections.Counter()
 
 #: the kernel each dtype runs
 KERNEL = {torch.float32: "decode_f32", torch.bfloat16: "decode_bf16_mma"}
@@ -209,6 +212,8 @@ def _call(q, k, v, length, scale, normalize, softcap):
     _build.check_launch(rc, KERNEL[q.dtype])
     launches += 1
     by_shape[(B, H, KvH, L, D, per_lane is not None, cap)] += 1
+    if not normalize:
+        partial_by_shape[(B, H, KvH, L, D, per_lane is not None, cap)] += 1
     out = out[..., :D]
     return out if normalize else (out, m, l)
 

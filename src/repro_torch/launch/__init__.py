@@ -1,2 +1,3 @@
 """Entry points: ``serve`` (continuous-batching ``Engine``) and ``train``
-(the training driver with checkpoints and restarts)."""
+(the training driver with checkpoints and restarts); ``mesh`` builds the
+device meshes they run on."""

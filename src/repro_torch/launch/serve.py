@@ -8,8 +8,11 @@ decode lanes; finished lanes are refilled from the queue (prefill writes the
 prompt's KV into that lane, decode steps advance all lanes together — the
 standard continuous-batching serving loop; recurrent archs refill in
 waves).  On the card every decode step runs the decode-attention kernel (K4)
-once per attention layer, with each lane's own cache length.  Without ``--device`` the engine runs on the CUDA device and
-raises where there is none."""
+once per attention layer, with each lane's own cache length.  Without
+``--device`` the engine runs on the CUDA device and raises where there is
+none.  ``main`` serves on one rank: the one-rank ``("data", "model")`` mesh
+of ``launch.mesh.host_device_mesh``, under the decode sharding rules
+(``parallel.rules.rules_for``)."""
 
 from __future__ import annotations
 
@@ -23,7 +26,10 @@ import torch
 
 from .._device import resolve_device
 from ..configs.registry import get_config, get_smoke_config, list_archs
+from ..launch.mesh import host_device_mesh
 from ..models import transformer
+from ..parallel.api import use_rules
+from ..parallel.rules import rules_for
 from ..train.steps import make_serve_step
 
 
@@ -173,11 +179,15 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    dev = resolve_device(args.device)
+    mesh = host_device_mesh(dev.type)
+    rules = rules_for(cfg, mesh, "decode", batch=args.slots)
     queue = make_requests(args.requests, args.prompt_len, args.max_new, cfg.vocab)
 
     t0 = time.time()
-    eng = Engine(cfg, args.slots, args.max_len, device=args.device)
-    completed, steps = serve_requests(eng, queue)
+    with use_rules(rules, mesh):
+        eng = Engine(cfg, args.slots, args.max_len, device=dev)
+        completed, steps = serve_requests(eng, queue)
     dt = time.time() - t0
     toks = sum(len(r.out) for r in completed)
     print(f"served {len(completed)} requests, {toks} tokens, "

@@ -9,8 +9,9 @@ kernel K3 and its backward S2) -> AdamW -> async checkpointing ->
 fault-tolerant restart driver (``--fail-at`` injects failures to drill the
 restart path).  ``--smoke`` selects the reduced config; omit it to train the
 full architecture (on the card).  Without ``--device`` it runs on the CUDA
-device and raises where there is none.  One device: the mesh and its
-sharding rules are not ported yet (ROADMAP.md queue A, item 9).
+device and raises where there is none.  It runs on one rank: the
+one-rank ``("data", "model")`` mesh of ``launch.mesh.host_device_mesh``,
+under the training sharding rules (``parallel.rules.rules_for``).
 ``--ckpt-dir`` defaults to a fresh directory under the checkout's ``build/``,
 removed at the end; a directory given keeps its checkpoints, and a later run
 on it resumes from the newest.
@@ -33,7 +34,10 @@ from ..configs.base import ModelCfg, ShapeCfg
 from ..configs.registry import get_config, get_smoke_config, list_archs
 from ..data.pipeline import make_batch
 from ..ft.runtime import RunReport, StepMonitor, inject_failures, run_with_restarts
+from ..launch.mesh import host_device_mesh
 from ..optim.adamw import OptCfg
+from ..parallel.api import use_rules
+from ..parallel.rules import rules_for
 from ..train.steps import init_train_state, make_train_step
 
 #: where a run without ``--ckpt-dir`` keeps its checkpoints while it runs
@@ -124,6 +128,8 @@ def main(argv=None):
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     dev = resolve_device(args.device)
+    mesh = host_device_mesh(dev.type)
+    rules = rules_for(cfg, mesh, "train", batch=args.batch // args.microbatches)
     opt = OptCfg(lr=args.lr, warmup_steps=max(2, args.steps // 20),
                  decay_steps=args.steps)
 
@@ -145,10 +151,11 @@ def main(argv=None):
         SCRATCH.mkdir(parents=True, exist_ok=True)
         ckpt_dir = scratch = tempfile.mkdtemp(prefix="train-", dir=SCRATCH)
     try:
-        run = train(cfg, opt, steps=args.steps, batch=args.batch, seq=args.seq,
-                    microbatches=args.microbatches, ckpt_dir=ckpt_dir,
-                    ckpt_every=args.ckpt_every, fail_at=args.fail_at, device=dev,
-                    monitor=monitor, on_step=on_step)
+        with use_rules(rules, mesh):
+            run = train(cfg, opt, steps=args.steps, batch=args.batch, seq=args.seq,
+                        microbatches=args.microbatches, ckpt_dir=ckpt_dir,
+                        ckpt_every=args.ckpt_every, fail_at=args.fail_at, device=dev,
+                        monitor=monitor, on_step=on_step)
     finally:
         if scratch is not None:
             shutil.rmtree(scratch, ignore_errors=True)

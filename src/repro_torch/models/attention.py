@@ -11,9 +11,10 @@ and ``attn_decode_step``'s and ``cross_attn_decode``'s softmax is
 ``ops.decode`` (K4; against the whole memory, ``length = Tm``, in cross
 decode).  ``cfg.attn.logit_softcap`` caps the scaled scores inside those
 kernels (``softcap``), as the reference caps them in its plain attention
-and decode.  What the port does not cover yet — the sequence-sharded decode —
-raises ``NotImplementedError``; nothing falls back to a plain path on the
-card.
+and decode.  Under sharding rules with ``_flash_decode`` on a mesh with a
+``model`` axis, a full cache is sequence-sharded over ``model`` and the
+decode is ``_sharded_flash_decode``: K4's partials (``ops.decode_partial``)
+merged across the ranks.  Nothing falls back to a plain path on the card.
 """
 
 from __future__ import annotations
@@ -25,13 +26,11 @@ import torch
 from .._device import resolve_device
 from ..configs.base import ModelCfg
 from ..kernels import ops
+from ..parallel.api import (all_gather, axis_index, current_mesh, current_rules,
+                            mesh_axis_names, mesh_shape)
 from .common import apply_rope, dense, dtype_of, ninit, softcap as softcap_scores
 
 NEG_INF = -1e30
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md queue A, item {item})")
 
 
 # ---------------------------------------------------------------------------
@@ -53,6 +52,21 @@ def init_attn(gen: torch.Generator, cfg: ModelCfg, cross: bool = False):
     if a.qkv_bias:
         for name, heads in (("bq", a.n_heads), ("bk", a.n_kv_heads), ("bv", a.n_kv_heads)):
             p[name] = torch.zeros((heads, a.d_head), dtype=torch.bfloat16, device=gen.device)
+    return p
+
+
+def specs_attn(cfg: ModelCfg, cross: bool = False):
+    a = cfg.attn
+    p = {
+        "wq": ("embed_tp", "heads", None),
+        "wk": ("embed_tp", "kv_heads", None),
+        "wv": ("embed_tp", "kv_heads", None),
+        "wo": ("heads", None, "embed_tp"),
+    }
+    if a.qkv_bias:
+        p["bq"] = ("heads", None)
+        p["bk"] = ("kv_heads", None)
+        p["bv"] = ("kv_heads", None)
     return p
 
 
@@ -181,23 +195,78 @@ def cross_attn_kv(p, memory, cfg: ModelCfg):
 # ---------------------------------------------------------------------------
 
 
+def _decode_shards(window) -> int:
+    """Ranks over which a decode cache's length is sharded: the ``model``
+    axis's size under ``_flash_decode`` rules on a mesh with that axis, for
+    a full (unwindowed) cache; else 0 (the cache is whole)."""
+    rules, mesh = current_rules(), current_mesh()
+    if (rules is None or mesh is None or not rules.rules.get("_flash_decode") or window
+            or "model" not in mesh_axis_names(mesh)):
+        return 0
+    return mesh_shape(mesh)["model"]
+
+
 def init_attn_cache(batch: int, seq_len: int, cfg: ModelCfg, window: Optional[int] = None,
                     device=None):
     """Zeroed K/V caches of ``L = min(window, seq_len)`` slots under a window
     (a ring buffer), else ``seq_len``, on ``device`` (``None``: the CUDA
-    device; raises where there is none)."""
+    device; raises where there is none).  Under ``_flash_decode`` rules a
+    full cache is this rank's ``seq_len / n_model`` slots of the length
+    (``kv_seq`` over ``model``); a length ``n_model`` does not divide raises
+    ``ValueError``, where the reference would decode it unsharded: the
+    decode step, given a rank's slots, could not tell the two apart."""
     device = resolve_device(device)
     a = cfg.attn
     L = min(window, seq_len) if window else seq_len
+    n = _decode_shards(window)
+    if n:
+        if L % n or L < n:
+            raise ValueError(f"init_attn_cache: a sequence-sharded cache of {L} positions "
+                             f"does not split over {n} ranks of the model axis")
+        L //= n
     shape = (batch, L, a.n_kv_heads, a.d_head)
     dt = dtype_of(cfg.dtype)
     return {"k": torch.zeros(shape, dtype=dt, device=device),
             "v": torch.zeros(shape, dtype=dt, device=device)}
 
 
+def specs_attn_cache(window: Optional[int] = None):
+    # full caches shard the sequence dim over the model axis (flash-decode
+    # with partial-softmax reduction); windowed caches are small — replicate
+    # the window dim and keep batch sharded.
+    seq_ax = None if window else "kv_seq"
+    return {"k": ("batch", seq_ax, "kv_heads_decode", None),
+            "v": ("batch", seq_ax, "kv_heads_decode", None)}
+
+
 def _sharded_flash_decode(q, k, v, idx, cfg: ModelCfg, mesh):
-    """The sequence-sharded flash-decode over a device mesh."""
-    raise _not_ported("the sequence-sharded decode (_sharded_flash_decode)", "9")
+    """Sequence-sharded flash-decode (the distributed realisation of
+    ``kernels.decode_attention``): the cache stays sharded over ``model`` on
+    its length dim; each rank computes a partial online-softmax and the
+    ranks merge with one tiny all-gather of (acc, m, l), packed in float32 —
+    O(B·H·D) on the wire instead of O(B·L·KvH·D) for gathering the cache.
+
+    q: (B, 1, H, Dh) post-RoPE; k/v: this rank's (B, L/n_model, KvH, Dh),
+    positions ``lo = i · L/n_model`` on for rank i of ``model``; idx: (B,).
+    The partial is K4 with ``normalize=False`` (``ops.decode_partial``) at a
+    local length ``clamp(idx + 1 - lo, 0, L/n_model)`` per lane.  A rank
+    whose every slot lies past a lane's index has length 0 there: K4 (and
+    its plain version) mask every score at -1e30, so m = -1e30 and l the
+    slot count, finite, and ``merge_partials`` weighs that partial by
+    exp(-1e30 - m) = 0 against the rank that holds position 0 — the
+    reference's masked shard, which never forms -inf - (-inf)."""
+    a = cfg.attn
+    B, _, H, Dh = q.shape
+    Ll = k.shape[1]
+    lo = axis_index("model", mesh) * Ll
+    length = torch.clamp(idx + 1 - lo, 0, Ll).to(torch.int32)
+    acc, m, l = ops.decode_partial(q[:, 0], k, v, length, softcap=a.logit_softcap)
+    # one all-gather of the three, packed in float32 (m and l are float32;
+    # merge_partials sums in float32 whatever the accumulator's dtype)
+    packed = torch.cat([acc.float(), m[..., None], l[..., None]], dim=-1)   # (B, H, Dh + 2)
+    parts = all_gather(packed, "model", mesh=mesh)                        # (S, B, H, Dh + 2)
+    o = ops.merge_partials(parts[..., :Dh], parts[..., Dh], parts[..., Dh + 1])
+    return o.to(q.dtype).reshape(B, 1, H, Dh)
 
 
 def attn_decode_step(p, x1, cache, index, cfg: ModelCfg, *, window=None):
@@ -217,7 +286,11 @@ def attn_decode_step(p, x1, cache, index, cfg: ModelCfg, *, window=None):
     from position 0, so before the ring wraps the valid slots are
     ``0..index``, and after it all L are; RoPE is applied before the cache and
     attention does not depend on the order of its keys.  The scores take the
-    config's logit cap, as the reference's do."""
+    config's logit cap, as the reference's do.
+
+    Under ``_flash_decode`` rules on a mesh with a ``model`` axis, without a
+    window, the cache is this rank's slots of a sequence-sharded one
+    (``init_attn_cache``) and the step is ``_sharded_flash_decode``."""
     a = cfg.attn
     B = x1.shape[0]
     idx = torch.broadcast_to(torch.as_tensor(index, dtype=torch.int32, device=x1.device), (B,))
@@ -228,6 +301,18 @@ def attn_decode_step(p, x1, cache, index, cfg: ModelCfg, *, window=None):
     k, v = cache["k"], cache["v"]
     L = k.shape[1]
     lane = torch.arange(B, device=x1.device)
+    if _decode_shards(window):
+        # this rank's L slots of the sequence-sharded cache: the rank that
+        # holds position idx writes it at idx - lo; the others write back
+        # what they hold (no host sync to pick the lanes)
+        mesh = current_mesh()
+        lo = axis_index("model", mesh) * L
+        own = (idx >= lo) & (idx < lo + L)
+        slot = torch.clamp(idx - lo, 0, L - 1).long()
+        for c, new in ((k, k1), (v, v1)):
+            c[lane, slot] = torch.where(own[:, None, None], new[:, 0].to(c.dtype), c[lane, slot])
+        o = _sharded_flash_decode(q, k, v, idx, cfg, mesh).to(x1.dtype)
+        return dense(o, p["wo"], 2), {"k": k, "v": v}
     slot = torch.remainder(idx, L).long() if window else idx.long()
     k[lane, slot] = k1[:, 0].to(k.dtype)
     v[lane, slot] = v1[:, 0].to(v.dtype)

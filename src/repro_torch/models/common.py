@@ -59,6 +59,10 @@ def init_norm(d: int, device=None):
     return {"scale": torch.ones((d,), dtype=torch.float32, device=device)}
 
 
+def specs_norm():
+    return {"scale": (None,)}
+
+
 # -- rope ---------------------------------------------------------------------
 
 

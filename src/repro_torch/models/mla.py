@@ -50,6 +50,25 @@ def init_mla(gen: torch.Generator, cfg: ModelCfg):
     return p
 
 
+def specs_mla(cfg: ModelCfg):
+    a = cfg.attn
+    p = {
+        "w_dkv": ("embed_tp", None),
+        "w_kpe": ("embed_tp", None),
+        "w_uk": (None, "heads", None),
+        "w_uv": (None, "heads", None),
+        "wo": ("heads", None, "embed_tp"),
+        "kv_norm": (None,),
+    }
+    if a.q_lora_rank:
+        p["w_dq"] = ("embed_tp", None)
+        p["w_uq"] = (None, "heads", None)
+        p["q_norm"] = (None,)
+    else:
+        p["wq"] = ("embed_tp", "heads", None)
+    return p
+
+
 def _rms(x, w, eps=1e-6):
     """MLA's own norm: eps 1e-6, the weight as it is (no plus one), cast back."""
     xf = x.float()
@@ -168,6 +187,10 @@ def init_mla_cache(batch: int, seq_len: int, cfg: ModelCfg, device=None):
         "c_kv": torch.zeros((batch, seq_len, a.kv_lora_rank), dtype=dt, device=device),
         "k_pe": torch.zeros((batch, seq_len, a.rope_head_dim), dtype=dt, device=device),
     }
+
+
+def specs_mla_cache():
+    return {"c_kv": ("batch", "kv_seq", None), "k_pe": ("batch", "kv_seq", None)}
 
 
 def mla_decode_step(p, x1, cache, index, cfg: ModelCfg):

@@ -60,6 +60,16 @@ def init_rglru(gen: torch.Generator, cfg: ModelCfg):
     }
 
 
+def specs_rglru(cfg: ModelCfg):
+    return {
+        "w_x": ("embed_tp", "ff"), "w_y": ("embed_tp", "ff"),
+        "conv_w": (None, "ff"), "conv_b": ("ff",),
+        "w_a": ("ff", "ff2"), "w_i": ("ff", "ff2"),
+        "lam": ("ff",),
+        "w_o": ("ff", "embed_tp"),
+    }
+
+
 def _causal_conv(u: torch.Tensor, w: torch.Tensor, b: torch.Tensor, state=None):
     """Depthwise causal conv; u (B,S,C), w (W,C).  ``state`` (B,W-1,C): the
     previous inputs, for decode.  The taps are summed in u's dtype, in the
@@ -111,6 +121,10 @@ def init_rglru_cache(batch: int, cfg: ModelCfg, device=None):
     w = cfg.rglru.conv_width
     return {"h": torch.zeros((batch, dr), dtype=torch.float32, device=device),
             "conv": torch.zeros((batch, w - 1, dr), dtype=dtype_of(cfg.dtype), device=device)}
+
+
+def specs_rglru_cache():
+    return {"h": ("batch", "ff"), "conv": ("batch", None, "ff")}
 
 
 def rglru_decode_step(p, x1: torch.Tensor, cache, cfg: ModelCfg):

@@ -50,6 +50,16 @@ def init_ssd(gen: torch.Generator, cfg: ModelCfg):
     }
 
 
+def specs_ssd(cfg: ModelCfg):
+    return {
+        "w_in": ("embed_tp", "ff"),
+        "conv_w": (None, "ff"), "conv_b": ("ff",),
+        "A_log": ("heads",), "D": ("heads",), "dt_bias": ("heads",),
+        "norm_w": ("ff",),
+        "w_out": ("ff", "embed_tp"),
+    }
+
+
 def _split(p, x, cfg: ModelCfg):
     d_inner, H, P, N = dims(cfg)
     proj = dense(x, p["w_in"])
@@ -151,6 +161,10 @@ def init_ssd_cache(batch: int, cfg: ModelCfg, device=None):
     conv_ch = d_inner + 2 * N
     return {"h": torch.zeros((batch, H, N, P), dtype=torch.float32, device=device),
             "conv": torch.zeros((batch, w - 1, conv_ch), dtype=dtype_of(cfg.dtype), device=device)}
+
+
+def specs_ssd_cache():
+    return {"h": ("batch", "heads", None, None), "conv": ("batch", None, "ff")}
 
 
 def ssd_decode_step(p, x1, cache, cfg: ModelCfg):

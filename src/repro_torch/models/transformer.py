@@ -36,7 +36,7 @@ import torch.utils.checkpoint
 from .._device import resolve_device
 from ..configs.base import ModelCfg, Segment
 from . import attention, mla, mlp, rglru, ssd
-from .common import dense, dtype_of, init_norm, ninit, rms_norm, softcap
+from .common import dense, dtype_of, init_norm, ninit, rms_norm, softcap, specs_norm
 
 MIXER_KINDS = ("attn", "local_attn", "enc_attn", "cross_attn", "mla", "rglru", "ssd")
 FFN_KINDS = ("mlp", "moe", "none")
@@ -109,6 +109,35 @@ def init_block(gen: torch.Generator, kind: str, ffn: str, cfg: ModelCfg):
     return p
 
 
+def _specs_mixer(kind: str, cfg: ModelCfg):
+    if kind in ("attn", "local_attn", "enc_attn"):
+        return attention.specs_attn(cfg)
+    if kind == "cross_attn":
+        p = attention.specs_attn(cfg, cross=True)
+        p["gate_attn"] = ()
+        p["gate_ffn"] = ()
+        return p
+    if kind == "mla":
+        return mla.specs_mla(cfg)
+    if kind == "rglru":
+        return rglru.specs_rglru(cfg)
+    if kind == "ssd":
+        return ssd.specs_ssd(cfg)
+    raise ValueError(kind)
+
+
+def specs_block(kind: str, ffn: str, cfg: ModelCfg):
+    """The logical axes of each of the block's parameters (one per dim)."""
+    p: dict[str, Any] = {"ln1": specs_norm(), "mixer": _specs_mixer(kind, cfg)}
+    if ffn == "mlp":
+        p["ln2"] = specs_norm()
+        p["ffn"] = mlp.specs_mlp()
+    elif ffn == "moe":
+        p["ln2"] = specs_norm()
+        p["ffn"] = mlp.specs_moe(cfg)
+    return p
+
+
 def _gate(p, kind: str, name: str, y):
     """A cross block scales its attention and its ffn by tanh of its gates."""
     if kind != "cross_attn":
@@ -174,6 +203,23 @@ def init_block_cache(kind: str, batch: int, seq_len: int, cfg: ModelCfg, device=
     return ssd.init_ssd_cache(batch, cfg, device=device)
 
 
+def specs_block_cache(kind: str, cfg: ModelCfg):
+    if kind in ("attn", "enc_attn"):
+        return attention.specs_attn_cache()
+    if kind == "local_attn":
+        return attention.specs_attn_cache(window=cfg.attn.window)
+    if kind == "cross_attn":
+        return {"k": ("batch", None, "kv_heads_decode", None),
+                "v": ("batch", None, "kv_heads_decode", None)}
+    if kind == "mla":
+        return mla.specs_mla_cache()
+    if kind == "rglru":
+        return rglru.specs_rglru_cache()
+    if kind == "ssd":
+        return ssd.specs_ssd_cache()
+    raise ValueError(kind)
+
+
 def block_decode_step(p, x1, cache, index, kind: str, ffn: str, cfg: ModelCfg):
     _check_kind(kind, ffn)
     h = rms_norm(x1, p["ln1"]["scale"], cfg.norm_eps, plus_one=cfg.norm == "rmsnorm_p1")
@@ -202,6 +248,18 @@ def init_segment(gen: torch.Generator, seg: Segment, cfg: ModelCfg):
     """Params for one segment: per pattern-position, a tree whose leaves
     have a leading ``repeats`` dim."""
     return [_stack([init_block(gen, kind, seg.ffn_at(pos), cfg) for _ in range(seg.repeats)])
+            for pos, kind in enumerate(seg.pattern)]
+
+
+def _with_layers(specs):
+    """Every spec of the tree with the stacked ``layers`` axis in front."""
+    if isinstance(specs, dict):
+        return {k: _with_layers(v) for k, v in specs.items()}
+    return ("layers",) + specs
+
+
+def specs_segment(seg: Segment, cfg: ModelCfg):
+    return [_with_layers(specs_block(kind, seg.ffn_at(pos), cfg))
             for pos, kind in enumerate(seg.pattern)]
 
 
@@ -244,6 +302,10 @@ def init_segment_cache(seg: Segment, batch: int, seq_len: int, cfg: ModelCfg, de
     return out
 
 
+def specs_segment_cache(seg: Segment, cfg: ModelCfg):
+    return [_with_layers(specs_block_cache(kind, cfg)) for kind in seg.pattern]
+
+
 def segment_decode_step(params, x1, caches, index, seg: Segment, cfg: ModelCfg):
     for r in range(seg.repeats):
         for pos, kind in enumerate(seg.pattern):
@@ -278,6 +340,27 @@ def init_lm(seed: int, cfg: ModelCfg, *, device=None):
                         "ln_f": init_norm(cfg.d_model, dev)}
     if cfg.frontend is not None and cfg.frontend_dim != cfg.d_model:
         p["frontend_proj"] = ninit(gen, (cfg.frontend_dim, cfg.d_model), dtype=dt)
+    return p
+
+
+def specs_lm(cfg: ModelCfg):
+    """The logical axes of every parameter of ``init_lm``'s tree."""
+    p: dict[str, Any] = {
+        # the embed table's d dim uses its own logical axis, so the rules can
+        # relax its FSDP split independently (see parallel.rules embed_fsdp)
+        "embed": ("vocab", "embed_gather"),
+        "ln_f": specs_norm(),
+        "segments": [specs_segment(s, cfg) for s in cfg.segments],
+    }
+    if not cfg.tie_embeddings:
+        p["lm_head"] = ("embed_tp", "vocab")
+    if cfg.encoder_segments:
+        p["encoder"] = {
+            "segments": [specs_segment(s, cfg) for s in cfg.encoder_segments],
+            "ln_f": specs_norm(),
+        }
+    if cfg.frontend is not None and cfg.frontend_dim != cfg.d_model:
+        p["frontend_proj"] = ("embed_tp", None)
     return p
 
 
@@ -349,6 +432,10 @@ def init_lm_cache(cfg: ModelCfg, batch: int, seq_len: int, *, device=None):
     _check_cfg(cfg)
     return {"segments": [init_segment_cache(s, batch, seq_len, cfg, dev)
                          for s in cfg.segments]}
+
+
+def specs_lm_cache(cfg: ModelCfg):
+    return {"segments": [specs_segment_cache(s, cfg) for s in cfg.segments]}
 
 
 def lm_prefill_memory(p, batch, cfg: ModelCfg):

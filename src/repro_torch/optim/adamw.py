@@ -6,8 +6,9 @@ The state mirrors the parameter tree: m and v in float32, and a step count
 applies to leaves of two dims or more, as the reference decides it: on the
 stacked leaves, so a norm scale stacked to (repeats, d) is decayed too (the
 reference does the same; this is parity, not a choice).  These are plain torch
-ops: the reference has no kernel here.  The ZeRO-1 sharding of the state
-(``opt_state_specs``) goes with the mesh (ROADMAP.md queue A, item 9).
+ops: the reference has no kernel here.  ``opt_state_specs`` gives the
+state's logical axes: the parameters', so that under the production rules the
+state inherits their FSDP split over ``data`` (ZeRO-1).
 """
 
 from __future__ import annotations
@@ -49,6 +50,11 @@ def init_opt_state(params) -> dict[str, Any]:
     device = _tree.leaves(params)[0].device
     return {"m": _tree.map(zeros, params), "v": _tree.map(zeros, params),
             "step": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def opt_state_specs(param_specs) -> dict[str, Any]:
+    """Optimizer-state logical specs = parameter specs (ZeRO-1 via FSDP axes)."""
+    return {"m": param_specs, "v": param_specs, "step": ()}
 
 
 def global_norm(tree) -> torch.Tensor:

@@ -1,16 +1,15 @@
 """Train, prefill and decode step functions.
 
   * ``make_train_step``  — fwd+bwd, microbatch gradient accumulation,
-    global-norm clip, AdamW.
+    global-norm clip, AdamW; optional int8-compressed cross-pod gradient
+    all-reduce (``parallel.compression``).
   * ``make_prefill_step`` — forward logits at full sequence length.
   * ``make_serve_step``  — one decode step (new token) against the KV cache.
 
 The factories take ``device=`` (``None``: the CUDA device; raises where
 there is none) and return a function that moves its batch there.  Gradients
 come from ``torch.autograd.grad``; on the card the attention's go through the
-flash-attention kernel's backward (S2).  The int8-compressed cross-pod
-all-reduce and the pinning of gradients to the parameters' sharding go with
-the mesh (ROADMAP.md queue A, item 9).
+flash-attention kernel's backward (S2).
 """
 
 from __future__ import annotations
@@ -24,6 +23,8 @@ from .._device import resolve_device
 from ..configs.base import ModelCfg
 from ..models import transformer
 from ..optim.adamw import OptCfg, adamw_update, init_opt_state
+from ..parallel.api import DTensor, current_rules, mesh_axis_names, placements, spec_leaves
+from ..parallel.compression import pod_grads_compressed
 
 
 # ---------------------------------------------------------------------------
@@ -66,6 +67,23 @@ def init_train_state(seed: int, cfg: ModelCfg, *, device=None):
     (``None``: the CUDA device) and a fresh AdamW state."""
     params = transformer.init_lm(seed, cfg, device=device)
     return {"params": params, "opt": init_opt_state(params)}
+
+
+def constrain_like_params(grads, cfg: ModelCfg):
+    """Pin the gradient tree to the parameter sharding: each ``DTensor``
+    leaf is redistributed to its parameter's placements.  A plain tensor is
+    one rank's local data, as the parameters are, and stays as it is;
+    outside a rules context, or where the trees differ, nothing changes."""
+    rules = current_rules()
+    if rules is None:
+        return grads
+    flat_s = spec_leaves(transformer.specs_lm(cfg))
+    flat_g = _tree.leaves(grads)
+    if len(flat_s) != len(flat_g):
+        return grads
+    out = [g.redistribute(g.device_mesh, placements(rules.resolve(s), g.device_mesh))
+           if isinstance(g, DTensor) else g for g, s in zip(flat_g, flat_s)]
+    return _tree.unflatten(grads, out)
 
 
 def make_grad_fn(cfg: ModelCfg, num_microbatches: int = 1):
@@ -125,19 +143,25 @@ def make_train_step(
     ``{"params", "opt"}`` and is not updated in place.  ``batch`` holds
     numpy arrays or tensors; they are moved to ``device``.  As in the
     reference, ``grad_compression="int8"`` compresses only across a mesh's
-    ``pod`` axis; without one the step is the plain one."""
-    if grad_compression == "int8" and mesh is not None and "pod" in mesh.axis_names:
-        raise NotImplementedError("int8 gradient compression across the pod axis is not "
-                                  "ported yet (ROADMAP.md queue A, item 9)")
+    ``pod`` axis; without one the step is the plain one.  With one, every
+    rank is given the whole batch and the same state, takes its
+    ``("pod", "data")`` slice of the batch and ends with the same new state
+    (``parallel.compression.pod_grads_compressed``).  ``constrain_grads``
+    pins the gradients to the parameters' sharding (``constrain_like_params``)."""
     dev = resolve_device(device)
     grad_fn = make_grad_fn(cfg, num_microbatches)
+    compressed = (grad_compression == "int8" and mesh is not None
+                  and "pod" in mesh_axis_names(mesh))
 
     def train_step(state, batch):
         batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
         params = state["params"]
-        loss, metrics, grads = grad_fn(params, batch)
-        # constrain_grads pins the gradients to the parameters' sharding under
-        # a mesh (item 9); on one device it is the identity
+        if compressed:
+            loss, metrics, grads = pod_grads_compressed(grad_fn, params, batch, mesh)
+        else:
+            loss, metrics, grads = grad_fn(params, batch)
+        if constrain_grads:
+            grads = constrain_like_params(grads, cfg)
         new_params, new_opt, opt_metrics = adamw_update(grads, state["opt"], params, opt_cfg)
         metrics = dict(metrics, loss=loss, **opt_metrics)
         return {"params": new_params, "opt": new_opt}, metrics

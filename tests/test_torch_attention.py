@@ -29,7 +29,10 @@ from repro_torch.configs.registry import get_smoke_config
 from repro_torch.kernels import decode_attention as dec
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import attention
+from repro_torch.parallel.api import use_rules
+from repro_torch.parallel.rules import rules_for
 
 from test_torch_gpu import DECODE_CASES, DTYPES, FLASH_CASES, attention_operands, normal, tol
 
@@ -223,7 +226,8 @@ def test_decode_attention_contract_errors():
 
 
 def test_model_attention_raises_for_what_the_dense_slice_leaves_out():
-    """No silent plain path for the sequence-sharded decode.  Windows are
+    """The sequence-sharded decode runs, and on one rank equals the plain
+    decode.  Windows are
     ported (a windowed cache is a ring of ``min(window, seq_len)`` slots), and
     so is cross-attention (tests/test_torch_cross.py): its parameters are the
     self-attention's, and a memory of another length gives the query's shape
@@ -253,7 +257,20 @@ def test_model_attention_raises_for_what_the_dense_slice_leaves_out():
         want = ref_attention.attn_forward(jp, jnp.asarray(xs.numpy()), ref_capped, kv=jkv)
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
         assert float((got - attention.attn_forward(sharp, xs, cfg, kv=kv)).abs().max()) > 1e-4
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        attention._sharded_flash_decode(None, None, None, None, cfg, None)
+    # the sequence-sharded decode runs: on a one-rank mesh it is the plain
+    # decode (eight ranks: tests/test_torch_distributed.py)
+    made = not torch.distributed.is_initialized()
+    try:
+        mesh = make_mesh((1, 1, 1), ("pod", "data", "model"), device_type="cpu")
+        x1, idx = xs[:, :1].expand(2, 1, cfg.d_model), torch.tensor([3, 0])
+        want, _ = attention.attn_decode_step(p, x1, attention.init_attn_cache(
+            2, 8, cfg, device="cpu"), idx, cfg)
+        with use_rules(rules_for(cfg, mesh, "decode", flash_decode=True), mesh):
+            got, _ = attention.attn_decode_step(p, x1, attention.init_attn_cache(
+                2, 8, cfg, device="cpu"), idx, cfg)
+        torch.testing.assert_close(got, want)
+    finally:
+        if made and torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
     cross = attention.init_attn(gen, cfg, cross=True)
     assert {k: v.shape for k, v in cross.items()} == {k: v.shape for k, v in p.items()}

@@ -1,6 +1,7 @@
 """The port's checkpoints and fault-tolerance runtime on the CPU: the twins of
-``tests/train/test_checkpoint_ft.py`` (all but the elastic re-mesh, which goes
-with the mesh: ROADMAP.md queue A, item 9), and checkpoints crossing between
+``tests/train/test_checkpoint_ft.py`` (all but the elastic re-mesh, whose
+twin restores onto 8 ranks in ``tests/test_torch_distributed.py``), and
+checkpoints crossing between
 the two packages bit for bit in both directions, a bfloat16 leaf included.
 """
 

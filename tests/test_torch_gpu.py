@@ -2108,3 +2108,67 @@ def test_capped_smoke_train_step_on_card_equals_the_cpu():
     train_step_card_vs_cpu(cfg, state, dev)
     capped = {key: n - before.get(key, 0) for key, n in fa.by_shape.items() if key[-1] == SOFTCAP}
     assert sum(capped.values()) >= 2 * cfg.n_layers      # the gradient's and the step's
+
+
+@pytest.mark.gpu
+def test_one_rank_nccl_mesh_paths_on_card():
+    """The mesh's explicit paths on a one-rank NCCL mesh ``("pod", "data",
+    "model") = (1, 1, 1)`` (NCCL takes one rank a card; the multi-rank cases
+    run over gloo on the CPU): the smoke tinyllama's decode under
+    ``_flash_decode`` rules goes through K4's partials (one a layer and a
+    step, ``partial_by_shape``) and equals the unsharded decode to 2e-5 in
+    float32; qwen2-moe's MoE under ``_moe_ep`` equals the local dispatch;
+    the int8 train step is AdamW on the gradients through the int8 round
+    trip, with the plain step's loss."""
+    import torch.distributed as dist
+
+    from repro_torch import _tree
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim.adamw import OptCfg, adamw_update
+    from repro_torch.parallel import compression
+    from repro_torch.parallel.api import use_rules
+    from repro_torch.parallel.rules import rules_for
+    from repro_torch.train.steps import init_train_state, make_grad_fn, make_train_step
+    dev = _cuda_or_skip()
+    made = not dist.is_initialized()
+    try:
+        mesh = make_mesh((1, 1, 1), ("pod", "data", "model"), device_type="cuda")
+        cfg = get_smoke_config("tinyllama-1.1b")
+        params = transformer.init_lm(0, cfg, device=dev)
+        B, L, steps = 4, 64, 12
+        g = torch.Generator().manual_seed(3)
+        toks = torch.randint(1, cfg.vocab, (steps, B, 1), generator=g)
+        plain = transformer.init_lm_cache(cfg, B, L, device=dev)
+        rules = rules_for(cfg, mesh, "decode", batch=B, flash_decode=True)
+        with use_rules(rules, mesh):
+            sharded = transformer.init_lm_cache(cfg, B, L, device=dev)
+        for t in range(steps):
+            idx = torch.tensor([t, 2 * t, 0, t + 5], dtype=torch.int32, device=dev)
+            want, _ = transformer.lm_decode_step(params, plain, toks[t], idx, cfg)
+            before = sum(dec.partial_by_shape.values())
+            with use_rules(rules, mesh):
+                got, _ = transformer.lm_decode_step(params, sharded, toks[t], idx, cfg)
+            assert sum(dec.partial_by_shape.values()) - before == cfg.n_layers
+            assert float((got - want).abs().max()) <= 2e-5 + 2e-5 * float(want.abs().max())
+        mcfg = get_smoke_config("qwen2-moe-a2.7b")
+        p = mlp.init_moe(torch.Generator(device=dev).manual_seed(0), mcfg)
+        x = torch.randn((4, 8, mcfg.d_model), generator=torch.Generator(device=dev).manual_seed(1),
+                        device=dev)
+        y0, a0 = mlp.moe_forward_local(p, x, mcfg)
+        with use_rules(rules_for(mcfg, mesh, "train", batch=4, moe_ep=True), mesh):
+            y1, a1 = mlp.moe_forward(p, x, mcfg)
+        assert torch.allclose(y1, y0, rtol=1e-5, atol=1e-6) and torch.allclose(a1, a0)
+        state = init_train_state(0, cfg, device=dev)
+        batch = {k: torch.randint(1, cfg.vocab, (4, 32), generator=g).to(dev)
+                 for k in ("tokens", "labels")}
+        new, metrics = make_train_step(cfg, OptCfg(), grad_compression="int8", mesh=mesh,
+                                       device=dev)(state, batch)
+        loss, _, grads = make_grad_fn(cfg)(state["params"], batch)
+        trip = _tree.map(lambda t: compression.dequantize(*compression.quantize_int8(t)), grads)
+        want, _, _ = adamw_update(trip, state["opt"], state["params"], OptCfg())
+        for a, b in zip(_tree.leaves(want), _tree.leaves(new["params"])):
+            assert torch.allclose(a, b, rtol=0, atol=1e-6)
+        assert abs(float(metrics["loss"]) - float(loss)) <= 1e-6 * abs(float(loss))
+    finally:
+        if made and dist.is_initialized():
+            dist.destroy_process_group()

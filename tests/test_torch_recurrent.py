@@ -46,6 +46,8 @@ from repro_torch.kernels import rglru_scan as rg
 from repro_torch.kernels import ssd_scan as ssd_k
 from repro_torch.launch import serve
 from repro_torch.models import attention, rglru, ssd, transformer
+from repro_torch.parallel.api import MeshShape, use_rules
+from repro_torch.parallel.rules import rules_for
 
 from test_torch_gpu import RGLRU_CASES, SSD_CASES, rglru_operands, ssd_operands
 
@@ -370,8 +372,9 @@ def test_unported_kinds_still_raise():
     builds the uncapped one's parameters, and where the kind runs without a
     frontend (mla, which ignores the cap, and ssd) its ``lm_forward`` equals
     the reference's under the cap (the capped cross and encoder models:
-    tests/test_torch_softcap.py).  What still raises is the sequence-sharded
-    decode.  An unknown kind is a ValueError."""
+    tests/test_torch_softcap.py).  The sequence-sharded decode's caches:
+    a rank's slots of a full cache, a windowed one whole.  An unknown kind
+    is a ValueError."""
     cfg = registry.get_smoke_config("mamba2-780m")
     ref_cfg = ref_registry.get_smoke_config("mamba2-780m")
     capped = dataclasses.replace(cfg.attn, logit_softcap=30.0)
@@ -393,8 +396,13 @@ def test_unported_kinds_still_raise():
                 ok.scaled(attn=capped))
             want, _ = ref_transformer.lm_forward(params, {"tokens": jnp.asarray(toks)}, rc)
             np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="sequence-sharded.*ROADMAP"):
-        attention._sharded_flash_decode(None, None, None, None, cfg, None)
+    # the sequence-sharded decode is ported (tests/test_torch_distributed.py):
+    # under its rules a full cache is a rank's slots of the length, a
+    # windowed one (RecurrentGemma's local_attn) stays whole
+    mesh = MeshShape((2, 2, 2), ("pod", "data", "model"))
+    with use_rules(rules_for(cfg, mesh, "decode", flash_decode=True), mesh):
+        assert attention.init_attn_cache(2, 16, cfg, device="cpu")["k"].shape[1] == 8
+        assert attention.init_attn_cache(2, 16, cfg, window=4, device="cpu")["k"].shape[1] == 4
     with pytest.raises(ValueError, match="kind 'conv'"):
         transformer.init_lm(0, cfg.scaled(segments=(Segment(("conv",), 1, "mlp"),)),
                             device="cpu")

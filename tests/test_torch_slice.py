@@ -141,6 +141,58 @@ def test_ft_runtime_differs_only_in_its_store_import():
     assert runtime.restore is store.restore and runtime.AsyncCheckpointer is store.AsyncCheckpointer
 
 
+def test_rules_differ_from_the_reference_only_in_imports_and_mesh_accessors():
+    """``parallel/rules.py`` is the reference's logic byte for byte: only its
+    imports (no ``jax.sharding.Mesh``) and the two lines that read the mesh's
+    axis sizes and names (``mesh_shape(mesh)``, ``mesh_axis_names(mesh)``,
+    which take a DeviceMesh or a shape stand-in) differ."""
+    import difflib
+
+    ref_lines = (REF / "parallel/rules.py").read_text().splitlines()
+    port_lines = (PORT / "parallel/rules.py").read_text().splitlines()
+    imports = re.compile(r"^(from \S+ import .*|import \S+|)$")
+    ref_access = re.compile(r"mesh\.shape\[a\]|= mesh\.axis_names$")
+    port_access = re.compile(r"mesh_shape\(mesh\)\[a\]|= mesh_axis_names\(mesh\)$")
+    pairs = 0
+    for op, i0, i1, j0, j1 in difflib.SequenceMatcher(a=ref_lines, b=port_lines,
+                                                      autojunk=False).get_opcodes():
+        if op == "equal":
+            continue
+        a, b = ref_lines[i0:i1], port_lines[j0:j1]
+        if all(imports.match(x) for x in a + b):
+            continue
+        assert op == "replace" and len(a) == len(b) == 1, (a, b)
+        assert ref_access.search(a[0]) and port_access.search(b[0]), (a, b)
+        assert ref_access.sub("", a[0]).replace("mesh.shape", "") == \
+            port_access.sub("", b[0]).replace("mesh_shape(mesh)", ""), (a, b)
+        pairs += 1
+    assert pairs == 2
+
+
+MESH_MODULES = ["parallel/__init__.py", "parallel/api.py", "parallel/rules.py",
+                "parallel/compression.py", "launch/mesh.py"]
+
+
+def test_the_mesh_modules_and_the_rank_script_import_neither_jax_nor_the_reference():
+    """The mesh's modules and the script each rank of the distributed tests
+    runs: no import of ``jax`` or ``repro`` in their text, and none pulled
+    in when a fresh interpreter imports them."""
+    files = [PORT / m for m in MESH_MODULES] + [ROOT / "tests" / "torch_dist_worker.py"]
+    for path in files:
+        hit = _FORBIDDEN.search(path.read_text())
+        assert hit is None, f"{path.relative_to(ROOT)}: {hit.group(0).strip()!r}"
+    code = ("import sys\n"
+            "import repro_torch.parallel.api, repro_torch.parallel.rules\n"
+            "import repro_torch.parallel.compression, repro_torch.launch.mesh\n"
+            "import torch_dist_worker\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]\n"
+            "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env={"PYTHONPATH": f"{ROOT / 'src'}:{ROOT / 'tests'}",
+                              "PATH": "/nonexistent"})
+    assert out.returncode == 0, out.stderr
+
+
 def test_passes_init_differs_only_by_the_rtl_reexports():
     """``core/passes/__init__.py`` once left out the RTL-level passes; with
     the codegen ported it is the reference's file whole (``VERBATIM``), and

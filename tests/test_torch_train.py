@@ -33,8 +33,10 @@ from repro.train import steps as ref_steps
 
 from repro_torch import _tree, compat
 from repro_torch.configs import registry
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import transformer
 from repro_torch.optim import adamw
+from repro_torch.parallel import compression
 from repro_torch.train import steps
 
 ARCHS = ref_registry.list_archs()
@@ -256,23 +258,16 @@ def test_remat_block_runs_each_block_forward_twice():
     assert len(calls) == 2 * cfg.n_layers
 
 
-class _PodMesh:
-    """A stand-in for a mesh with a ``pod`` axis: the step reads only its
-    ``axis_names``."""
-
-    axis_names = ("pod", "data")
-
-
 def test_train_step_options_for_the_mesh_are_refused_or_identities():
     """int8 compression runs the plain step where there is no ``pod`` axis,
     as the reference does (``repro/train/steps.py:130``), and equals the
-    reference's step from one float32 state; across a ``pod`` axis it is
-    refused until item 9.  ``constrain_grads`` is the identity on one
-    device."""
+    reference's step from one float32 state; across a ``pod`` axis (a
+    one-rank ``("pod", "data", "model")`` mesh here; eight ranks in
+    ``tests/test_torch_distributed.py``) it is AdamW on the gradients
+    through the int8 round trip.  ``constrain_grads`` is the identity on
+    plain tensors."""
     arch = "tinyllama-1.1b"
     cfg = registry.get_smoke_config(arch)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        steps.make_train_step(cfg, grad_compression="int8", mesh=_PodMesh(), device="cpu")
     state = float32_state(arch)
     pstate = compat.state_from_reference(jax.device_get(state), "cpu")
     b = batch_of(arch, 0)
@@ -296,6 +291,22 @@ def test_train_step_options_for_the_mesh_are_refused_or_identities():
             np.testing.assert_allclose(got[key], w, **TOL, err_msg=key)
     assert_params_close({k: v for k, v in flat(want).items() if k.startswith("params/")}, got,
                         OPT["lr"], 1)
+    made = not torch.distributed.is_initialized()
+    try:
+        mesh = make_mesh((1, 1, 1), ("pod", "data", "model"), device_type="cpu")
+        c, mc = steps.make_train_step(cfg, adamw.OptCfg(**OPT), grad_compression="int8",
+                                      mesh=mesh, device="cpu")(pstate, b)
+    finally:
+        if made:
+            torch.distributed.destroy_process_group()
+    tb = {k: torch.as_tensor(v) for k, v in b.items()}
+    loss, _, grads = steps.make_grad_fn(cfg)(pstate["params"], tb)
+    round_trip = _tree.map(lambda g: compression.dequantize(*compression.quantize_int8(g)), grads)
+    want_c, _, _ = adamw.adamw_update(round_trip, pstate["opt"], pstate["params"],
+                                      adamw.OptCfg(**OPT))
+    assert all(torch.equal(x, y) for x, y in zip(_tree.leaves(want_c),
+                                                 _tree.leaves(c["params"])))
+    assert torch.equal(mc["loss"], loss)
 
 
 @pytest.mark.parametrize("n_seq, microbatches", [(5, 2), (6, 4)])

@@ -47,7 +47,7 @@ PyTorch version on the card, then drives:
   models with their caches filled from seeded embeddings);
 * training (``train``): tinyllama-1.1b at full width and depth, bfloat16
   with remat, 6 AdamW steps of 4 x 2048 tokens through ``launch.train``
-  with a checkpoint every 3 steps — every attention layer's forward through
+  with a checkpoint after the last — every attention layer's forward through
   flash attention (again in the backward, under remat) and its backward
   through the flash kernel's backward (S2) — then every gradient leaf finite
   and non-zero, the last checkpoint restored equal to the live state and a
@@ -63,6 +63,13 @@ PyTorch version on the card, then drives:
   gradients only, each with its launches by kernel and a profiled step);
   the capped tinyllama's first two layers' gradients at 4 x 2048 through
   the capped K3 and S2 against float32 plain ones (``train_grads[...]``);
+* the dry-run (``dryrun``), on the host in a subprocess of its own that
+  runs beside the card's phases from the K3 phase on, as a user runs
+  ``python -m repro_torch.launch.dryrun``: tinyllama-1.1b x train_4k and
+  qwen2-moe-a2.7b x decode_32k on the 256-rank mesh over a fake process
+  group, and the train phase's own step (4 x 2048, remat) on one rank, its
+  predicted FLOPs, bytes, H100 bound and peak bytes beside the
+  step seconds and peak bytes the train phase measured;
 * the mesh, on one rank: a ``("pod", "data", "model") = (1, 1, 1)`` mesh
   over NCCL (``launch.mesh.make_mesh``; NCCL takes one rank a card, the
   multi-rank paths run over gloo in the CPU tests): tinyllama-1.1b's decode
@@ -81,7 +88,7 @@ PyTorch version on the card, then drives:
   own matrix (nine designs at the sizes of its test, and the three traced
   designs at the sizes of the frontend's test, x {inline, modules})
   through ``run_differential`` (event-driven simulator on sample lanes, the
-  design's oracle on every lane, every RTL pass), cold and warm, and the
+  design's oracle on every lane, every RTL pass), once each, and the
   five loop nests at both sizes held to ``lower_to_cuda`` on every lane.
 
 Each path runs with every kernel's launch count set to 0 just before it and
@@ -138,15 +145,19 @@ Output: one JSON object per line (``env``, ``build``,
 ``k1_without_staging``, ``main_path``, ``differential``, ``s1_gap``, then
 ``serve``, ``prefill``, ``consistency`` and ``profile`` for each model,
 ``mesh_decode`` and ``mesh_moe`` beside tinyllama's and qwen2-moe's,
-``serve_example``, the training lines, ``mesh_train``, ``softcap``, ``phases``,
+``serve_example``, the training lines, ``mesh_train``, ``dryrun``, ``softcap``, ``phases``,
 ``kernels``), the card's name and power limit as ``nvidia-smi`` gives them, and a last line
 ``{"ok": true, "device": {...}}``.  Any mismatch or failure exits non-zero
 before that line.  A ``phases`` line gives the host seconds of each group of
-phases.
+phases.  Work on the host alone runs beside the phases, so that the run
+stays well inside its time limit on a host that shares its cores: the
+dry-run and the large loop nests' plain simulator on the CPU in a process
+each, and ``tools/ptxas_usage.py``'s compiles in threads.
 """
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import copy
 import dataclasses
@@ -155,11 +166,13 @@ import inspect
 import io
 import json
 import os
+import pickle
 import re
 import shutil
 import subprocess
 import sys
 import time
+from concurrent.futures import Future, ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -208,7 +221,10 @@ from repro_torch.train.steps import (init_train_state, make_grad_fn,  # noqa: E4
 
 SEED = 0
 LANES = 4096
-SAMPLED_LANES = (0, 1, LANES // 2, LANES - 1)
+# the lanes the main path holds to the event-driven simulator (Python, a
+# second or more a lane at the large sizes): the first and the last at the
+# paper sizes, the last (in the batch's ragged last block) at the large ones
+SAMPLED_LANES = {"paper": (0, LANES - 1), "large": (LANES - 1,)}
 # the lanes a large loop nest's simulator kernel is held to its plain version
 # on, on the CPU: 16 spread over the batch, every block's warp a different one
 PLAIN_LANES = np.linspace(0, LANES - 1, 16).astype(np.int64)
@@ -303,17 +319,22 @@ def tiles_of(tiles: dict, dtype) -> dict:
     return tiles.get(dtype, tiles)
 MATMUL_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # relative to |plain|max
 
-# the served models and their traffic: 8 requests of 64-token prompts and 32
+# the served models and their traffic: 8 requests of 32-token prompts and 16
 # new tokens over 4 slots of a 1024-position cache
 ARCH, MAMBA, RGEMMA = "tinyllama-1.1b", "mamba2-780m", "recurrentgemma-9b"
 MOE = "qwen2-moe-a2.7b"
 DEEPSEEK, SEAMLESS, VISION = "deepseek-v2-lite-16b", "seamless-m4t-medium", "llama-3.2-vision-90b"
-SLOTS, MAX_LEN, REQUESTS, PROMPT, NEW = 4, 1024, 8, 64, 32
+SLOTS, MAX_LEN, REQUESTS, PROMPT, NEW = 4, 1024, 8, 32, 16
+# decode steps each served model's profile traces
+PROFILE_STEPS = 4
 # (batch, tokens) of each model's prefill step and of its consistency check
 PREFILL = {ARCH: (4, 1024), MAMBA: (4, 2048), RGEMMA: (2, 4096), MOE: (4, 1024),
            DEEPSEEK: (4, 1024), SEAMLESS: (4, 1024), VISION: (4, 1024)}
-CONSIST = {ARCH: (2, 128), MAMBA: (2, 300), RGEMMA: (2, 160), MOE: (2, 128),
-           DEEPSEEK: (2, 128), SEAMLESS: (2, 128), VISION: (2, 128)}
+# (the consistency check walks one decode step a token on the host: the
+# models after tinyllama check 64 tokens, Mamba-2 and RecurrentGemma as many
+# as their chunk and window need)
+CONSIST = {ARCH: (2, 128), MAMBA: (2, 264), RGEMMA: (2, 160), MOE: (2, 64),
+           DEEPSEEK: (2, 64), SEAMLESS: (2, 64), VISION: (2, 64)}
 # llama-3.2-vision-90b (87.7 B parameters, 175 GB in bf16) does not fit one
 # card: it is served at full width cut in depth to one group of its pattern,
 # four attn layers and one cross_attn layer (about 6.4 B parameters)
@@ -326,7 +347,7 @@ SERVE_CUT_REPEATS = {VISION: 1}
 # capped instantiations of K3, K4 and S2.  The JAX package has no such config.
 SOFTCAP = 50.0
 CAPPED = f"{ARCH} softcap {SOFTCAP:g}"
-PREFILL[CAPPED], CONSIST[CAPPED] = PREFILL[ARCH], CONSIST[ARCH]
+PREFILL[CAPPED], CONSIST[CAPPED] = PREFILL[ARCH], (2, 64)
 # With tinyllama's random weights the scaled scores have a standard deviation
 # of about 1, where cap 50 moves a score by at most about s^3 / (3 c^2) = 0.02:
 # the served model's checks (serve, consistency) run the capped kernels but
@@ -343,8 +364,8 @@ CAPPED_QK = 3.0
 CROSS_ARCHS = (SEAMLESS, VISION)
 PREFILL_B, PREFILL_S = PREFILL[ARCH]
 CONSIST_B, CONSIST_S = CONSIST[ARCH]
-# Mamba-2's 300 tokens cross a chunk boundary of 256 and end in a ragged
-# chunk.  RecurrentGemma's check is cut to one (rglru, rglru, local_attn)
+# Mamba-2's 264 tokens cross a chunk boundary of 256 and end in a ragged
+# chunk of 8.  RecurrentGemma's check is cut to one (rglru, rglru, local_attn)
 # group with the window cut to 64, so that its 160 tokens wrap the decode's
 # ring and the forward's window masks; float32 only.
 RG_CUT_WINDOW = 64
@@ -392,9 +413,9 @@ BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 # training: tinyllama-1.1b at full width and depth, in bfloat16 with
 # remat="block" as its config has it, on the synthetic stream; 4 x 2048
-# tokens a step, 6 steps, a checkpoint every 3 (written under the checkout's
-# build/, removed after)
-TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_CKPT_EVERY = 4, 2048, 6, 3
+# tokens a step, 6 steps, one checkpoint after the last (11.0 GB of state,
+# written under the checkout's build/, removed after)
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_CKPT_EVERY = 4, 2048, 6, 6
 TRAIN_OPT = dict(lr=3e-4, warmup_steps=2, decay_steps=8)
 TRAIN_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_train"
 # its gradients in bfloat16 through K3 and S2 against float32 plain ones, at
@@ -426,6 +447,27 @@ TRAIN_ARCH_SHAPE = {MAMBA: (4, 2048)}
 # one layer (2.97 B) needs some 92 GB with its two 1.05 B-element vocab leaves
 GRAD_ONLY = {VISION: "the AdamW step of one group needs over 153 GB (24 bytes a parameter, "
                      "before AdamW's float32 temporaries); one layer alone about 92 GB"}
+# the dry-run (launch.dryrun) in a process of its own, which makes its own
+# fake process group of 256 ranks where this one holds the one-rank NCCL
+# world: two production cells and the train phase's own step on one rank
+DRYRUN_CELLS = (("tinyllama-1.1b", "train_4k"), ("qwen2-moe-a2.7b", "decode_32k"))
+DRYRUN_SECONDS = 300
+DRYRUN_CODE = """
+import json, sys
+import torch
+torch.set_num_threads(1)
+from repro_torch.configs.base import ShapeCfg
+from repro_torch.configs.registry import get_config
+from repro_torch.launch import dryrun
+arch, B, S, cells = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), json.loads(sys.argv[4])
+out = {"cells": [dryrun.run_cell(a, s, False, verbose=False) for a, s in cells]}
+cfg = get_config(arch)
+shape = ShapeCfg("train", S, B, "train")
+st, secs, _, _ = dryrun.analyze(cfg, shape, (1, 1), ("data", "model"), num_microbatches=1)
+out["one_rank"] = dict(arch=arch, batch=B, seq=S, remat=cfg.remat, trace_s=secs,
+                       **dryrun.record(st, cfg, shape, 1))
+print("DRYRUN " + json.dumps(out, default=str))
+"""
 # the examples/train_tinylm_torch.py run: 40 steps, a failure injected at 12
 EXAMPLE_STEPS, EXAMPLE_FAIL_AT = 40, 12
 # the mesh: one rank, one NCCL process group over an in-process store (NCCL
@@ -594,21 +636,37 @@ def phase_env() -> str:
     return smi
 
 
-def phase_build(device) -> tuple[dict, list[dict]]:
-    """Generate every design's kernels — K1 of each loop nest, S1 of each
+# the hand-written kernels' sources; the attention and scan kernels (all but
+# matmul) take nvcc longest and are first needed after the compiler's phases
+CSRC = ("matmul.cu", "flash_attention.cu", "flash_attention_bwd.cu", "decode_attention.cu",
+        "ssd_scan.cu", "ssd_scan_bwd.cu", "rglru_scan.cu")
+BUILD_T0: list[float] = []
+
+
+def phase_build(device) -> tuple[dict, list[dict], list, list]:
+    """Generate every design's kernels — K1 of each loop nest (and of each
+    large one with no room for staging, ``k1_without_staging``), S1 of each
     simulated design — and start one nvcc per source, all at once; then wait
-    for them.  Returns the compiled loop nests and the simulator cases."""
-    t0 = time.perf_counter()
+    for all but the attention and scan kernels, which build on beside the
+    compiler's phases (``finish_csrc``).  Returns the compiled loop nests,
+    the simulator cases, the unstaged loop nests and the pending builds."""
+    BUILD_T0.append(time.perf_counter())
     compiled = {}
-    pending = [_build.start_build(*_build.csrc_source(src))
-               for src in ("matmul.cu", "flash_attention.cu", "flash_attention_bwd.cu",
-                           "decode_attention.cu", "ssd_scan.cu", "ssd_scan_bwd.cu",
-                           "rglru_scan.cu")]
+    csrc = [_build.start_build(*_build.csrc_source(src)) for src in CSRC]
+    pending = csrc[:1]
     for dname, gal, paper, large in ALL_DESIGNS:
         for tag, size in (("paper", paper), ("large", large)):
             module, name, fn, _ = compile_design(gal, size, device)
             compiled[(dname, tag)] = (module, name, fn, size)
             pending.append(_build.start_build(fn.stem, fn.source))
+    budget = to_cuda.STAGE_BYTES_PER_PAIR
+    to_cuda.STAGE_BYTES_PER_PAIR = 0
+    try:
+        unstaged = [(dname, gal, large) + compile_design(gal, large, device)[:3]
+                    for dname, gal, _, large in DESIGNS]
+    finally:
+        to_cuda.STAGE_BYTES_PER_PAIR = budget
+    pending += [_build.start_build(fn.stem, fn.source) for *_, fn in unstaged]
     cases = rtl_cases(compiled, device)
     for case in cases:
         kernel = case["sim"].cuda_kernel()
@@ -616,10 +674,18 @@ def phase_build(device) -> tuple[dict, list[dict]]:
         case["stem"] = pending[-1].name
     for p in pending:
         _build.finish_build(p)
+    return compiled, cases, unstaged, csrc[1:]
+
+
+def finish_csrc(pending: list) -> None:
+    """Wait for the attention and scan kernels' builds; then the ``build``
+    line: nvcc's seconds for every library (from its start), and ``_wall``
+    from the first build's start to the last one's end."""
+    for p in pending:
+        _build.finish_build(p)
     secs = dict(_build.build_seconds)
-    secs["_wall"] = time.perf_counter() - t0
+    secs["_wall"] = time.perf_counter() - BUILD_T0[0]
     emit("build", secs)
-    return compiled, cases
 
 
 def element_steps(module, name) -> int:
@@ -634,12 +700,16 @@ def element_steps(module, name) -> int:
     return main.trip_count() * max(1, steps(main.region(0).ops))
 
 
-def k1_case(dname, tag, module, name, fn, size, ins, lanes) -> dict:
-    """One generated kernel against its plain version, bit-exact."""
+def k1_case(dname, tag, module, name, fn, size, ins, lanes, plain=None) -> tuple[dict, dict]:
+    """One generated kernel against its plain version, bit-exact: the plain
+    version run (and timed) on ``ins``, or its result ``plain`` where the
+    caller has it already.  Returns the row and the plain result."""
     got = fn(*ins)
     torch.cuda.synchronize()
-    plain = {}
-    plain_ms = wall_ms(lambda: plain.update(fn.plain(*ins)))
+    plain_ms = None
+    if plain is None:
+        plain = {}
+        plain_ms = wall_ms(lambda: plain.update(fn.plain(*ins)))
     err = 0
     for k in plain:
         if got[k].shape != plain[k].shape or got[k].dtype != plain[k].dtype:
@@ -663,7 +733,7 @@ def k1_case(dname, tag, module, name, fn, size, ins, lanes) -> dict:
     nbytes = lanes * 4 * sum(int(np.prod(a.type.shape)) for a in module.get(name).args)
     threads, pf = fn.launch_shape(lanes, ins[0].device)
     steps = element_steps(module, name)
-    return {
+    row = {
         "name": f"lower_to_cuda[{dname},{tag},{lanes} lanes]", "route": "cuda",
         "source": "src/repro_torch/core/lower/to_cuda.py",
         "replaces": "src/repro/core/lower/to_pallas.py:200",
@@ -676,6 +746,9 @@ def k1_case(dname, tag, module, name, fn, size, ins, lanes) -> dict:
         "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
         "library_ms": library_ms, **({"library_note": library_note} if library_note else {}),
     }
+    if plain_ms is None:
+        row["plain_ms_note"] = "not run: the LANES row's plain result, lane 0's appended"
+    return row, plain
 
 
 def phase_kernels_k1(compiled, device) -> list[dict]:
@@ -691,9 +764,13 @@ def phase_kernels_k1(compiled, device) -> list[dict]:
         dev_batch = [torch.as_tensor(x).to(device=device, dtype=torch.int32) for x in batch]
         for lanes in (1, LANES):
             ins = dev_batch if lanes > 1 else [x[0] for x in dev_batch]
-            rows.append(k1_case(dname, tag, module, name, fn, size, ins, lanes))
+            row, plain = k1_case(dname, tag, module, name, fn, size, ins, lanes)
+            rows.append(row)
+        # the plain version works lane by lane: on the batch with lane 0
+        # appended, its result is the batch's with lane 0's appended
         ragged = [torch.cat([x, x[:1]]) for x in dev_batch]
-        check = k1_case(dname, tag, module, name, fn, size, ragged, LANES + 1)
+        want = {k: torch.cat([v, v[:1]]) for k, v in plain.items()}
+        check, _ = k1_case(dname, tag, module, name, fn, size, ragged, LANES + 1, plain=want)
         check["launches"] = None
         rows[-1]["checks"] = [check]
     return rows
@@ -750,21 +827,12 @@ def phase_kernels_k2(device) -> list[dict]:
     return rows
 
 
-def phase_k1_without_staging(device) -> None:
+def phase_k1_without_staging(cases, device) -> None:
     """What staging buys: each large design's kernel generated with no
-    room for staging (so its reads known ahead are only prefetched), held
-    bit-exact to its plain version and timed at ``LANES`` lanes beside the
-    staged kernel's ``ms`` in the ``kernels`` line.  Outside every main
-    path: its launches count nowhere."""
-    budget = to_cuda.STAGE_BYTES_PER_PAIR
-    to_cuda.STAGE_BYTES_PER_PAIR = 0
-    try:
-        cases = [(dname, gal, large) + compile_design(gal, large, device)[:3]
-                 for dname, gal, _, large in DESIGNS]
-    finally:
-        to_cuda.STAGE_BYTES_PER_PAIR = budget
-    for p in [_build.start_build(fn.stem, fn.source) for *_, fn in cases]:
-        _build.finish_build(p)
+    room for staging (so its reads known ahead are only prefetched; built
+    in ``phase_build``), held bit-exact to its plain version and timed at
+    ``LANES`` lanes beside the staged kernel's ``ms`` in the ``kernels``
+    line.  Outside every main path: its launches count nowhere."""
     out = []
     for dname, gal, size, module, name, fn in cases:
         if fn.kernel.staged:
@@ -847,12 +915,12 @@ def phase_main_path(device) -> dict:
                 want = oracle(gal, size, [x[s] for x in batch[:n_in]])
                 if not np.array_equal(many_np[s], want):
                     fail(f"{dname}/{tag}: lane {s} differs from the NumPy oracle")
-            for s in SAMPLED_LANES:
+            idx = list(SAMPLED_LANES[tag])
+            for s in idx:
                 sim_args = [np.array(x[s], copy=True) for x in batch]
                 simulate(module, name, sim_args)
                 if not np.array_equal(sim_args[-1], many_np[s]):
                     fail(f"{dname}/{tag}: lane {s} differs from the simulator")
-            idx = list(SAMPLED_LANES)
             functional = lower_to_torch(module, name, device=device)(
                 *[x[idx] for x in batch])[out_name]
             if not np.array_equal(as_i64(functional), many_np[idx]):
@@ -951,13 +1019,11 @@ def drained_cycles(prepared, entry, lane0) -> int:
     return event + 16 + event // 4
 
 
-def plain_twin(sim, device=None):
+def plain_twin(sim):
     """The same compiled tape on the plain backend (``_TorchOps``), on the
-    same device or on ``device``."""
+    same device."""
     twin = copy.copy(sim)
     twin.backend, twin._kernel = "torch", None
-    if device is not None:
-        twin.device = device
     return twin
 
 
@@ -1027,11 +1093,9 @@ def s1_case(case, device) -> dict:
     else:
         part = [c[PLAIN_LANES] for c in batch]
         got = sim.run(part, cycles, batched=True, trace=True, check_conflicts=False)
-        t0 = time.perf_counter()
-        plain = plain_twin(sim, torch.device("cpu")).run(
-            part, cycles, batched=True, trace=True, check_conflicts=False)
-        row["plain_ms"] = (time.perf_counter() - t0) * 1e3
-        row["plain_on"] = f"cpu, {len(PLAIN_LANES)} of {LANES} lanes"
+        plain, row["plain_ms"] = s1_plain_on_cpu(case["name"])
+        row["plain_on"] = (f"cpu, {len(PLAIN_LANES)} of {LANES} lanes, in a process of its "
+                           f"own (start_s1_plain)")
         same = (same_sim_result(got, plain) and same_sim_result(
             lanes_of(full["res"], PLAIN_LANES), dataclasses.replace(plain, trace=None)))
     if not same:
@@ -1040,6 +1104,89 @@ def s1_case(case, device) -> dict:
     row.update(s1_timing(kernel, sim, batch, LANES, cycles, device))
     del full
     return row
+
+
+def start_host_job(code: str, args: list[str], out_dir: Path) -> dict:
+    """Start ``python -c code *args`` on the host in a process of its own,
+    which runs beside the card's phases on one core, its standard output
+    and error in files under ``out_dir``; the process is killed at exit if
+    it is still running."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent / "src"),
+               OMP_NUM_THREADS="1")
+    out, err = (open(out_dir / name, "w+") for name in ("stdout", "stderr"))
+    proc = subprocess.Popen([sys.executable, "-c", code, *args], stdout=out, stderr=err,
+                            text=True, env=env)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return {"proc": proc, "stdout": out, "stderr": err, "t0": time.perf_counter()}
+
+
+def finish_host_job(job: dict, limit_s: float, what: str) -> str:
+    """Wait for ``job`` until ``limit_s`` after its start; fail unless it
+    exits 0.  Returns its standard output."""
+    proc = job["proc"]
+    try:
+        proc.wait(timeout=max(1.0, limit_s - (time.perf_counter() - job["t0"])))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        fail(f"{what}: the subprocess ran past {limit_s} s")
+    for f in (job["stdout"], job["stderr"]):
+        f.seek(0)
+    if proc.returncode != 0:
+        fail(f"{what}: exit {proc.returncode}: {job['stderr'].read()[-2000:]}")
+    return job["stdout"].read()
+
+
+S1_PLAIN_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_s1_plain"
+S1_PLAIN_SECONDS = 600
+S1_PLAIN_CODE = """
+import importlib, pickle, sys, time
+import torch
+torch.set_num_threads(1)
+from repro_torch.core.codegen import sim as rtl_sim
+from repro_torch.core.passes import DEFAULT_PIPELINE_SPEC, PassManager
+with open(sys.argv[1], "rb") as f:
+    jobs = pickle.load(f)
+out = {}
+for job in jobs:
+    module, name = importlib.import_module(job["gallery"]).build(**job["size"])
+    PassManager.from_spec(DEFAULT_PIPELINE_SPEC).run(module)
+    sim, _ = rtl_sim.simulator_for(module, name, backend="torch", device=torch.device("cpu"))
+    t0 = time.perf_counter()
+    res = sim.run(job["part"], job["cycles"], batched=True, trace=True, check_conflicts=False)
+    out[job["name"]] = (res, (time.perf_counter() - t0) * 1e3)
+with open(sys.argv[2], "wb") as f:
+    pickle.dump(out, f)
+"""
+S1_PLAIN: dict = {}
+
+
+def start_s1_plain(cases) -> None:
+    """The plain simulator (``_TorchOps``) of each large loop nest on the
+    CPU, on ``PLAIN_LANES`` of its batch, in a process of its own
+    (``start_host_job``; tens of seconds of eager CPU ops): the design built
+    as ``compile_design`` builds it, then ``simulator_for`` on the CPU.
+    ``s1_plain_on_cpu`` reads its results."""
+    S1_PLAIN_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = [{"name": c["name"], "size": c["size"], "cycles": c["cycles"],
+             "gallery": next(g for d, g, _, _ in DESIGNS if d == c["design"]).__name__,
+             "part": [x[PLAIN_LANES] for x in c["batch"]]}
+            for c in cases if c["tag"] == "large"]
+    with open(S1_PLAIN_DIR / "jobs.pkl", "wb") as f:
+        pickle.dump(jobs, f)
+    S1_PLAIN["job"] = start_host_job(S1_PLAIN_CODE, [str(S1_PLAIN_DIR / "jobs.pkl"),
+                                                     str(S1_PLAIN_DIR / "out.pkl")], S1_PLAIN_DIR)
+
+
+def s1_plain_on_cpu(name: str):
+    """(result, ms) of the plain simulator on the CPU for the large case
+    ``name``, from ``start_s1_plain``'s process (waited for once)."""
+    if "out" not in S1_PLAIN:
+        finish_host_job(S1_PLAIN["job"], S1_PLAIN_SECONDS, "the plain simulator on the CPU")
+        with open(S1_PLAIN_DIR / "out.pkl", "rb") as f:
+            S1_PLAIN["out"] = pickle.load(f)
+    return S1_PLAIN["out"][name]
 
 
 def s1_timing(kernel, sim, batch, lanes, cycles, device) -> dict:
@@ -1064,7 +1211,7 @@ def s1_timing(kernel, sim, batch, lanes, cycles, device) -> dict:
             "lanes_per_block": sim_cuda.LANES_PER_BLOCK}
 
 
-def s1_ptxas(case) -> list[dict]:
+def s1_ptxas(case) -> Future:
     """Registers and spills of a simulator kernel's instantiations, from the
     source the build wrote (``build/repro_torch/<stem>_<hash>.cu``)."""
     return ptxas_rows(str(_build.build_dir() / f"{case['stem']}.cu"))
@@ -1134,8 +1281,8 @@ def phase_differential(cases, device) -> dict:
     """The designer's check on the card, through the public entry points:
     ``run_differential`` on 4096 vectors for the reference's matrix (the
     kernel over the whole batch, the event-driven simulator on sample lanes,
-    the design's oracle on every lane, every RTL pass on 16 lanes), cold and
-    warm; then each loop nest at both sizes through ``simulator_for`` with
+    the design's oracle on every lane, every RTL pass on 16 lanes), once
+    each; then each loop nest at both sizes through ``simulator_for`` with
     its final arrays held to ``lower_to_cuda`` on every lane.  Returns the
     launches of each case."""
     launches: dict[str, int] = {}
@@ -1145,18 +1292,16 @@ def phase_differential(cases, device) -> dict:
         before = sim_cuda.launches
         if case["tag"] == "matrix":
             oracle, nargs = RTL_MATRIX[dname][3]
-            seconds = []
-            for _ in ("cold", "warm"):
-                t0 = time.perf_counter()
-                rep = rtl_sim.run_differential(module, entry, batch, kernel=dname,
-                                               hierarchy=case["hierarchy"], oracle=oracle,
-                                               oracle_nargs=nargs, device=device)
-                seconds.append(time.perf_counter() - t0)
-                if not rep.ok or rep.backend != "cuda" or rep.n_vectors != LANES:
-                    fail(f"{case['name']}: run_differential {rep.backend}: {rep.mismatches[:4]}")
-                if (oracle is not None and rep.oracle_ok is not True) or not (
-                        rep.passes_ok and all(rep.passes_ok.values())):
-                    fail(f"{case['name']}: oracle_ok {rep.oracle_ok}, passes_ok {rep.passes_ok}")
+            t0 = time.perf_counter()
+            rep = rtl_sim.run_differential(module, entry, batch, kernel=dname,
+                                           hierarchy=case["hierarchy"], oracle=oracle,
+                                           oracle_nargs=nargs, device=device)
+            secs = time.perf_counter() - t0
+            if not rep.ok or rep.backend != "cuda" or rep.n_vectors != LANES:
+                fail(f"{case['name']}: run_differential {rep.backend}: {rep.mismatches[:4]}")
+            if (oracle is not None and rep.oracle_ok is not True) or not (
+                    rep.passes_ok and all(rep.passes_ok.values())):
+                fail(f"{case['name']}: oracle_ok {rep.oracle_ok}, passes_ok {rep.passes_ok}")
             if dname == "mac":          # the oracle leg of the reference's mac test
                 sim, prepared = rtl_sim.simulator_for(module, entry,
                                                       hierarchy=case["hierarchy"], device=device)
@@ -1168,9 +1313,8 @@ def phase_differential(cases, device) -> dict:
                            "vectors": rep.n_vectors, "cycles": rep.cycles,
                            "event_lanes": rep.event_lanes_checked, "oracle_ok": rep.oracle_ok,
                            "passes_ok": rep.passes_ok,
-                           "seconds_to_result_cold": seconds[0],
-                           "nvcc_s": _build.build_seconds.get(case["stem"], 0.0),
-                           "seconds_to_result_warm": seconds[1]})
+                           "seconds_to_result": secs,
+                           "nvcc_s": _build.build_seconds.get(case["stem"], 0.0)})
         else:
             t0 = time.perf_counter()
             sim, prepared = rtl_sim.simulator_for(module, entry, device=device)
@@ -1535,7 +1679,7 @@ def phase_kernels_d256(device) -> tuple[list[dict], list[dict]]:
 def phase_kernels_moe(device) -> tuple[list[dict], list[dict]]:
     """K3 and K4 at qwen2-moe's head dim 128 with one query head a KV head
     (16/16): K3 at its 4 x 1024 prefill and at the consistency check (2 x
-    128), K4 at its serving cache and at the consistency check; the prefill
+    64), K4 at its serving cache and at the consistency check; the prefill
     and serving shapes in float32 as checks."""
     g = torch.Generator(device="cpu").manual_seed(SEED + 7)
     a = get_config(MOE).attn
@@ -1555,7 +1699,7 @@ def phase_kernels_mla(device) -> list[dict]:
     """K3 as deepseek-v2-lite's MLA prefill runs it: 16 heads, queries and
     keys of nope 128 + rope 64 = 192 dims against values of 128, causal,
     under the scale 192^-0.5, on the ``<192, 128>`` instantiation: at its
-    4 x 1024 prefill and at the cut consistency check (2 x 128); the prefill
+    4 x 1024 prefill and at the cut consistency check (2 x 64); the prefill
     shape in float32 (padded to 256) as a check."""
     g = torch.Generator(device="cpu").manual_seed(SEED + 9)
     a = get_config(DEEPSEEK).attn
@@ -1663,7 +1807,7 @@ def k5_case(case: str, B, S, H, P, N, Q, device, g, rates=(0.01, 0.5)) -> dict:
         "ms": time_ms(kernel, 10),
         "device_ms": device_ms, **({"device_ms_note": why} if why else {}),
         **stage_profile(kernel),
-        "plain_ms": time_ms(lambda: ref.ssd_scan_ref(x, dA, Bc, Cc), 2),
+        "plain_ms": time_ms(lambda: ref.ssd_scan_ref(x, dA, Bc, Cc), 1),
         "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None,                    # no one PyTorch call computes the scan
     }
@@ -1701,13 +1845,32 @@ def stage_profile(fn, stages=ssd_k.STAGES, calls: int = 5) -> dict:
             "cuda_launches_per_call": sum(counts.values()) / calls}
 
 
-def ptxas_rows(source: str) -> list[dict]:
-    """Registers and spills of each kernel of a source (``tools/ptxas_usage.py``)."""
+# ptxas_usage compiles its source once more: those compiles run in threads
+# beside the phases, and each row's result is waited for at the end (resolved)
+PTXAS_POOL = ThreadPoolExecutor(max_workers=3)
+
+
+def ptxas_rows(source: str) -> Future:
+    """Registers and spills of each kernel of a source (``tools/ptxas_usage.py``),
+    on its way: ``resolved`` waits for it."""
     from tools.ptxas_usage import usage
 
-    return [{"kernel": r["kernel"].split("(")[0].split("::")[-1], "registers": r["registers"],
-             "spill_stores": r["spill_stores"], "spill_loads": r["spill_loads"]}
-            for r in usage(source)]
+    def rows():
+        return [{"kernel": r["kernel"].split("(")[0].split("::")[-1],
+                 "registers": r["registers"], "spill_stores": r["spill_stores"],
+                 "spill_loads": r["spill_loads"]} for r in usage(source)]
+    return PTXAS_POOL.submit(rows)
+
+
+def resolved(tree):
+    """``tree`` with every ``Future`` in it replaced by its result."""
+    if isinstance(tree, Future):
+        return tree.result()
+    if isinstance(tree, dict):
+        return {k: resolved(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [resolved(v) for v in tree]
+    return tree
 
 
 def ssd_model_core_check(device, g) -> dict:
@@ -1733,7 +1896,7 @@ def ssd_model_core_check(device, g) -> dict:
 
 def phase_kernels_k5(device) -> list[dict]:
     """K5 at Mamba-2's prefill (4 x 2048, H 48, P 64, N 128, chunk 256) and
-    at its consistency check (2 x 300: a ragged second chunk), then checks:
+    at its consistency check (2 x 264: a ragged second chunk), then checks:
     a ragged S 2000, the prefill and the ragged S with slow decays, the
     reference test's three shapes, and the model's dispatch against its
     plain chunked core."""
@@ -1779,7 +1942,7 @@ def k6_case(case: str, B, S, D, device, g) -> dict:
         "shape": {"B": B, "S": S, "D": D, "dtype": "float32"},
         "launches": None, "max_abs_err": err, "tolerance": f"{SCAN_TOL} + {SCAN_TOL}*|plain|",
         "ms": time_ms(lambda: ops.rglru_scan(a, b), 20),
-        "plain_ms": time_ms(lambda: ref.rglru_scan_ref(a, b), 2),
+        "plain_ms": time_ms(lambda: ref.rglru_scan_ref(a, b), 1),
         "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None,                    # no one PyTorch call computes the scan
     }
@@ -1938,7 +2101,7 @@ def s4_case(case: str, B, S, D, device, g) -> dict:
         "err_over_limit_by_output": {k: errs[k] / (SCAN_TOL * plain[k]) for k in errs},
         "tolerance": f"{SCAN_TOL} * max|plain| per output (plain in float64)",
         "ms": time_ms(kernel, 20), "device_ms": graph_ms(kernel)[0],
-        "plain_ms": time_ms(lambda: ref.rglru_scan_bwd_ref(a, h, dh), 2),
+        "plain_ms": time_ms(lambda: ref.rglru_scan_bwd_ref(a, h, dh), 1),
         "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None,                    # no one PyTorch call computes the gradients
     }
@@ -2056,7 +2219,7 @@ def s2_case(case: str, B, Sq, Sk, H, KvH, D, dtype, device, g, *, causal=True,
         "err_share_of_limit": max(errs[p] / (BWD_TOL[dtype] * mx) for p, mx in plain_max.items()),
         "tolerance": f"{BWD_TOL[dtype]} * max|plain| per output",
         "ms": time_ms(kernel, 10),
-        "plain_ms": time_ms(lambda: ref.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw), 2),
+        "plain_ms": time_ms(lambda: ref.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw), 1),
         "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": time_ms(library, 10) if library else None,
         "device_ms": graph_ms(kernel)[0],
@@ -2151,11 +2314,11 @@ def phase_kernels_softcap(device) -> tuple[list[dict], list[dict], list[dict]]:
     a = get_config(ARCH).attn
     H, KvH, D = a.n_heads, a.n_kv_heads, a.d_head
     cap = dict(softcap=SOFTCAP, q_scale=PEAKED_Q)
+    cap_b, cap_s = CONSIST[CAPPED]
     k3 = [k3_case("capped prefill", PREFILL_B, PREFILL_S, PREFILL_S, H, KvH, D, BF16, device, g,
                   **cap),
           k3_case("capped train", TRAIN_B, TRAIN_S, TRAIN_S, H, KvH, D, BF16, device, g, **cap),
-          k3_case("capped consistency", CONSIST_B, CONSIST_S, CONSIST_S, H, KvH, D, F32, device,
-                  g, **cap)]
+          k3_case("capped consistency", cap_b, cap_s, cap_s, H, KvH, D, F32, device, g, **cap)]
     r = get_config(RGEMMA).attn
     (rb, rs) = PREFILL[RGEMMA]
     near = dict(softcap=SOFTCAP, q_scale=NEAR_CAP_Q)
@@ -2164,8 +2327,8 @@ def phase_kernels_softcap(device) -> tuple[list[dict], list[dict], list[dict]]:
                        k3_case("near the cap", 2, 1024, 1024, H, KvH, D, BF16, device, g, **near)]
     lanes = [1, 100, 513, 1024]
     k4 = [k4_case("capped serve", SLOTS, MAX_LEN, H, KvH, D, BF16, lanes, device, g, **cap),
-          k4_case("capped consistency", CONSIST_B, CONSIST_S, H, KvH, D, F32,
-                  [CONSIST_S] * CONSIST_B, device, g, **cap)]
+          k4_case("capped consistency", cap_b, cap_s, H, KvH, D, F32, [cap_s] * cap_b, device,
+                  g, **cap)]
     k4[0]["checks"] = [partial_merge_check(device, g, softcap=SOFTCAP),
                        k4_case("near the cap", SLOTS, MAX_LEN, H, KvH, D, BF16, lanes, device, g,
                                **near)]
@@ -2304,7 +2467,7 @@ def frontend_batch(cfg, B: int, device, seed: int) -> dict:
 def phase_serve(arch: str, device):
     """The Engine at full width answers the requests; K4 runs in every decode
     step, prefill's included, once per attention layer.  The recurrent
-    models refill in waves: 2 waves of 64 prompt positions and 32 steps."""
+    models refill in waves: 2 waves of PROMPT positions and NEW steps."""
     cfg = served_config(arch)
     free, total = torch.cuda.mem_get_info(device)
     outside = total - free - torch.cuda.memory_reserved(device)   # context, local memory
@@ -2490,8 +2653,10 @@ def first_repeats(tree, n: int):
 
 def phase_profile(eng) -> None:
     """Where a serving decode step's time goes: device time by kernel and the
-    device's idle share over 8 steps at the served shape; for an MoE the
-    experts' read bound, for MLA the latent decode's device time."""
+    device's idle share over ``PROFILE_STEPS`` steps at the served shape,
+    the device's activity alone traced (host ops unrecorded: their events
+    cost more to parse than the steps take); for an MoE the experts' read
+    bound, for MLA the latent decode's device time."""
     from torch.profiler import ProfilerActivity, profile
 
     toks = torch.ones((SLOTS, 1), dtype=torch.int32)
@@ -2502,14 +2667,14 @@ def phase_profile(eng) -> None:
 
     step()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(8):
+        for _ in range(PROFILE_STEPS):
             step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     device_events = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
-    by_kernel = sorted(((e.key, e.self_device_time_total / 8) for e in device_events),
+    by_kernel = sorted(((e.key, e.self_device_time_total / PROFILE_STEPS) for e in device_events),
                        key=lambda kv: -kv[1])
     busy_us = sum(t for _, t in by_kernel)
     cfg = eng.cfg
@@ -2531,10 +2696,12 @@ def phase_profile(eng) -> None:
         bounds.update(mla_decode_times(eng))
     emit("profile", {
         "arch": eng.cfg.name,
-        "what": f"lm_decode_step, {SLOTS} lanes at position {PROMPT + NEW}, 8 steps",
-        "wall_ms_per_step": wall_us / 8e3,
+        "what": f"lm_decode_step, {SLOTS} lanes at position {PROMPT + NEW}, "
+                f"{PROFILE_STEPS} steps, device activity traced",
+        "wall_ms_per_step": wall_us / PROFILE_STEPS / 1e3,
         "device_ms_per_step": busy_us / 1e3 if busy_us else "not measured",
-        "device_idle_share": 1 - busy_us * 8 / wall_us if busy_us else "not measured",
+        "device_idle_share": (1 - busy_us * PROFILE_STEPS / wall_us if busy_us
+                              else "not measured"),
         **bounds,
         "decode_attention_ms_per_step": sum(t for k, t in by_kernel
                                             if any(name in k for name in dec.KERNEL.values())) / 1e3,
@@ -2808,7 +2975,7 @@ def phase_train(device) -> dict:
     del run, params
     torch.cuda.empty_cache()
     emit("train", out)
-    return {"launches": n, "shapes": shapes}
+    return {"launches": n, "shapes": shapes, "step_seconds": step_s, "peak_bytes": peak}
 
 
 def train_step_profile(cfg, state, device) -> dict:
@@ -3290,6 +3457,60 @@ def softcap_launches(dense, capped, k3_rows, k4_rows, k3_cap, k4_cap) -> dict:
 PHASE_SECONDS: dict[str, float] = {}
 
 
+DRYRUN_OUT = Path(__file__).resolve().parent / "build" / "chip_smoke_dryrun"
+
+
+def start_dryrun() -> dict:
+    """Start the dry-run on the host (``start_host_job``: it traces, and
+    launches nothing)."""
+    return start_host_job(DRYRUN_CODE, [ARCH, str(TRAIN_B), str(TRAIN_S),
+                                        json.dumps(DRYRUN_CELLS)], DRYRUN_OUT)
+
+
+def phase_dryrun(run: dict, trained: dict, smi: str) -> dict:
+    """The dry-run's result (``start_dryrun``), within its own time limit
+    from its start: ``DRYRUN_CELLS`` on the 256-rank production mesh, and
+    the train phase's step (tinyllama-1.1b whole, 4 x 2048, remat) on one
+    rank, whose predicted FLOPs, bytes, H100 bound and peak bytes stand
+    beside what the train phase measured: its step seconds and peak bytes,
+    and ``model_flops / (step_s x 989e12)``.  Every cell must end ``ok``
+    with FLOPs, bytes and a bottleneck; the one-rank cell must move no
+    collective bytes."""
+    from repro_torch.launch import trace_analysis
+
+    stdout = finish_host_job(run, DRYRUN_SECONDS, "dryrun")
+    line = next((ln for ln in stdout.splitlines() if ln.startswith("DRYRUN ")), None)
+    if line is None:
+        fail(f"dryrun: no result line in its output: {stdout[-2000:]}")
+    res = json.loads(line[len("DRYRUN "):])
+    keep = ("status", "error", "chips", "num_microbatches", "trace_s", "memory", "cost",
+            "collectives", "roofline", "model_flops", "useful_flops_frac")
+    cells = [{"arch": c["arch"], "shape": c["shape"], "mesh": c["mesh"],
+              **{k: c.get(k) for k in keep}} for c in res["cells"]]
+    for c in cells + [res["one_rank"]]:
+        if c.get("status", "ok") != "ok" or not (c["cost"]["flops_per_chip"] > 0
+                                                 and c["cost"]["bytes_per_chip"] > 0):
+            fail(f"dryrun: a cell did not end ok with FLOPs and bytes: {c}")
+        if c["roofline"]["bottleneck"] not in ("compute", "memory", "collective"):
+            fail(f"dryrun: no bottleneck named: {c['roofline']}")
+    one = res["one_rank"]
+    if one["collectives"]["operand_bytes"] != 0:
+        fail(f"dryrun: one rank moved collective bytes: {one['collectives']}")
+    step_s = trained["step_seconds"]
+    one["measured"] = {
+        "step_seconds": step_s, "peak_bytes": trained["peak_bytes"],
+        "predicted_over_measured_peak": one["memory"]["peak_bytes"] / trained["peak_bytes"],
+        "bound_over_step": one["roofline"]["bound_step_time_s"] / step_s,
+        "mfu": one["model_flops"] / (step_s * trace_analysis.PEAK_FLOPS)}
+    out = {"card": smi, "wall_s_from_start": time.perf_counter() - run["t0"],
+           "peaks": {"flops": trace_analysis.PEAK_FLOPS,
+                                  "hbm_bytes_per_s": trace_analysis.HBM_BW,
+                                  "link_bytes_per_s": trace_analysis.LINK_BW},
+           "cells": cells, "one_rank": one}
+    emit("dryrun", out)
+    return out
+
+
 @contextlib.contextmanager
 def timed(name: str):
     """Host seconds of a group of phases (``phases`` line)."""
@@ -3303,7 +3524,8 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False     # the library yardstick is float32 too
     smi = phase_env()
     with timed("build"):
-        compiled, cases = phase_build(device)
+        compiled, cases, unstaged, csrc = phase_build(device)
+    start_s1_plain(cases)
     with timed("kernels K1, K2"):
         rows = phase_kernels_k1(compiled, device) + phase_kernels_k2(device)
         k2_binding = next(r for r in rows if r["name"] == "matmul[16x16x16,float32]")
@@ -3311,7 +3533,12 @@ def main() -> None:
     with timed("kernels S1"):
         s1_rows = phase_kernels_s1(cases, device)
     with timed("k1_without_staging"):
-        phase_k1_without_staging(device)
+        phase_k1_without_staging(unstaged, device)
+    with timed("build, attention and scans"):
+        finish_csrc(csrc)
+    # the dry-run: on the host, in a process of its own (no card), beside
+    # the phases that follow; its result is read after the train phase
+    dry = start_dryrun()
     with timed("kernels K3-K6"):
         k3_rows, k4_rows = phase_kernels_k3(device), phase_kernels_k4(device)
         a = get_config(ARCH).attn
@@ -3399,6 +3626,8 @@ def main() -> None:
     # every other arch at full width, each with the counts at 0 just before it
     with timed("train archs"):
         archs = phase_train_archs(device)
+    with timed("dryrun, what is left of it"):
+        phase_dryrun(dry, trained, smi)
     # S3's and S4's rows: the full-width Mamba-2 and RecurrentGemma steps'
     # launches, every one at the row's shape
     for row, arch, kernel in ((s3_rows[0], MAMBA, "ssd_scan_bwd"),
@@ -3488,7 +3717,7 @@ def main() -> None:
         if row["launches"] <= 0:
             fail(f"the main path never launched {row['name']}")
     emit("phases", PHASE_SECONDS)
-    emit("kernels", rows)
+    emit("kernels", resolved(rows))
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

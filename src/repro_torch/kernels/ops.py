@@ -5,7 +5,9 @@ needs it (the matmul; the attention and scan kernels mask their ragged edges
 themselves), (b) layout adaptation from model conventions ((B,S,H,D)) to
 kernel conventions ((B,H,S,D)), as strided views, not copies.  Dispatch is by
 where the tensors lie: CUDA tensors launch the kernel, CPU tensors run the
-kernel's plain version (``ref``).
+kernel's plain version (``ref``), and meta or fake tensors (the dry-run's,
+``DTensor`` shards included) trace the kernel's region (``regions``), which
+computes nothing and carries the reference region's FLOPs.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import torch.nn.functional as F
 from . import decode_attention as _dec
 from . import flash_attention as _fa
 from . import matmul as _mm
+from . import regions
 from . import rglru_scan as _rg
 from . import ssd_scan as _ssd
 
@@ -57,6 +60,10 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = Tru
 
     The kernel tiles by its own block sizes and masks keys past Sk itself, so
     nothing is padded: the true key length is the kernel's ``kv_len``."""
+    if regions.traced(q):
+        return regions.mha(q, k, v, causal=causal, window=window,
+                           scale=scale if scale is not None else q.shape[-1] ** -0.5,
+                           softcap=softcap)
     out = _fa.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                               causal=causal, window=window, scale=scale, softcap=softcap)
     return out.transpose(1, 2)
@@ -67,10 +74,22 @@ def decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            softcap: Optional[float] = None) -> torch.Tensor:
     """q (B,H,D) single position; k,v (B,L,KvH,D); length: valid entries, a
     scalar or one per lane (B,); ``softcap`` caps the scaled scores."""
+    if regions.traced(q):
+        return regions.decode(q, k, v, length, scale=q.shape[-1] ** -0.5, softcap=softcap,
+                              normalize=True)
     return _dec.decode_attention(q, k, v, length, softcap=softcap)
 
 
-decode_partial = _dec.partial_decode_attention
+def decode_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   length: Union[int, torch.Tensor], *, scale: Optional[float] = None,
+                   softcap: Optional[float] = None):
+    """K4's unnormalised partial (acc, m, l) for a cross-shard merge."""
+    if regions.traced(q):
+        return regions.decode(q, k, v, length, scale=scale or q.shape[-1] ** -0.5,
+                              softcap=softcap, normalize=False)
+    return _dec.partial_decode_attention(q, k, v, length, scale=scale, softcap=softcap)
+
+
 merge_partials = _dec.merge_partials
 
 
@@ -85,6 +104,8 @@ def ssd_scan(xdt: torch.Tensor, dA: torch.Tensor, Bc: torch.Tensor, Cc: torch.Te
     The kernel reads the (B,H,S,P) views as the reference's (B,H,nc,Q,P)
     chunk layout, ``Q = min(chunk, S)``, and masks a ragged last chunk
     itself: the result is the reference's on the zero-padded inputs."""
+    if regions.traced(xdt):
+        return regions.ssd_scan(xdt, dA, Bc, Cc, chunk=chunk)
     Q = min(chunk, xdt.shape[1])
     y = _ssd.ssd_scan(xdt.transpose(1, 2), dA.transpose(1, 2), Bc, Cc, chunk=Q)
     return y.transpose(1, 2)
@@ -97,4 +118,6 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor, *, bs: int = 256, bd: int = 512
     """a, b (B,S,D): ``h_t = a_t h_{t-1} + b_t``; returns h (B,S,D).  ``bs``
     and ``bd``, the reference's block sizes, are accepted and not used: the
     kernel has its own blocks and masks ragged S and D itself."""
+    if regions.traced(a):
+        return regions.rglru_scan(a, b)
     return _rg.rglru_scan(a, b)

@@ -23,6 +23,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
+from .._device import resolve_device
 from ..parallel.api import MeshShape
 
 PRODUCTION = {False: ((16, 16), ("data", "model")),
@@ -30,9 +31,12 @@ PRODUCTION = {False: ((16, 16), ("data", "model")),
 
 
 def _device_type(device_type: Optional[str]) -> str:
+    """``device_type``, or with None the card's (``cuda``): where there is
+    no card that raises, in ``_device.resolve_device``'s words.  The CPU is
+    used only when asked for by name."""
     if device_type is not None:
         return device_type
-    return "cuda" if torch.cuda.is_available() else "cpu"
+    return resolve_device(None).type
 
 
 def _one_rank_world(device_type: str) -> None:
@@ -50,9 +54,9 @@ def _one_rank_world(device_type: str) -> None:
 def make_mesh(shape: Sequence[int], axes: Sequence[str], *,
               device_type: Optional[str] = None) -> DeviceMesh:
     """A mesh of ``shape`` over ranks 0.. in row-major order, its dims named
-    ``axes``, on ``device_type`` (default: ``cuda`` where there is a card,
-    else ``cpu``).  Needs a world of exactly that many ranks; a one-rank
-    mesh makes its own world where none exists."""
+    ``axes``, on ``device_type`` (default: ``cuda``, which raises where
+    there is no card; ``cpu`` only by name).  Needs a world of exactly that
+    many ranks; a one-rank mesh makes its own world where none exists."""
     shape, axes = tuple(int(n) for n in shape), tuple(axes)
     if len(shape) != len(axes):
         raise ValueError(f"make_mesh: {len(shape)} sizes for axes {axes}")

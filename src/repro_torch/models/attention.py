@@ -27,7 +27,8 @@ from .._device import resolve_device
 from ..configs.base import ModelCfg
 from ..kernels import ops
 from ..parallel.api import (all_gather, axis_index, current_mesh, current_rules,
-                            mesh_axis_names, mesh_shape)
+                            mesh_axis_names, mesh_shape, shard)
+from ..parallel.api import DTensor, Replicate, Shard, from_local, local_positions
 from .common import apply_rope, dense, dtype_of, ninit, softcap as softcap_scores
 
 NEG_INF = -1e30
@@ -168,7 +169,11 @@ def attn_forward(p, x, cfg: ModelCfg, *, positions=None, window=None, kv=None,
         q = dense(x, p["wq"])
         k, v = cross_attn_kv(p, kv, cfg)
         causal = False  # cross-attention attends to the full memory
+    q = shard(q, "batch", "seq", "heads", None)
+    k = shard(k, "batch", "seq", "kv_heads", None)
+    v = shard(v, "batch", "seq", "kv_heads", None)
     o = ops.mha(q, k, v, causal=causal, window=window, softcap=a.logit_softcap)
+    o = shard(o, "batch", "seq", "heads", None)
     return dense(o, p["wo"], 2)
 
 
@@ -269,6 +274,33 @@ def _sharded_flash_decode(q, k, v, idx, cfg: ModelCfg, mesh):
     return o.to(q.dtype).reshape(B, 1, H, Dh)
 
 
+def _lanes(c):
+    """The placements of a cache's lanes: split as its dim 0, else whole."""
+    return tuple(Shard(0) if isinstance(p, Shard) and p.dim == 0 else Replicate()
+                 for p in c.placements)
+
+
+def _split_length(c) -> bool:
+    """Whether a ``DTensor`` cache's length (dim 1) is split over the
+    ``model`` axis: the ``kv_seq`` rule of either decode rules."""
+    names = mesh_axis_names(c.device_mesh)
+    return "model" in names and c.placements[names.index("model")] == Shard(1)
+
+
+def write_slot(c, slot, new) -> None:
+    """``c[lane, slot[lane]] = new[lane]`` in place, for a ``DTensor`` cache
+    (a dry-run's), which DTensor cannot index in place: each rank writes its
+    own lanes of its shard, and where the cache is sequence-sharded only the
+    rank that holds a lane's slot writes it (the others write back what they
+    hold, as ``attn_decode_step``'s sharded path does)."""
+    lanes = _lanes(c)
+    c_l, at, own = local_positions(c, 1, slot, lanes)
+    new_l = new.redistribute(c.device_mesh, lanes).to_local().to(c_l.dtype)
+    lane = torch.arange(c_l.shape[0], device=c_l.device)
+    own = own.reshape(-1, *([1] * (new_l.ndim - 1)))
+    c_l[lane, at] = torch.where(own, new_l, c_l[lane, at])
+
+
 def attn_decode_step(p, x1, cache, index, cfg: ModelCfg, *, window=None):
     """x1: (B, 1, D); cache k/v: (B, L, KvH, Dh); index: scalar or per-lane
     (B,) current positions (continuous batching).  Returns
@@ -290,7 +322,8 @@ def attn_decode_step(p, x1, cache, index, cfg: ModelCfg, *, window=None):
 
     Under ``_flash_decode`` rules on a mesh with a ``model`` axis, without a
     window, the cache is this rank's slots of a sequence-sharded one
-    (``init_attn_cache``) and the step is ``_sharded_flash_decode``."""
+    (``init_attn_cache``) and the step is ``_sharded_flash_decode``; so it is
+    for a dry-run's ``DTensor`` cache whose length the rules split."""
     a = cfg.attn
     B = x1.shape[0]
     idx = torch.broadcast_to(torch.as_tensor(index, dtype=torch.int32, device=x1.device), (B,))
@@ -301,6 +334,18 @@ def attn_decode_step(p, x1, cache, index, cfg: ModelCfg, *, window=None):
     k, v = cache["k"], cache["v"]
     L = k.shape[1]
     lane = torch.arange(B, device=x1.device)
+    if isinstance(k, DTensor) and _split_length(k):
+        # a dry-run's: the same on each rank's local shards, under either
+        # rules (the eager form of the softmax that XLA partitions over the
+        # split length for the reference's plain decode)
+        mesh = k.device_mesh
+        write_slot(k, idx.long(), k1[:, 0])
+        write_slot(v, idx.long(), v1[:, 0])
+        lanes = _lanes(k)
+        local = lambda t: t.redistribute(mesh, lanes).to_local()
+        o = _sharded_flash_decode(local(q), k.to_local(), v.to_local(), local(idx), cfg, mesh)
+        o = from_local(o.to(x1.dtype), mesh, lanes, (B, 1, *q.shape[2:]))
+        return dense(o, p["wo"], 2), {"k": k, "v": v}
     if _decode_shards(window):
         # this rank's L slots of the sequence-sharded cache: the rank that
         # holds position idx writes it at idx - lo; the others write back
@@ -314,8 +359,12 @@ def attn_decode_step(p, x1, cache, index, cfg: ModelCfg, *, window=None):
         o = _sharded_flash_decode(q, k, v, idx, cfg, mesh).to(x1.dtype)
         return dense(o, p["wo"], 2), {"k": k, "v": v}
     slot = torch.remainder(idx, L).long() if window else idx.long()
-    k[lane, slot] = k1[:, 0].to(k.dtype)
-    v[lane, slot] = v1[:, 0].to(v.dtype)
+    if isinstance(k, DTensor):
+        write_slot(k, slot, k1[:, 0])
+        write_slot(v, slot, v1[:, 0])
+    else:
+        k[lane, slot] = k1[:, 0].to(k.dtype)
+        v[lane, slot] = v1[:, 0].to(v.dtype)
 
     length = torch.clamp(idx + 1, max=L) if window else idx + 1
     o = ops.decode(q[:, 0], k, v, length, softcap=a.logit_softcap)   # (B, H, Dh)

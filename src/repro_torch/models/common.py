@@ -17,6 +17,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..parallel.api import DTensor, reshape
+
 
 def dtype_of(name: str) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}[name]
@@ -38,6 +40,9 @@ def dense(x: torch.Tensor, w: torch.Tensor, contract: int = 1) -> torch.Tensor:
     x = x if x.dtype == dt else x.to(dt)
     w = w if w.dtype == dt else w.to(dt)
     lead, k = x.shape[:x.ndim - contract], math.prod(w.shape[:contract])
+    if isinstance(x, DTensor) or isinstance(w, DTensor):
+        y = reshape(x, (*lead, k)) @ reshape(w, (k, math.prod(w.shape[contract:])))
+        return reshape(y, (*lead, *w.shape[contract:]))
     return (x.reshape(*lead, k) @ w.reshape(k, -1)).reshape(*lead, *w.shape[contract:])
 
 

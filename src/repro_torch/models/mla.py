@@ -23,8 +23,9 @@ import torch
 
 from .._device import resolve_device
 from ..configs.base import ModelCfg
-from ..kernels import ops
-from .attention import NEG_INF
+from ..kernels import ops, regions
+from ..parallel.api import DTensor, shard
+from .attention import NEG_INF, write_slot
 from .common import apply_rope, dense, dtype_of, ninit
 
 
@@ -106,9 +107,13 @@ def _scale(cfg: ModelCfg) -> float:
     return (cfg.attn.nope_head_dim + cfg.attn.rope_head_dim) ** -0.5
 
 
-def mla_forward(p, x, cfg: ModelCfg, positions=None):
+def mla_forward(p, x, cfg: ModelCfg, positions=None, *, absorbed: bool = False):
     """Training/prefill path: decompress K/V and run causal MHA, ``ops.mha``
-    with queries and keys of nope + rope dims against values of v dims."""
+    with queries and keys of nope + rope dims against values of v dims.
+    ``absorbed`` says only how a dry-run counts the attention: as the
+    reference's absorbed chunked form (dots over the latent rank, keys in
+    1024-key chunks), where ``mla_forward_chunked`` stands for it; else as
+    its dense form."""
     a = cfg.attn
     pos = _positions(x, positions)
     q_nope, q_pe = _queries(p, x, cfg, pos)
@@ -117,16 +122,24 @@ def mla_forward(p, x, cfg: ModelCfg, positions=None):
     v = dense(c_kv, p["w_uv"])                                    # (B,S,H,v)
     q = torch.cat([q_nope, q_pe], dim=-1)
     k = torch.cat([k_nope, k_pe[:, :, None, :].expand(-1, -1, a.n_heads, -1)], dim=-1)
-    o = ops.mha(q, k, v, causal=True, scale=_scale(cfg))
+    if regions.traced(q):
+        o = regions.mha(q, k, v, causal=True, window=None, scale=_scale(cfg), softcap=None,
+                        form="chunked" if absorbed else "dense",
+                        dims=(a.kv_lora_rank + a.rope_head_dim, a.kv_lora_rank)
+                        if absorbed else None)
+    else:
+        o = ops.mha(q, k, v, causal=True, scale=_scale(cfg))
+    o = shard(o, "batch", "seq", "heads", None)
     return dense(o.to(x.dtype), p["wo"], 2)
 
 
 def mla_forward_chunked(p, x, cfg: ModelCfg, positions=None, kv_chunk: int = 1024):
     """Flash-style MLA for long sequences: online softmax over latent chunks,
     with queries absorbed into the latent space (q~ = q W_uk) so the chunk
-    working set is rank-r, not H*Dh.  On the card: K3 (``mla_forward``)."""
-    if x.device.type == "cuda":
-        return mla_forward(p, x, cfg, positions)
+    working set is rank-r, not H*Dh.  On the card, and on a dry-run's meta
+    or fake tensors: K3 (``mla_forward``)."""
+    if x.device.type == "cuda" or regions.traced(x):
+        return mla_forward(p, x, cfg, positions, absorbed=True)
     return mla_forward_chunked_plain(p, x, cfg, positions, kv_chunk)
 
 
@@ -207,8 +220,12 @@ def mla_decode_step(p, x1, cache, index, cfg: ModelCfg):
     c1, kpe1 = _latents(p, x1, cfg, pos)
     c_kv, k_pe = cache["c_kv"], cache["k_pe"]
     lane = torch.arange(B, device=x1.device)
-    c_kv.index_put_((lane, idx.long()), c1[:, 0].to(c_kv.dtype))
-    k_pe.index_put_((lane, idx.long()), kpe1[:, 0].to(k_pe.dtype))
+    if isinstance(c_kv, DTensor):
+        write_slot(c_kv, idx.long(), c1[:, 0])
+        write_slot(k_pe, idx.long(), kpe1[:, 0])
+    else:
+        c_kv.index_put_((lane, idx.long()), c1[:, 0].to(c_kv.dtype))
+        k_pe.index_put_((lane, idx.long()), kpe1[:, 0].to(k_pe.dtype))
 
     dt = torch.promote_types(q_nope.dtype, p["w_uk"].dtype)
     q_abs = torch.einsum("bshe,rhe->bshr", q_nope.to(dt), p["w_uk"].to(dt)).float()

@@ -14,7 +14,8 @@ import torch
 
 from ..configs.base import ModelCfg
 from ..parallel.api import (all_gather, axis_index, current_mesh, current_rules, local_slice,
-                            mesh_axis_names, mesh_shape, pmean, psum)
+                            mesh_axis_names, mesh_shape, placements, pmean, psum, shard)
+from ..parallel.api import DTensor, Replicate, from_local
 from .common import act_fn, dense, ninit
 
 
@@ -37,6 +38,7 @@ def specs_mlp():
 def mlp_forward(p, x, cfg: ModelCfg):
     act = act_fn(cfg.act)
     h = act(dense(x, p["w_gate"])) * dense(x, p["w_up"])
+    h = shard(h, "batch", "seq", "act_ff")
     return dense(h, p["w_down"])
 
 
@@ -85,15 +87,69 @@ def moe_forward(p, x, cfg: ModelCfg):
     model holds them: each rank takes its shard of ``p`` (``moe_ep_params``)
     and runs ``moe_forward_ep``, whose FSDP gathers restore what the slice
     over ``data`` took.  The reference's condition that the dp axes divide
-    the global batch holds of a batch already split over them."""
+    the global batch holds of a batch already split over them.
+
+    A ``DTensor`` ``x`` (a dry-run's) runs ``_moe_forward_dtensor``."""
     rules = current_rules()
     mesh = current_mesh()
     if rules is not None and mesh is not None and rules.rules.get("_moe_ep"):
         dp = tuple(a for a in ("pod", "data") if a in mesh_axis_names(mesh))
         _, shard_experts, shard_ff, mdl = _ep_layout(cfg, mesh)
         if dp and (mdl is None or shard_experts or shard_ff):
+            if isinstance(x, DTensor):
+                return _moe_forward_dtensor(p, x, cfg, mesh, ep_axes=dp)
             return moe_forward_ep(moe_ep_params(p, cfg, mesh), x, cfg, mesh, dp)
+    if isinstance(x, DTensor):
+        return _moe_forward_dtensor(p, x, cfg, x.device_mesh)
     return moe_forward_local(p, x, cfg)
+
+
+def _moe_forward_dtensor(p, x, cfg: ModelCfg, mesh, ep_axes=None):
+    """The MoE on ``DTensor``s, which have no strategy for its dispatch
+    (top-k, sort, capacity, ``index_add_``): the routed experts run on each
+    rank's local tensors, as a ``local_map`` region whose placements the
+    rules give.  The tokens are the rank's slice of the batch.  With
+    ``ep_axes`` (the ``_moe_ep`` rules) the region is ``moe_forward_ep`` on
+    its ``moe_ep_specs`` shards, with its own collectives.  Otherwise the
+    expert weights arrive gathered over their FSDP axes, split over
+    ``model`` on the expert dim (or within each expert), and the output is a
+    partial sum over ``model``; the shared experts run outside, as a dense
+    MLP on DTensors.  The aux loss is the mean of the ranks' own over the
+    batch axes, as on the EP path."""
+    from torch.distributed.tensor import Partial
+
+    names = mesh_axis_names(mesh)
+    rules = current_rules()
+    dp = tuple(a for a in ("pod", "data") if a in names)
+    x_pl = placements(rules.resolve(("batch", "seq", "act_embed")), mesh)
+    x_l = x.redistribute(mesh, x_pl).to_local()
+    local = lambda w, spec: w.redistribute(mesh, placements(spec, mesh)).to_local()
+    batch_axes = rules.rules.get("batch") or ()
+    batch_axes = (batch_axes,) if isinstance(batch_axes, str) else tuple(batch_axes)
+    aux_pl = [Partial("avg") if a in batch_axes else Replicate() for a in names]
+    if ep_axes is not None:
+        p_l = _map_specs(lambda t, w: local(w, t), moe_ep_specs(cfg, mesh), p)
+        y, aux = moe_forward_ep(p_l, x_l, cfg, mesh, ep_axes)
+        y_pl = x_pl
+        aux_pl = [Replicate()] * len(names)
+    else:
+        _, shard_experts, shard_ff, mdl = _ep_layout(cfg, mesh)
+        fsdp = lambda t: tuple(None if ax == "embed_tp" else ax for ax in t)
+        specs = _map_specs(lambda t: rules.resolve(fsdp(t)), specs_moe(cfg))
+        routed = {k: local(p[k], specs[k]) for k in ("router", "w_gate", "w_up", "w_down")}
+        e_local, e_off = cfg.moe.n_routed, 0
+        if shard_experts and rules.rules.get("experts") == mdl:
+            e_local = cfg.moe.n_routed // mesh_shape(mesh)[mdl]
+            e_off = axis_index(mdl, mesh) * e_local
+        y, aux = _moe_compute(routed, x_l, cfg, e_off=e_off, e_local=e_local, shared=False)
+        split = mdl is not None and (rules.rules.get("experts") == mdl
+                                     or rules.rules.get("ff_expert") == mdl)
+        y_pl = tuple(Partial() if (a == mdl and split) else pl for a, pl in zip(names, x_pl))
+    y = from_local(y, mesh, y_pl, x.shape)
+    aux = from_local(aux, mesh, aux_pl, ())
+    if ep_axes is None and cfg.moe.n_shared:
+        y = y + mlp_forward(p["shared"], x, cfg)
+    return y, aux
 
 
 def _map_specs(fn, specs, *rest):
@@ -210,7 +266,7 @@ def moe_forward_local(p, x, cfg: ModelCfg):
     return _moe_compute(p, x, cfg, e_off=0, e_local=cfg.moe.n_routed)
 
 
-def _moe_compute(p, x, cfg: ModelCfg, *, e_off, e_local: int):
+def _moe_compute(p, x, cfg: ModelCfg, *, e_off, e_local: int, shared: bool = True):
     """Sort-based dispatch restricted to the local expert range
     [e_off, e_off + e_local); expert weights ``p`` hold only that range (or
     an ff-slice of all experts, whose partial outputs the caller sums over
@@ -261,7 +317,7 @@ def _moe_compute(p, x, cfg: ModelCfg, *, e_off, e_local: int):
     y = torch.zeros((T, D), dtype=torch.float32, device=x.device).index_add_(
         0, tok_sorted, contrib).to(x.dtype)
 
-    if m.n_shared:
+    if m.n_shared and shared:
         sh = p["shared"]
         hs = act(dense(xt, sh["w_gate"])) * dense(xt, sh["w_up"])
         y = y + dense(hs, sh["w_down"])

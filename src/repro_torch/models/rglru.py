@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from .._device import resolve_device
 from ..configs.base import ModelCfg
 from ..kernels import ops
+from ..parallel.api import shard
 from .common import dense, dtype_of, ninit
 
 gelu = functools.partial(F.gelu, approximate="tanh")
@@ -103,6 +104,7 @@ def rglru_forward(p, x: torch.Tensor, cfg: ModelCfg, h0=None) -> torch.Tensor:
     u = dense(x, p["w_x"])
     y = gelu(dense(x, p["w_y"]))
     u, _ = _causal_conv(u, p["conv_w"], p["conv_b"])
+    u = shard(u, "batch", "seq", "act_ff")
     a, b = _gates(p, u, cfg)
     if h0 is not None:
         b = torch.cat([b[:, :1] + a[:, :1] * h0.float()[:, None], b[:, 1:]], dim=1)

@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from .._device import resolve_device
 from ..configs.base import ModelCfg
 from ..kernels import ops
+from ..parallel.api import shard
 from .common import dense, dtype_of, ninit
 from .rglru import _causal_conv, softplus
 
@@ -62,7 +63,9 @@ def specs_ssd(cfg: ModelCfg):
 
 def _split(p, x, cfg: ModelCfg):
     d_inner, H, P, N = dims(cfg)
-    proj = dense(x, p["w_in"])
+    # split over the model axis as ``w_in`` is, and its gradient too: the
+    # slices below gather it, and ``w_in``'s gradient is computed per shard
+    proj = shard(dense(x, p["w_in"]), "batch", "seq", "act_ff")
     z = proj[..., :d_inner]
     rest = proj[..., d_inner:2 * d_inner + 2 * N]
     dt = proj[..., proj.shape[-1] - H:]
@@ -139,6 +142,7 @@ def ssd_forward(p, x, cfg: ModelCfg):
     Cc = rest[..., d_inner + N:]
     dt = softplus(dt.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])
+    xh = shard(xh, "batch", "seq", "heads", None)
     # K5 on the dt-weighted inputs, as tests/kernels/test_kernels.py holds
     # the Pallas kernel to ssd_core_chunked
     xf = xh.float()

@@ -36,6 +36,8 @@ import torch.utils.checkpoint
 from .._device import resolve_device
 from ..configs.base import ModelCfg, Segment
 from . import attention, mla, mlp, rglru, ssd
+from ..parallel.api import (DTensor, Partial, Replicate, from_local, local_positions, on_split,
+                            shard)
 from .common import dense, dtype_of, init_norm, ninit, rms_norm, softcap, specs_norm
 
 MIXER_KINDS = ("attn", "local_attn", "enc_attn", "cross_attn", "mla", "rglru", "ssd")
@@ -62,6 +64,26 @@ def _stack(trees: list):
     if isinstance(trees[0], dict):
         return {k: _stack([t.pop(k) for t in trees]) for k in list(trees[0])}
     return torch.stack(trees)
+
+
+def _layers(params: list, repeats: int) -> list:
+    """Each repeat's parameters of a segment's stacked tree: views
+    (``_take``), or for ``DTensor`` leaves (a dry-run's) the leaves unbound
+    once, whose backward stacks the layers' gradients, where a view's
+    backward would zero a tensor of the whole stack for each layer."""
+    def unbind(tree):
+        if isinstance(tree, dict):
+            parts = {k: unbind(v) for k, v in tree.items()}
+            return [{k: v[r] for k, v in parts.items()} for r in range(repeats)]
+        return tree.unbind(0)
+
+    first = params[0]
+    while isinstance(first, dict):
+        first = next(iter(first.values()))
+    if not isinstance(first, DTensor):
+        return [[_take(p, r) for p in params] for r in range(repeats)]
+    per_pos = [unbind(p) for p in params]
+    return [[pos[r] for pos in per_pos] for r in range(repeats)]
 
 
 def _take(tree, r: int):
@@ -145,6 +167,13 @@ def _gate(p, kind: str, name: str, y):
     return torch.tanh(p["mixer"][name]).to(y.dtype) * y
 
 
+def _residual(y):
+    """A branch's output as the residual stream holds it (``act_embed``):
+    on a mesh, the sum over the model axis of a row-parallel product's
+    partials happens here, where the branch joins the stream."""
+    return shard(y, "batch", "seq", "act_embed")
+
+
 def _ffn(p, x, kind: str, ffn: str, cfg: ModelCfg):
     """The ffn's pre-norm residual.  Returns (x, aux_loss)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -155,7 +184,7 @@ def _ffn(p, x, kind: str, ffn: str, cfg: ModelCfg):
         f = mlp.mlp_forward(p["ffn"], h, cfg)
     else:
         f, aux = mlp.moe_forward(p["ffn"], h, cfg)
-    return x + _gate(p, kind, "gate_ffn", f), aux
+    return x + _residual(_gate(p, kind, "gate_ffn", f)), aux
 
 
 def block_forward(p, x, kind: str, ffn: str, cfg: ModelCfg, *, positions=None, memory=None,
@@ -181,7 +210,7 @@ def block_forward(p, x, kind: str, ffn: str, cfg: ModelCfg, *, positions=None, m
         m = rglru.rglru_forward(p["mixer"], h, cfg)
     else:
         m = ssd.ssd_forward(p["mixer"], h, cfg)
-    return _ffn(p, x + m, kind, ffn, cfg)
+    return _ffn(p, x + _residual(m), kind, ffn, cfg)
 
 
 def init_block_cache(kind: str, batch: int, seq_len: int, cfg: ModelCfg, device=None):
@@ -235,7 +264,7 @@ def block_decode_step(p, x1, cache, index, kind: str, ffn: str, cfg: ModelCfg):
         m, cache = rglru.rglru_decode_step(p["mixer"], h, cache, cfg)
     else:
         m, cache = ssd.ssd_decode_step(p["mixer"], h, cache, cfg)
-    x1, _ = _ffn(p, x1 + m, kind, ffn, cfg)
+    x1, _ = _ffn(p, x1 + _residual(m), kind, ffn, cfg)
     return x1, cache
 
 
@@ -281,8 +310,9 @@ def segment_forward(params, x, seg: Segment, cfg: ModelCfg, *, positions=None, m
 
     remat = cfg.remat == "block" and torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    layers = _layers(params, seg.repeats)
     for r in range(seg.repeats):
-        layer_params = [_take(p, r) for p in params]
+        layer_params = layers[r]
         if remat:
             x, aux = torch.utils.checkpoint.checkpoint(body, x, aux, layer_params,
                                                        use_reentrant=False)
@@ -364,17 +394,35 @@ def specs_lm(cfg: ModelCfg):
     return p
 
 
+def _embed_sharded(table, tokens):
+    """A ``DTensor`` table's rows for ``tokens`` (a dry-run's), the vocab-
+    parallel way: the table's embed dim gathered (its FSDP split), each rank
+    looks up the tokens that fall in its vocab slice and leaves the sum over
+    the slices partial.  DTensor's own lookup would build its backward in a
+    zeroed table of the global shape (and some torch versions refuse it)."""
+    mesh = table.device_mesh
+    table = table.redistribute(mesh, on_split(table, 1, table.placements, Replicate()))
+    tok_pl = on_split(table, 0, tokens.placements, Replicate())
+    t_l, i, inside = local_positions(table, 0, tokens, tok_pl)
+    x = t_l[i] * inside[..., None].to(t_l.dtype)
+    return from_local(x, mesh, on_split(table, 0, tok_pl, Partial()),
+                      (*tokens.shape, table.shape[1]))
+
+
 def _embed(p, tokens, cfg: ModelCfg):
-    x = p["embed"][torch.as_tensor(tokens, device=p["embed"].device).long()]
+    if isinstance(p["embed"], DTensor):
+        x = _embed_sharded(p["embed"], tokens)
+    else:
+        x = p["embed"][torch.as_tensor(tokens, device=p["embed"].device).long()]
     if cfg.scale_embeddings:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
-    return x
+    return shard(x, "batch", "seq", "act_embed")
 
 
 def _head(p, x, cfg: ModelCfg):
     x = rms_norm(x, p["ln_f"]["scale"], cfg.norm_eps, plus_one=cfg.norm == "rmsnorm_p1")
     head = p["embed"].T if cfg.tie_embeddings else p["lm_head"]
-    return softcap(dense(x, head), cfg.logit_softcap)
+    return shard(softcap(dense(x, head), cfg.logit_softcap), "batch", "seq", "vocab")
 
 
 def _memory_states(p, batch, cfg: ModelCfg):
@@ -393,6 +441,7 @@ def _memory_states(p, batch, cfg: ModelCfg):
         mem = torch.as_tensor(fe).to(device=p["embed"].device, dtype=p["embed"].dtype)
         if "frontend_proj" in p:
             mem = dense(mem, p["frontend_proj"])
+        mem = shard(mem, "batch", None, "act_embed")
     if cfg.encoder_segments:
         if mem is None:
             raise ValueError("an encoder-decoder model needs batch['frontend_embeds']")

@@ -38,9 +38,10 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 try:
-    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 except ImportError:  # pragma: no cover - torch before 2.4
     from torch.distributed._tensor import DTensor, Replicate, Shard
+    from torch.distributed._tensor import Partial
 
 _state = threading.local()
 
@@ -189,14 +190,124 @@ def placements(spec: Sequence[MeshAxes], mesh: Mesh) -> tuple:
     return tuple(out)
 
 
+class _Constrain(torch.autograd.Function):
+    """A sharding constraint on a value and on its gradient, as JAX's
+    ``with_sharding_constraint`` transposes to one on the cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, pl):
+        ctx.pl = pl
+        return x.redistribute(x.device_mesh, pl)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.redistribute(g.device_mesh, ctx.pl), None
+
+
 def shard(x, *logical: Optional[str]):
     """Annotate ``x`` with logical axes: a ``DTensor`` is redistributed to
-    the resolved placements; a plain tensor (one rank's local data) is
-    returned as it is, as is anything outside a rules context."""
+    the resolved placements, and so is its gradient; a plain tensor (one
+    rank's local data) is returned as it is, as is anything outside a rules
+    context."""
     r = current_rules()
     if r is None or not isinstance(x, DTensor):
         return x
-    return x.redistribute(x.device_mesh, placements(r.resolve(logical), x.device_mesh))
+    return _Constrain.apply(x, placements(r.resolve(logical), x.device_mesh))
+
+
+def from_local(t: torch.Tensor, mesh, pl, shape) -> "DTensor":
+    """A ``DTensor`` of global ``shape`` (contiguous) over ``t``, this rank's
+    shard under placements ``pl``, without checking the other ranks'."""
+    shape = torch.Size(int(n) for n in shape)
+    stride = tuple(int(s) for s in torch.empty(shape, device="meta").stride())
+    return DTensor.from_local(t, mesh, pl, run_check=False, shape=shape, stride=stride)
+
+
+def on_split(x: "DTensor", dim: int, pl, like) -> tuple:
+    """``pl`` with ``like`` on each mesh dim that splits ``x``'s dim ``dim``."""
+    return tuple(like if isinstance(q, Shard) and q.dim == dim else p
+                 for q, p in zip(x.placements, pl))
+
+
+def local_shard(x: "DTensor", dim: int) -> tuple[torch.Tensor, int]:
+    """This rank's shard of ``x`` and the global position along ``dim`` at
+    which it starts."""
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    _, offset = compute_local_shape_and_global_offset(x.shape, x.device_mesh, x.placements)
+    return x.to_local(), offset[dim]
+
+
+def local_positions(x: "DTensor", dim: int, idx: "DTensor", idx_pl) -> tuple:
+    """The local form of indexing ``x`` along ``dim`` by ``idx`` (global
+    positions), which DTensor has no strategy for, or only one that builds
+    the backward in a zeroed tensor of the global shape: the dry-run's
+    vocab-parallel lookups and its in-place cache writes.  Returns this
+    rank's shard of ``x``; ``idx``'s shard under placements ``idx_pl``, moved
+    into x's shard and clamped there; and where ``idx`` falls in the shard.
+    A masked op on these, made a ``DTensor`` again (``from_local``) with
+    ``Partial`` on the mesh dims that split ``dim`` (``on_split``), is the
+    global op."""
+    loc, lo = local_shard(x, dim)
+    n = loc.shape[dim]
+    i = idx.redistribute(x.device_mesh, idx_pl).to_local().long()
+    return loc, torch.clamp(i - lo, 0, n - 1), (i >= lo) & (i < lo + n)
+
+
+def split_rows(x: torch.Tensor, n: int) -> list:
+    """``n`` equal slices of ``x``'s rows (dim 0), in order.  A ``DTensor`` is
+    split on each rank, into its own rows' ``n`` slices, so every slice keeps
+    x's placements: a slice then holds other rows of the global tensor than
+    a plain split's, and the slices hold all of them between them."""
+    if not isinstance(x, DTensor):
+        return list(x.unflatten(0, (n, -1)).unbind(0))
+    shape = (x.shape[0] // n, *x.shape[1:])
+    return [from_local(part, x.device_mesh, x.placements, shape)
+            for part in x.to_local().unflatten(0, (n, -1)).unbind(0)]
+
+
+def _split_safe(x, shape):
+    """``x``, with every mesh dim gathered whose shards of a dim of ``x``
+    the reshape to ``shape`` would split unevenly: DTensor shards the first
+    of the dims that a dim splits into, which needs its size to divide."""
+    src, dst = tuple(x.shape), tuple(shape)
+    first, j = [], 0
+    for n in src:                 # each source dim's first target dim
+        while j < len(dst) and dst[j] == 1 and n != 1:
+            j += 1
+        first.append(dst[j] if j < len(dst) else 1)
+        acc = 1
+        while j < len(dst) and acc < n:
+            acc *= dst[j]
+            j += 1
+        if acc != n:              # not a pure split or merge: let DTensor decide
+            return x
+    mesh = x.device_mesh
+    pl = tuple(Replicate() if isinstance(p, Shard) and (mesh.size(i) == 1
+                                                        or first[p.dim] % mesh.size(i)) else p
+               for i, p in enumerate(x.placements))
+    return x if pl == tuple(x.placements) else x.redistribute(mesh, pl)
+
+
+class _Reshape(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, shape):
+        ctx.shape = tuple(x.shape)
+        return _split_safe(x, shape).reshape(shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _split_safe(g, ctx.shape).reshape(ctx.shape), None
+
+
+def reshape(x: torch.Tensor, shape) -> torch.Tensor:
+    """``x.reshape(shape)``; a ``DTensor`` first gathers, both ways (its
+    gradient too), each mesh dim whose shards the reshape cannot split: where
+    DTensor sharded a product's columns over more ranks than the heads they
+    hold (4 KV heads over 16)."""
+    if not isinstance(x, DTensor):
+        return x.reshape(shape)
+    return _Reshape.apply(x, tuple(int(n) for n in shape))
 
 
 def named_sharding(mesh: Mesh, logical: Sequence[Optional[str]], rules: ShardingRules) -> tuple:

@@ -23,7 +23,9 @@ from .._device import resolve_device
 from ..configs.base import ModelCfg
 from ..models import transformer
 from ..optim.adamw import OptCfg, adamw_update, init_opt_state
-from ..parallel.api import DTensor, current_rules, mesh_axis_names, placements, spec_leaves
+from ..parallel.api import (DTensor, Partial, Replicate, current_rules, from_local,
+                            local_positions, local_shard, mesh_axis_names, on_split,
+                            placements, spec_leaves, split_rows)
 from ..parallel.compression import pod_grads_compressed
 
 
@@ -48,13 +50,43 @@ def make_loss_fn(cfg: ModelCfg):
         lf = logits.float()
         m = lf.amax(-1).detach()
         lse = m + torch.log(torch.exp(lf - m[..., None]).sum(-1))
-        tgt = lf.gather(-1, labels[..., None])[..., 0]
         denom = torch.clamp(mask.sum(), min=1.0)
+        if isinstance(lf, DTensor):
+            tgt, top = _target_logit_sharded(lf, labels), _argmax_sharded(lf, m)
+        else:
+            tgt, top = lf.gather(-1, labels[..., None])[..., 0], logits.argmax(-1)
         xent = ((lse - tgt) * mask).sum() / denom
         return xent + aux, {"xent": xent, "aux": aux,
-                            "accuracy": ((logits.argmax(-1) == labels) * mask).sum() / denom}
+                            "accuracy": ((top == labels) * mask).sum() / denom}
 
     return loss_fn
+
+
+def _target_logit_sharded(lf, labels):
+    """The target logit of a ``DTensor``'s rows (a dry-run's), taken on each
+    rank from its vocab shard: a rank gathers the labels that fall in its
+    slice and the sum over the vocab shards is left partial.  DTensor's own
+    gather would build its backward in a zeroed tensor of the global shape."""
+    vocab = lf.ndim - 1
+    loc, i, inside = local_positions(lf, vocab, labels,
+                                     on_split(lf, vocab, lf.placements, Replicate()))
+    tgt = loc.gather(-1, i[..., None])[..., 0] * inside
+    return from_local(tgt, lf.device_mesh, on_split(lf, vocab, lf.placements, Partial()),
+                      labels.shape)
+
+
+def _argmax_sharded(lf, m):
+    """``lf.argmax(-1)`` of a ``DTensor`` split over its vocab (a dry-run's),
+    which DTensor cannot take across the shards: each rank finds the first
+    column of its shard that reaches the row's maximum ``m``, and the least
+    over the shards is the first maximum, as ``argmax`` picks it."""
+    vocab, mesh = lf.ndim - 1, lf.device_mesh
+    loc, lo = local_shard(lf, vocab)
+    m_l = m.redistribute(mesh, on_split(lf, vocab, lf.placements, Replicate())).to_local()
+    cols = torch.arange(lo, lo + loc.shape[-1], device=loc.device)
+    first = torch.where(loc == m_l[..., None], cols, lf.shape[-1]).amin(-1)
+    return from_local(first, mesh, on_split(lf, vocab, lf.placements, Partial("min")),
+                      m.shape)
 
 
 # ---------------------------------------------------------------------------
@@ -111,11 +143,11 @@ def make_grad_fn(cfg: ModelCfg, num_microbatches: int = 1):
             if v.shape[0] % num_microbatches:
                 raise ValueError(f"make_grad_fn: {k} holds {v.shape[0]} sequences, which "
                                  f"{num_microbatches} microbatches do not divide")
-        mbs = [{k: v.unflatten(0, (num_microbatches, -1))[i] for k, v in batch.items()}
-               for i in range(num_microbatches)]
+        parts = {k: split_rows(v, num_microbatches) for k, v in batch.items()}
+        mbs = [{k: v[i] for k, v in parts.items()} for i in range(num_microbatches)]
         loss_sum = torch.zeros((), dtype=torch.float32, device=batch["tokens"].device)
-        grad_acc = _tree.map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                                   device=p.device), params)
+        grad_acc = _tree.map(lambda p: torch.zeros_like(
+            p, dtype=torch.float32, memory_format=torch.contiguous_format), params)
         per_mb = []
         for mb in mbs:
             loss, metrics, grads = value_and_grad(params, mb)
@@ -196,6 +228,11 @@ def make_serve_step(cfg: ModelCfg, temperature: float = 0.0, *, device=None):
             params, cache, torch.as_tensor(tokens1, device=dev),
             torch.as_tensor(index, dtype=torch.int32, device=dev), cfg)
         last = logits[:, -1, :].float()
+        if isinstance(last, DTensor):
+            # a dry-run's: the row gathered over its vocab shards, as
+            # DTensor's own argmax across them fails on some layouts
+            last = last.redistribute(last.device_mesh,
+                                     on_split(last, 1, last.placements, Replicate()))
         if temperature > 0.0 and rng is not None:
             probs = torch.softmax(last / temperature, dim=-1)
             next_tok = torch.multinomial(probs, 1, generator=rng)[:, 0]

@@ -2,7 +2,8 @@
 expert-parallel MoE (both routes), the int8-compressed cross-pod gradient
 all-reduce, the sequence-sharded decode (a rank with no valid key for some
 lanes, and a capped case), the int8 train step and the sharded restore, each
-on the mesh ``("pod", "data", "model") = (2, 2, 2)``.
+on the mesh ``("pod", "data", "model") = (2, 2, 2)``; and the DTensor
+regions of the dry-run on values, against plain torch.
 
 One world of 8 gloo ranks on the CPU (``tests/torch_dist_worker.py``, one
 process a rank over a ``FileStore`` in a temporary directory) runs every
@@ -340,3 +341,12 @@ def test_restore_onto_the_mesh_gives_each_rank_its_slices(world):
             np.testing.assert_array_equal(out[f"restore/leaf/{key}"], exp, err_msg=key)
             sharded += exp.shape != saved.shape
     assert sharded > 0
+
+
+def test_dtensor_local_regions_match_plain_torch(world):
+    """The DTensor regions that only a dry-run takes (the sharded argmax and
+    target logit, the vocab-parallel lookup, the in-place cache write), run
+    on values on every rank, equal plain torch on the whole tensors."""
+    _, ranks = world
+    for out in ranks:
+        np.testing.assert_array_equal(out["local_indexing/errors"], 0.0)

@@ -270,3 +270,19 @@ def test_a_one_rank_device_mesh_takes_the_same_rules_and_redistributes_dtensors(
         assert api.current_rules() is None and api.current_mesh() is None
         with pytest.raises(RuntimeError, match="needs a world of 8 ranks"):
             make_mesh((2, 2, 2), ("pod", "data", "model"), device_type="cpu")
+
+
+def test_a_mesh_without_a_device_type_is_the_cards():
+    """``device_type=None`` means the card, as every entry point's device
+    does: without one it raises in ``resolve_device``'s words, and the CPU is
+    taken only by name."""
+    from repro_torch.launch import mesh as mesh_mod
+
+    if torch.cuda.is_available():
+        assert mesh_mod._device_type(None) == "cuda"
+        return
+    for make in (lambda: make_mesh((1, 1), ("data", "model")), host_device_mesh,
+                 mesh_mod.make_production_mesh):
+        with pytest.raises(RuntimeError, match="no CUDA device available"):
+            make()
+    assert not dist.is_initialized()

@@ -30,12 +30,13 @@ from repro_torch.optim.adamw import OptCfg, adamw_update, opt_state_specs
 from repro_torch.parallel import compression
 from repro_torch.parallel.api import (coordinate, local_slice, named_sharding, use_rules)
 from repro_torch.parallel.rules import rules_for
-from repro_torch.train.steps import init_train_state, make_grad_fn, make_train_step
+from repro_torch.train.steps import (_argmax_sharded, _target_logit_sharded, init_train_state,
+                                     make_grad_fn, make_train_step)
 
 try:
-    from torch.distributed.tensor import distribute_tensor
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
 except ImportError:  # pragma: no cover - torch before 2.4
-    from torch.distributed._tensor import distribute_tensor
+    from torch.distributed._tensor import Replicate, Shard, distribute_tensor
 
 SHAPE, AXES = (2, 2, 2), ("pod", "data", "model")
 # the reference test's MoE configs: E=8 splits over model=2, E=3 does not
@@ -217,6 +218,44 @@ def case_restore(mesh, directory: Path) -> dict:
     return out
 
 
+def case_local_indexing(mesh) -> dict:
+    """The dry-run's local regions on DTensors that hold values: the argmax
+    and the target logit over vocab shards (small integer logits, so rows
+    tie across shards), the vocab-parallel embedding lookup and the in-place
+    cache write, each under two layouts, against plain torch on the whole
+    tensors.  One error a check; every one must be 0."""
+    R, S = Replicate(), Shard
+    g = torch.Generator().manual_seed(7)
+    lf = torch.randint(0, 5, (4, 3, 12), generator=g).float()
+    labels = torch.randint(0, 12, (4, 3), generator=g)
+    table = torch.randn(12, 8, generator=g)
+    tokens = torch.randint(0, 12, (4, 3), generator=g)
+    cache = torch.randn(4, 8, 2, 3, generator=g)
+    slot = torch.tensor([0, 3, 5, 7])
+    new = torch.randn(4, 2, 3, generator=g)
+    errors = []
+    for pl in ((S(0), R, S(2)), (R, S(2), S(2))):
+        d = distribute_tensor(lf, mesh, pl)
+        lab = distribute_tensor(labels, mesh, tuple(R if isinstance(p, Shard) and p.dim == 2
+                                                    else p for p in pl))
+        top = _argmax_sharded(d, d.amax(-1)).full_tensor()
+        errors.append(float((top != lf.argmax(-1)).sum()))
+        tgt = _target_logit_sharded(d, lab).full_tensor()
+        errors.append(float((tgt - lf.gather(-1, labels[..., None])[..., 0]).abs().max()))
+    for pl in ((R, S(0), S(1)), (S(0), S(0), R)):
+        x = transformer._embed_sharded(distribute_tensor(table, mesh, pl),
+                                       distribute_tensor(tokens, mesh, (S(0), R, R)))
+        errors.append(float((x.full_tensor() - table[tokens]).abs().max()))
+    for pl in ((S(0), R, S(1)), (R, R, S(1))):
+        c = distribute_tensor(cache, mesh, pl)
+        attention.write_slot(c, distribute_tensor(slot, mesh, (R, R, R)),
+                             distribute_tensor(new, mesh, (R, R, R)))
+        want = cache.clone()
+        want[torch.arange(4), slot] = new
+        errors.append(float((c.full_tensor() - want).abs().max()))
+    return {"errors": np.asarray(errors)}
+
+
 def _spec_map(fn, tree):
     if isinstance(tree, dict):
         return {k: _spec_map(fn, v) for k, v in tree.items()}
@@ -246,7 +285,8 @@ def main(rank: int, world: int, directory: Path) -> None:
               ("decode", case_decode(mesh, inputs, capped=False)),
               ("decode_capped", case_decode(mesh, inputs, capped=True)),
               ("train", case_train(mesh, inputs, directory)),
-              ("restore", case_restore(mesh, directory))]
+              ("restore", case_restore(mesh, directory)),
+              ("local_indexing", case_local_indexing(mesh))]
     for prefix, part in parts:
         out.update({f"{prefix}/{k}": v for k, v in part.items()})
     out["imports_clean"] = np.asarray(not any(m == "jax" or m == "repro" or m.startswith(

@@ -120,16 +120,20 @@ their kernels' registers and spills (``ptxas``), and gemm's a check on
 65,536 lanes held to its plain version on the card.  An ``s1_gap`` line
 sums launches x (ms - bound) over the rows the main path ran.  The S2 rows
 (``flash_attention_bwd[...]``) name the kernels of the route that ran
-(``flash_attention.bwd_route``: bfloat16 on the tensor cores below head dim
-256), and carry each output's error and the backward of SDPA as
-``library_ms``.  The S3 rows (``ssd_scan_bwd[...]``, the SSD scan's
+(``flash_attention.bwd_route``: bfloat16 on the tensor cores, float32 on
+the CUDA cores), and carry each output's error, the backward of SDPA as
+``library_ms`` and each kernel's device time and launches a call
+(``stage_device_ms``: Delta, dK/dV, at head dim 256 the sum of the head
+slices, dQ); RecurrentGemma's row adds the source's registers and spills.
+The S3 rows (``ssd_scan_bwd[...]``, the SSD scan's
 backward, six kernels a call) and S4 rows (``rglru_scan_bwd[...]``) carry
 each output's error against the float64 plain backward, ``device_ms``,
 S3's kernels' device times a call (each training row also its kernels'
 registers and spills), and ``library_ms`` null; S3's bound counts its products with
 B and C once over the heads' sum.  The capped rows (``... softcap 50]``: K3,
 K4 and S2 under the cap, with checks at RecurrentGemma's head dim 256, on
-S2's CUDA cores and at MLA's (192, 128), which raises ``ValueError``) carry
+S2's float32 CUDA cores and at MLA's (192, 128), which raises
+``ValueError``) carry
 ``library_ms`` null (no single PyTorch call caps the scores), a bound that
 counts the exp and the tanh a visible pair needs on the special-function
 unit (S2 too, though its two passes form them twice), ``err_share_of_limit``,
@@ -2185,7 +2189,7 @@ def s2_case(case: str, B, Sq, Sk, H, KvH, D, dtype, device, g, *, causal=True,
     try:
         if softcap is not None:
             raise RuntimeError(NO_CAPPED_LIBRARY)
-        if window is None:
+        if window is None or window >= Sq:            # a window that masks nothing
             out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal, enable_gqa=True)
         else:
             out = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=valid, enable_gqa=True)
@@ -2223,6 +2227,7 @@ def s2_case(case: str, B, Sq, Sk, H, KvH, D, dtype, device, g, *, causal=True,
         "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": time_ms(library, 10) if library else None,
         "device_ms": graph_ms(kernel)[0],
+        **stage_profile(kernel, fa.BWD_KERNELS[route]),
         # the library's backward runs through autograd, whose capture in a
         # CUDA graph is refused; a refused capture has left memory reserved
         "library_device_ms": None,
@@ -2248,19 +2253,26 @@ def s2_shape_key(row: dict) -> tuple:
 def phase_kernels_s2(device) -> list[dict]:
     """S2 at the shapes the training paths run it at — tinyllama-1.1b's
     step in bfloat16, the example's TINYLM in float32, deepseek-v2-lite's
-    MLA (192, 128) in bfloat16 — then checks no main path counts: head dims
-    128 and 256 (the latter on the CUDA cores), groups 1 and 16, a window, a
-    non-causal call with Sq != Sk, D != Dv in float32 (padded)."""
+    MLA (192, 128) in bfloat16, RecurrentGemma's local attention (head dim
+    256, 16/1, window 2048) in bfloat16, with the registers and spills of
+    every kernel of the source — then checks no main path counts: head dims
+    128 and 256, groups 1 and 16, a window, a non-causal call with Sq != Sk,
+    D != Dv in float32 (padded)."""
     g = torch.Generator(device="cpu").manual_seed(SEED + 9)
     a = get_config(ARCH).attn
     t = train_example().TINYLM.attn
     m = get_config(DEEPSEEK).attn
+    r = get_config(RGEMMA).attn
     dqk = m.nope_head_dim + m.rope_head_dim
+    rb, rs = TRAIN_ARCH_SHAPE.get(RGEMMA, (2, 2048))
     rows = [s2_case("train", TRAIN_B, TRAIN_S, TRAIN_S, a.n_heads, a.n_kv_heads, a.d_head,
                     BF16, device, g),
             s2_case("example", 4, 128, 128, t.n_heads, t.n_kv_heads, t.d_head, F32, device, g),
             s2_case("MLA train", MLA_GRAD_B, MLA_GRAD_S, MLA_GRAD_S, m.n_heads, m.n_kv_heads,
-                    dqk, BF16, device, g, Dv=m.v_head_dim)]
+                    dqk, BF16, device, g, Dv=m.v_head_dim),
+            s2_case("RG train", rb, rs, rs, r.n_heads, r.n_kv_heads, r.d_head, BF16, device, g,
+                    window=r.window)]
+    rows[3]["ptxas"] = ptxas_rows("flash_attention_bwd.cu")
     rows[0]["checks"] = [
         s2_case("D 128", 2, 512, 512, 16, 2, 128, BF16, device, g),
         s2_case("D 256, group 16", 2, 512, 512, 16, 1, 256, BF16, device, g),
@@ -2306,8 +2318,8 @@ def phase_kernels_softcap(device) -> tuple[list[dict], list[dict], list[dict]]:
     (a length a lane); S2 on the tensor cores at its gradient's shape.  Then
     checks no main path counts (``launches: null``): K3 at RecurrentGemma's
     2 x 4096 prefill (head dim 256, 16/1, window 2048), the capped partials
-    and their merge, S2 on the CUDA cores (head dim 256 and float32), the
-    three bfloat16 routes (``tanh.approx``) with queries ``NEAR_CAP_Q`` times
+    and their merge, S2 at head dim 256 (tensor cores) and in float32 (CUDA
+    cores), the three bfloat16 routes (``tanh.approx``) with queries ``NEAR_CAP_Q`` times
     normal, and the refusal at (192, 128).  Queries ``PEAKED_Q`` times
     normal elsewhere, so that the cap bends the scores."""
     g = torch.Generator(device="cpu").manual_seed(SEED + 12)
@@ -3180,7 +3192,7 @@ def phase_train_archs(device) -> dict:
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
             losses.append(float(m["loss"]))
-        n = counts()
+        n, shapes = counts(), {"flash_attention_bwd": dict(fab.by_shape)}
         expect(f"train {arch}", n, **{k: 3 * v for k, v in train_launches(cfg).items()})
         if not all(np.isfinite(losses)):
             fail(f"train {arch}: losses {losses}")
@@ -3200,7 +3212,7 @@ def phase_train_archs(device) -> dict:
         if arch in GRAD_ONLY:
             row["why_gradients_only"] = GRAD_ONLY[arch]
         emit(f"train[{arch}]", row)
-        ran[arch] = {"launches": n, "shape": (B, S)}
+        ran[arch] = {"launches": n, "shape": (B, S), "shapes": shapes}
         del state, batches, step
     torch.cuda.empty_cache()
     return ran
@@ -3635,10 +3647,11 @@ def main() -> None:
         if archs[arch]["shape"] != (row["shape"]["B"], row["shape"]["S"]):
             fail(f"{row['name']}: {arch} trained at {archs[arch]['shape']}")
         row["launches"] = archs[arch]["launches"][kernel]
-    # S2's rows: the full-width step's calls, the example's calls and
-    # deepseek's MLA gradients', each all of its phase's; K3 at the training
-    # shape: the full-width step's
-    for row, ran in ((s2_rows[0], trained), (s2_rows[1], example), (s2_rows[2], mla_grads)):
+    # S2's rows: the full-width step's calls, the example's calls,
+    # deepseek's MLA gradients' and RecurrentGemma's training calls, each all
+    # of its phase's; K3 at the training shape: the full-width step's
+    for row, ran in ((s2_rows[0], trained), (s2_rows[1], example), (s2_rows[2], mla_grads),
+                     (s2_rows[3], archs[RGEMMA])):
         by_shape = ran["shapes"]["flash_attention_bwd"]
         row["launches"] = by_shape.get(s2_shape_key(row), 0)
         if row["launches"] != ran["launches"]["flash_attention_bwd"]:

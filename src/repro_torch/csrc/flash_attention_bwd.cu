@@ -1,6 +1,6 @@
 // The gradient of flash attention (causal / sliding-window / kv_len masks, GQA):
 // dQ, dK and dV from Q, K, V, the forward's output O, its row log-sum-exps
-// and dO, in three launches.
+// and dO, in three launches (four where a group's query heads are sliced).
 //
 // Replaces no TPU kernel: the reference trains through XLA's autodiff of the
 // plain jnp attention (repro/models/attention.py:63, `flash_attention`, under
@@ -21,8 +21,9 @@
 //                    and dS again, and dQ += dS K in registers.
 // Each output element is written by one thread of one block, once: no atomics,
 // so a call is deterministic.  A GQA group's dK and dV are summed over its
-// query heads inside the block.  S and dP are computed in both passes: seven
-// products where five would do, 1.4x the bound's work.
+// query heads inside the block (at head dim 256 over a slice of them, and the
+// slices' sums added in a fourth launch).  S and dP are computed in both
+// passes: seven products where five would do, 1.4x the bound's work.
 //
 // Bound on this card: operations.  The five products take 2 B H (3 D + 2 Dv)
 // operations a pair the masks leave; at tinyllama's training shape (B 4,
@@ -30,7 +31,7 @@
 // against about 150 MB of inputs and outputs, 0.045 ms at 3.35 TB/s.
 //
 // bfloat16 (`flash_bwd_dkdv_wgmma`, `flash_bwd_dq_wgmma`, templates on the
-// head dims <DQK, DV> as the forward's are; built for <16, 16> .. <128, 128>
+// head dims <DQK, DV> as the forward's are; built for <16, 16> .. <256, 256>
 // and MLA's <192, 128>).  Every product runs on the tensor cores,
 // `wgmma.mma_async` m64nNk16 with f32 accumulators.  A block is two
 // warpgroups, 256 threads, with up to 255 registers each (a ninth, producer
@@ -53,10 +54,22 @@
 //   each key row's bounds on its query columns are tested only in tiles a
 //   mask reaches, and query columns at or past Sq are masked, not left to
 //   TMA's zero fill.  BQ is 64 where dK, dV, S^T and dP^T fit (DQK + DV)/2 +
-//   BQ <= 192 accumulators a thread, else 32 (m64n32 products): <192, 128>.
+//   BQ <= 192 accumulators a thread, else 32 (m64n32 products).
+//   At head dim 256 (SPLIT) dK and dV of 64 keys would take 256 accumulators
+//   a thread, K and V of 128 keys take 128 KB of shared memory, and under MQA
+//   the grid (KvH, B, Sk/128) gives RecurrentGemma's 2 x 2048 16/1 32 blocks
+//   for 132 SMs.  So a block accumulates one output: dV = P^T dO (from S
+//   alone: no V tile, no dP^T product) or dK = dS^T Q, 128 accumulators a
+//   thread, and takes a slice of its group's query heads; the grid is (KV
+//   head x slice x output, B, Sk/128).  The slices' float32 sums go to a
+//   scratch the caller allocates, and `flash_bwd_dkdv_sum` adds them in
+//   slice order and rounds them to bf16 (a group of one slice writes dK and
+//   dV directly).  S and P are formed by both outputs' blocks and by dQ's:
+//   eight products where five would do.
 //   dQ: a block holds 128 query rows (64 a warpgroup) and streams
-//   (K, V) tiles of 64 keys; each thread keeps its two rows' lse and Delta
-//   in registers; dQ += dS K reads K N-major (n192 at MLA's DQK).  At DQK
+//   (K, V) tiles of 64 keys (32 at head dim 256, for the ring's room beside
+//   Q and dO); each thread keeps its two rows' lse and Delta in registers;
+//   dQ += dS K reads K N-major (n192 at MLA's DQK, n256 at 256).  At DQK
 //   <= 64 two blocks share an SM.
 // The roundings beyond the plain version's are P^T and dS^T (and dS) to bf16
 // before the three products that take them, as SDPA's backward rounds.
@@ -72,15 +85,12 @@
 // exp2, two tanh), where the gradient needs two, as the forward does.  No
 // capped <192, 128> is built (MLA ignores the cap).
 //
-// The CUDA cores (`flash_bwd_dkdv`, `flash_bwd_dq`: one template over the
-// storage type, float32 arithmetic): float32 at every head dim (TF32 could
-// not meet its 1e-4 check), and bfloat16 at head dim 256, where the wgmma
-// blocks' dK and dV accumulators would not fit a warpgroup's registers.  The
-// S and dP products read rows of Q, dO, K and V along D as float4 from tiles
-// padded by 4 floats (free of bank conflicts), and the output products read
-// one row of dS or P per step, broadcast.
-#include <type_traits>
-
+// The CUDA cores (`flash_bwd_dkdv`, `flash_bwd_dq`: float32 arithmetic, a
+// template over the storage type, built for float32 alone): float32 at every
+// head dim (TF32 could not meet its 1e-4 check).  The S and dP products read
+// rows of Q, dO, K and V along D as float4 from tiles padded by 4 floats
+// (free of bank conflicts), and the output products read one row of dS or P
+// per step, broadcast.
 #include "hopper.cuh"
 
 namespace {
@@ -448,40 +458,26 @@ bool bad_shape(int B, int H, int KvH, int Sq, int Sk, int kv_len) {
          kv_len > Sk;
 }
 
-// float32 at any head dim; bfloat16 at 256 only (below it the tensor cores)
-template <typename T, bool CAP>
-int launch_any(const void* q, const void* k, const void* v, const void* o, const void* dout,
+// float32 at any head dim (bfloat16 runs on the tensor cores, below)
+template <bool CAP>
+int launch_f32(const void* q, const void* k, const void* v, const void* o, const void* dout,
                const float* lse, float* delta, void* dq, void* dk, void* dv, int B, int H,
                int KvH, int Sq, int Sk, int D, const long long* st, float scale, int causal,
                int window, int kv_len, float cap, cudaStream_t s) {
   if (bad_shape(B, H, KvH, Sq, Sk, kv_len)) return (int)cudaErrorInvalidValue;
   // the float4 reads of the tiles come from shared memory, so the operands'
   // rows need no alignment here
-  const T *tq = (const T*)q, *tk = (const T*)k, *tv = (const T*)v, *to = (const T*)o;
-  const T* tg = (const T*)dout;
-  T *gq = (T*)dq, *gk = (T*)dk, *gv = (T*)dv;
-  if constexpr (std::is_same<T, float>::value) {
-    switch (D) {
-      case 16: return launch_d<T, 16, CAP>(tq, tk, tv, to, tg, lse, delta, gq, gk, gv, B, H, KvH, Sq, Sk, st, scale, causal, window, kv_len, cap, s);
-      case 32: return launch_d<T, 32, CAP>(tq, tk, tv, to, tg, lse, delta, gq, gk, gv, B, H, KvH, Sq, Sk, st, scale, causal, window, kv_len, cap, s);
-      case 64: return launch_d<T, 64, CAP>(tq, tk, tv, to, tg, lse, delta, gq, gk, gv, B, H, KvH, Sq, Sk, st, scale, causal, window, kv_len, cap, s);
-      case 128: return launch_d<T, 128, CAP>(tq, tk, tv, to, tg, lse, delta, gq, gk, gv, B, H, KvH, Sq, Sk, st, scale, causal, window, kv_len, cap, s);
-    }
+  const float *tq = (const float*)q, *tk = (const float*)k, *tv = (const float*)v;
+  const float *to = (const float*)o, *tg = (const float*)dout;
+  float *gq = (float*)dq, *gk = (float*)dk, *gv = (float*)dv;
+  switch (D) {
+    case 16: return launch_d<float, 16, CAP>(tq, tk, tv, to, tg, lse, delta, gq, gk, gv, B, H, KvH, Sq, Sk, st, scale, causal, window, kv_len, cap, s);
+    case 32: return launch_d<float, 32, CAP>(tq, tk, tv, to, tg, lse, delta, gq, gk, gv, B, H, KvH, Sq, Sk, st, scale, causal, window, kv_len, cap, s);
+    case 64: return launch_d<float, 64, CAP>(tq, tk, tv, to, tg, lse, delta, gq, gk, gv, B, H, KvH, Sq, Sk, st, scale, causal, window, kv_len, cap, s);
+    case 128: return launch_d<float, 128, CAP>(tq, tk, tv, to, tg, lse, delta, gq, gk, gv, B, H, KvH, Sq, Sk, st, scale, causal, window, kv_len, cap, s);
+    case 256: return launch_d<float, 256, CAP>(tq, tk, tv, to, tg, lse, delta, gq, gk, gv, B, H, KvH, Sq, Sk, st, scale, causal, window, kv_len, cap, s);
   }
-  if (D == 256)
-    return launch_d<T, 256, CAP>(tq, tk, tv, to, tg, lse, delta, gq, gk, gv, B, H, KvH, Sq, Sk, st, scale, causal, window, kv_len, cap, s);
   return (int)cudaErrorInvalidValue;
-}
-
-template <typename T>
-int launch_any_cap(const void* q, const void* k, const void* v, const void* o, const void* dout,
-                   const float* lse, float* delta, void* dq, void* dk, void* dv, int B, int H,
-                   int KvH, int Sq, int Sk, int D, const long long* st, float scale, int causal,
-                   int window, int kv_len, float cap, cudaStream_t s) {
-  if (cap < 0.f) return (int)cudaErrorInvalidValue;
-  if (cap > 0.f)
-    return launch_any<T, true>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, KvH, Sq, Sk, D, st, scale, causal, window, kv_len, cap, s);
-  return launch_any<T, false>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, KvH, Sq, Sk, D, st, scale, causal, window, kv_len, cap, s);
 }
 
 // -- bfloat16 on the tensor cores ---------------------------------------------------
@@ -496,7 +492,11 @@ struct BwdTile {
   static constexpr int SWZ = DQK >= 64 ? 128 : DQK * 2;   // bytes of a box row, its swizzle
   static constexpr int COLS = SWZ / 2;                    // head dims a box
   static constexpr int QK_BOXES = DQK / COLS, V_BOXES = DV / COLS;
-  // dK, dV: KK keys a block that stay, query tiles of KQ rows in the ring
+  // dK, dV: KK keys a block that stay, query tiles of KQ rows in the ring.
+  // Under SPLIT (head dim 256, where dK and dV of 64 keys would take 256
+  // accumulators a thread) a block accumulates one of them, for a slice of
+  // its group's query heads
+  static constexpr bool SPLIT = DQK == 256;
   static constexpr int KK = 128;
   static constexpr int KQ = (DQK + DV) / 2 + 64 <= 192 ? 64 : 32;
   static constexpr int K_TILE = KK * DQK * 2, V_TILE = KK * DV * 2;
@@ -507,7 +507,7 @@ struct BwdTile {
   static constexpr int DKDV_SMEM =
       1024 + K_TILE + V_TILE + STAGES * (KQ_STAGE + 2 * KQ * 4) + 64;
   // dQ: QQ query rows a block that stay, key tiles of QK keys in the ring
-  static constexpr int QQ = 128, QK = 64;
+  static constexpr int QQ = 128, QK = DQK == 256 ? 32 : 64;
   static constexpr int Q_TILE = QQ * DQK * 2, DO_TILE = QQ * DV * 2;
   static constexpr int QK_K = QK * DQK * 2;               // K's bytes in a stage
   static constexpr int QK_STAGE = QK_K + QK * DV * 2;     // and V's
@@ -546,6 +546,12 @@ __device__ __forceinline__ float bwd_p2(float s, float lse_log2, float qk_mul, f
   return exp2f(fmaf(s, qk_mul, -lse_log2));
 }
 
+// Grid x: the KV head, the block writing dK and dV summed over its whole
+// group.  Under SPLIT it is (KV head, head slice, output), the output fastest:
+// output 1 accumulates dK = scale dS^T Q, output 0 dV = P^T dO, which needs
+// neither V nor dP^T.  Such a block writes its slice's sum in float32 to
+// `part`, (2, slices, B, KvH, Sk, DQK), for `flash_bwd_dkdv_sum`, or in bf16
+// to dK or dV where the group is one slice.
 template <int DQK, int DV, bool CAP>
 __global__ void __launch_bounds__(BwdTile<DQK, DV>::THREADS, 1)
 flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
@@ -553,10 +559,11 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_consta
                      const __grid_constant__ CUtensorMap tdo, MapDims mq, MapDims mk,
                      MapDims mv, MapDims mdo, const float* __restrict__ lse,
                      const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
-                     __nv_bfloat16* __restrict__ dv, Strides dks, Strides dvs, int H, int group,
-                     int Sq, int Sk, float scale, float qk_mul, int causal, int window,
-                     int kv_len, float cap_log2) {
+                     __nv_bfloat16* __restrict__ dv, float* __restrict__ part, Strides dks,
+                     Strides dvs, int H, int group, int slices, int Sq, int Sk, float scale,
+                     float qk_mul, int causal, int window, int kv_len, float cap_log2) {
   using T = BwdTile<DQK, DV>;
+  constexpr bool SPLIT = T::SPLIT;
   constexpr int SWZ = T::SWZ, COLS = T::COLS, KK = T::KK, BQ = T::KQ, STAGES = T::STAGES;
   constexpr int AHEAD = STAGES - 1;
   extern __shared__ __align__(1024) uint8_t fsm[];
@@ -572,13 +579,18 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_consta
   // the key tiles are the grid's slowest dim, first tiles first: under a
   // causal mask they have the most query tiles
   const int k0 = blockIdx.z * KK;
-  const int kvh = blockIdx.x, b = blockIdx.y;
+  const int b = blockIdx.y;
+  const int out = SPLIT ? blockIdx.x % 2 : 0;           // under SPLIT: 1 dK, 0 dV
+  const int slice = SPLIT ? blockIdx.x / 2 % slices : 0;
+  const int kvh = SPLIT ? blockIdx.x / 2 / slices : blockIdx.x;
+  const bool with_dp = !SPLIT || out == 1;              // V and dP^T: for dK only
+  const int heads = group / slices, h0 = kvh * group + slice * heads;
   // the query rows that see a key of this tile: from k0 on under a causal
   // mask, before k0 + KK - 1 + window under a window, none past kv_len
   const int q_begin = causal ? k0 / BQ * BQ : 0;
   const int q_end = k0 >= kv_len ? q_begin : window > 0 ? min(Sq, k0 + KK - 1 + window) : Sq;
   const int n_qt = q_end > q_begin ? (q_end - q_begin + BQ - 1) / BQ : 0;
-  const int tiles = group * n_qt;                 // (query head, query tile), heads outer
+  const int tiles = heads * n_qt;                 // (query head, query tile), heads outer
 
   if (threadIdx.x == 0) {
     mbar_init(kv_full, 1);
@@ -593,7 +605,7 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_consta
   // tile t's stage: Q and dO by TMA (lane 0), lse and Delta by cp.async
   // (zeros past Sq), all completing on the stage's full barrier
   auto produce = [&](int t) {
-    const int s = t % STAGES, h = kvh * group + t / n_qt, q0 = q_begin + t % n_qt * BQ;
+    const int s = t % STAGES, h = h0 + t / n_qt, q0 = q_begin + t % n_qt * BQ;
     if (t >= STAGES) mbar_wait(empty + 8 * s, ((t / STAGES) - 1) & 1);
     const uint32_t bar = full + 8 * s, q_st = ring + s * T::KQ_STAGE, do_st = q_st + T::KQ_Q;
     if (l == 0) {
@@ -616,11 +628,12 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_consta
 
   if (warp == 0) {
     if (l == 0) {
-      mbar_expect_tx(kv_full, T::K_TILE + T::V_TILE);
+      mbar_expect_tx(kv_full, T::K_TILE + (with_dp ? T::V_TILE : 0));
       for (int j = 0; j < T::QK_BOXES; ++j)
         tma_load_bhsd(k_sm + j * KK * SWZ, &tk, mk, j * COLS, kvh, k0, b, kv_full);
-      for (int j = 0; j < T::V_BOXES; ++j)
-        tma_load_bhsd(v_sm + j * KK * SWZ, &tv, mv, j * COLS, kvh, k0, b, kv_full);
+      if (with_dp)
+        for (int j = 0; j < T::V_BOXES; ++j)
+          tma_load_bhsd(v_sm + j * KK * SWZ, &tv, mv, j * COLS, kvh, k0, b, kv_full);
     }
     for (int t = 0; t < AHEAD && t < tiles; ++t) produce(t);
   }
@@ -630,11 +643,12 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_consta
   const int kw0 = k0 + wg * 64;
   const int krow = kw0 + w * 16 + l / 4;           // this thread's keys: krow, krow + 8
   const uint32_t k_wg = k_sm + wg * 64 * SWZ, v_wg = v_sm + wg * 64 * SWZ;
-  float adk[DQK / 2], adv[DV / 2];
+  // under SPLIT adk holds the block's one output, dK or dV
+  float adk[DQK / 2], adv[SPLIT ? 1 : DV / 2];
 #pragma unroll
   for (int i = 0; i < DQK / 2; ++i) adk[i] = 0.f;
 #pragma unroll
-  for (int i = 0; i < DV / 2; ++i) adv[i] = 0.f;
+  for (int i = 0; i < (SPLIT ? 1 : DV / 2); ++i) adv[i] = 0.f;
   mbar_wait(kv_full, 0);
 
   for (int t = 0; t < tiles; ++t) {
@@ -658,11 +672,13 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_consta
         wgmma_ss<BQ>(st, smem_desc(k_wg + in_box * KK * SWZ + off, 16, 8 * SWZ, SWZ),
                      smem_desc(q_st + in_box * BQ * SWZ + off, 16, 8 * SWZ, SWZ), 0);
       }
+      if (with_dp) {
 #pragma unroll
-      for (int kk = 0; kk < DV / 16; ++kk) {
-        const uint32_t in_box = kk * 16 / COLS, off = (kk * 16 % COLS) * 2;
-        wgmma_ss<BQ>(dpt, smem_desc(v_wg + in_box * KK * SWZ + off, 16, 8 * SWZ, SWZ),
-                     smem_desc(do_st + in_box * BQ * SWZ + off, 16, 8 * SWZ, SWZ), 0);
+        for (int kk = 0; kk < DV / 16; ++kk) {
+          const uint32_t in_box = kk * 16 / COLS, off = (kk * 16 % COLS) * 2;
+          wgmma_ss<BQ>(dpt, smem_desc(v_wg + in_box * KK * SWZ + off, 16, 8 * SWZ, SWZ),
+                       smem_desc(do_st + in_box * BQ * SWZ + off, 16, 8 * SWZ, SWZ), 0);
+        }
       }
       wgmma_commit();
       wgmma_wait_all();
@@ -681,7 +697,8 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_consta
         hi[r] = (kpos >= kv_len ? -1 : window > 0 ? min(Sq - 1, kpos + window - 1) : Sq - 1) -
                 qcol;
       }
-      uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+      // the A fragments: P^T and dS^T, or under SPLIT the block's one of them
+      uint32_t pa[BQ / 16][4], da[SPLIT ? 1 : BQ / 16][4];
 #pragma unroll
       for (int kk = 0; kk < BQ / 16; ++kk)
 #pragma unroll
@@ -696,20 +713,34 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_consta
             p0 = c >= lo[r] && c <= hi[r] ? p0 : 0.f;
             p1 = c + 1 >= lo[r] && c + 1 <= hi[r] ? p1 : 0.f;
           }
-          pa[kk][j] = bf16_pair(p0, p1);
-          da[kk][j] = CAP ? bf16_pair(p0 * (dpt[i] - dl.x) * d0, p1 * (dpt[i + 1] - dl.y) * d1)
-                          : bf16_pair(p0 * (dpt[i] - dl.x), p1 * (dpt[i + 1] - dl.y));
+          const uint32_t p = bf16_pair(p0, p1);
+          const uint32_t ds =
+              CAP ? bf16_pair(p0 * (dpt[i] - dl.x) * d0, p1 * (dpt[i + 1] - dl.y) * d1)
+                  : bf16_pair(p0 * (dpt[i] - dl.x), p1 * (dpt[i + 1] - dl.y));
+          if constexpr (SPLIT) {
+            pa[kk][j] = out ? ds : p;
+          } else {
+            pa[kk][j] = p;
+            da[kk][j] = ds;
+          }
         }
 
       // dV += P^T dO, dK += dS^T Q: dO and Q are (query rows, dims), N-major;
       // k16 step kk is 16 rows down, the boxes of COLS dims BQ*SWZ bytes apart
       wgmma_fence();
+      if constexpr (SPLIT) {
+        const uint32_t b_st = out ? q_st : do_st;
 #pragma unroll
-      for (int kk = 0; kk < BQ / 16; ++kk)
-        wgmma_rs<DV>(adv, pa[kk], smem_desc(do_st + kk * 16 * SWZ, BQ * SWZ, 8 * SWZ, SWZ));
+        for (int kk = 0; kk < BQ / 16; ++kk)
+          wgmma_rs<DQK>(adk, pa[kk], smem_desc(b_st + kk * 16 * SWZ, BQ * SWZ, 8 * SWZ, SWZ));
+      } else {
 #pragma unroll
-      for (int kk = 0; kk < BQ / 16; ++kk)
-        wgmma_rs<DQK>(adk, da[kk], smem_desc(q_st + kk * 16 * SWZ, BQ * SWZ, 8 * SWZ, SWZ));
+        for (int kk = 0; kk < BQ / 16; ++kk)
+          wgmma_rs<DV>(adv, pa[kk], smem_desc(do_st + kk * 16 * SWZ, BQ * SWZ, 8 * SWZ, SWZ));
+#pragma unroll
+        for (int kk = 0; kk < BQ / 16; ++kk)
+          wgmma_rs<DQK>(adk, da[kk], smem_desc(q_st + kk * 16 * SWZ, BQ * SWZ, 8 * SWZ, SWZ));
+      }
       wgmma_commit();
       wgmma_wait_all();
     }
@@ -717,23 +748,81 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_consta
     if (l == 0) mbar_arrive(empty + 8 * s);
   }
 
-  __nv_bfloat16* dkp = dk + b * dks.b + kvh * dks.h;
-  __nv_bfloat16* dvp = dv + b * dvs.b + kvh * dvs.h;
+  if constexpr (SPLIT) {
+    const float mul = out ? scale : 1.f;
+    const int KvH = gridDim.x / (2 * slices);
+    // one output's elements a slice, and where this block's rows start
+    const long long n = (long long)gridDim.y * KvH * Sk * DQK;
+    float* fp = part + (out * slices + slice) * n + ((long long)b * KvH + kvh) * Sk * DQK;
+    const Strides os = out ? dks : dvs;
+    __nv_bfloat16* bp = (out ? dk : dv) + b * os.b + kvh * os.h;
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int key = krow + 8 * r;
-    if (key >= Sk) continue;
-    __nv_bfloat16* krow_k = dkp + (long long)key * dks.s + 2 * (l % 4);
-    __nv_bfloat16* krow_v = dvp + (long long)key * dvs.s + 2 * (l % 4);
+    for (int r = 0; r < 2; ++r) {
+      const int key = krow + 8 * r;
+      if (key >= Sk) continue;
+      if (slices > 1) {
+        float* row = fp + (long long)key * DQK + 2 * (l % 4);
 #pragma unroll
-    for (int j = 0; j < DQK / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(krow_k + 8 * j) =
-          __floats2bfloat162_rn(adk[4 * j + 2 * r] * scale, adk[4 * j + 2 * r + 1] * scale);
+        for (int j = 0; j < DQK / 8; ++j)
+          *reinterpret_cast<float2*>(row + 8 * j) =
+              make_float2(adk[4 * j + 2 * r] * mul, adk[4 * j + 2 * r + 1] * mul);
+      } else {
+        __nv_bfloat16* row = bp + (long long)key * os.s + 2 * (l % 4);
 #pragma unroll
-    for (int j = 0; j < DV / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(krow_v + 8 * j) =
-          __floats2bfloat162_rn(adv[4 * j + 2 * r], adv[4 * j + 2 * r + 1]);
+        for (int j = 0; j < DQK / 8; ++j)
+          *reinterpret_cast<__nv_bfloat162*>(row + 8 * j) =
+              __floats2bfloat162_rn(adk[4 * j + 2 * r] * mul, adk[4 * j + 2 * r + 1] * mul);
+      }
+    }
+  } else {
+    __nv_bfloat16* dkp = dk + b * dks.b + kvh * dks.h;
+    __nv_bfloat16* dvp = dv + b * dvs.b + kvh * dvs.h;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = krow + 8 * r;
+      if (key >= Sk) continue;
+      __nv_bfloat16* krow_k = dkp + (long long)key * dks.s + 2 * (l % 4);
+      __nv_bfloat16* krow_v = dvp + (long long)key * dvs.s + 2 * (l % 4);
+#pragma unroll
+      for (int j = 0; j < DQK / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(krow_k + 8 * j) =
+            __floats2bfloat162_rn(adk[4 * j + 2 * r] * scale, adk[4 * j + 2 * r + 1] * scale);
+#pragma unroll
+      for (int j = 0; j < DV / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(krow_v + 8 * j) =
+            __floats2bfloat162_rn(adv[4 * j + 2 * r], adv[4 * j + 2 * r + 1]);
+    }
   }
+}
+
+// dK and dV from the head slices' float32 sums, `part` (2, slices, B, KvH, Sk,
+// D) with dV first, added in slice order (no atomics: a call is deterministic)
+// and rounded to bf16; four head dims a thread, n = B KvH Sk D
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_dkdv_sum(const float* __restrict__ part, __nv_bfloat16* __restrict__ dk,
+                   __nv_bfloat16* __restrict__ dv, Strides dks, Strides dvs, int slices, int KvH,
+                   int Sk, int D, long long n) {
+  const long long at = ((long long)blockIdx.x * THREADS + threadIdx.x) * 4;
+  if (at >= 2 * n) return;
+  const int out = at >= n;                        // 1: dK
+  const long long e = at - out * n;
+  const float* src = part + out * slices * n + e;
+  float4 acc = *reinterpret_cast<const float4*>(src);
+  for (int i = 1; i < slices; ++i) {
+    const float4 x = *reinterpret_cast<const float4*>(src + i * n);
+    acc.x += x.x;
+    acc.y += x.y;
+    acc.z += x.z;
+    acc.w += x.w;
+  }
+  const int d = (int)(e % D);
+  const long long row = e / D;
+  const int key = (int)(row % Sk), kvh = (int)(row / Sk % KvH), b = (int)(row / Sk / KvH);
+  const Strides os = out ? dks : dvs;
+  __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(
+      (out ? dk : dv) + b * os.b + kvh * os.h + key * os.s + d);
+  dst[0] = __floats2bfloat162_rn(acc.x, acc.y);
+  dst[1] = __floats2bfloat162_rn(acc.z, acc.w);
 }
 
 // Two blocks an SM at DQK <= 64 (128 registers a thread; the four warpgroups
@@ -904,8 +993,10 @@ template <int DQK, int DV, bool CAP>
 int launch_wgmma_d(const void* q, const void* k, const void* v, const void* o, const void* dout,
                    const float* lse, float* delta, void* dq, void* dk, void* dv, int B, int H,
                    int KvH, int Sq, int Sk, const long long* st, float scale, int causal,
-                   int window, int kv_len, float cap, cudaStream_t stream) {
+                   int window, int kv_len, float cap, float* part, int slices,
+                   cudaStream_t stream) {
   using T = BwdTile<DQK, DV>;
+  if (slices > 1 && !T::SPLIT) return (int)cudaErrorInvalidValue;
   // the dK/dV pass reads Q and dO in boxes of KQ rows, K and V of KK; the dQ
   // pass Q and dO of QQ rows, K and V of QK
   CUtensorMap aq, ak, av, ado, bq, bk, bv, bdo;
@@ -938,12 +1029,21 @@ int launch_wgmma_d(const void* q, const void* k, const void* v, const void* o, c
   if (e) return e;
   const int group = H / KvH;
   const float qk_mul = CAP ? scale / cap : scale * LOG2E, cap_log2 = cap * LOG2E;
-  flash_bwd_dkdv_wgmma<DQK, DV, CAP><<<dim3(KvH, B, (Sk + T::KK - 1) / T::KK), T::THREADS,
-                                       T::DKDV_SMEM, stream>>>(
-      aq, ak, av, ado, maq, mak, mav, mado, lse, delta, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv,
-      dks, dvs, H, group, Sq, Sk, scale, qk_mul, causal, window, kv_len, cap_log2);
+  __nv_bfloat16 *gk = (__nv_bfloat16*)dk, *gv = (__nv_bfloat16*)dv;
+  flash_bwd_dkdv_wgmma<DQK, DV, CAP><<<dim3(T::SPLIT ? KvH * slices * 2 : KvH, B,
+                                            (Sk + T::KK - 1) / T::KK),
+                                       T::THREADS, T::DKDV_SMEM, stream>>>(
+      aq, ak, av, ado, maq, mak, mav, mado, lse, delta, gk, gv, part, dks, dvs, H, group, slices,
+      Sq, Sk, scale, qk_mul, causal, window, kv_len, cap_log2);
   e = (int)cudaGetLastError();
   if (e) return e;
+  if (slices > 1) {
+    const long long n = (long long)B * KvH * Sk * DQK;
+    flash_bwd_dkdv_sum<<<(unsigned)((n / 2 + THREADS - 1) / THREADS), THREADS, 0, stream>>>(
+        part, gk, gv, dks, dvs, slices, KvH, Sk, DQK, n);
+    e = (int)cudaGetLastError();
+    if (e) return e;
+  }
   flash_bwd_dq_wgmma<DQK, DV, CAP><<<dim3(H, B, (Sq + T::QQ - 1) / T::QQ), T::THREADS,
                                      T::DQ_SMEM, stream>>>(
       bq, bk, bv, bdo, mbq, mbk, mbv, mbdo, lse, delta, (__nv_bfloat16*)dq, dqs, H, group, Sq,
@@ -956,12 +1056,13 @@ int launch_wgmma_dims(const void* q, const void* k, const void* v, const void* o
                       const void* dout, const float* lse, float* delta, void* dq, void* dk,
                       void* dv, int B, int H, int KvH, int Sq, int Sk, int D,
                       const long long* st, float scale, int causal, int window, int kv_len,
-                      float cap, cudaStream_t s) {
+                      float cap, float* part, int slices, cudaStream_t s) {
   switch (D) {
-    case 16: return launch_wgmma_d<16, 16, CAP>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, KvH, Sq, Sk, st, scale, causal, window, kv_len, cap, s);
-    case 32: return launch_wgmma_d<32, 32, CAP>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, KvH, Sq, Sk, st, scale, causal, window, kv_len, cap, s);
-    case 64: return launch_wgmma_d<64, 64, CAP>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, KvH, Sq, Sk, st, scale, causal, window, kv_len, cap, s);
-    case 128: return launch_wgmma_d<128, 128, CAP>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, KvH, Sq, Sk, st, scale, causal, window, kv_len, cap, s);
+    case 16: return launch_wgmma_d<16, 16, CAP>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, KvH, Sq, Sk, st, scale, causal, window, kv_len, cap, part, slices, s);
+    case 32: return launch_wgmma_d<32, 32, CAP>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, KvH, Sq, Sk, st, scale, causal, window, kv_len, cap, part, slices, s);
+    case 64: return launch_wgmma_d<64, 64, CAP>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, KvH, Sq, Sk, st, scale, causal, window, kv_len, cap, part, slices, s);
+    case 128: return launch_wgmma_d<128, 128, CAP>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, KvH, Sq, Sk, st, scale, causal, window, kv_len, cap, part, slices, s);
+    case 256: return launch_wgmma_d<256, 256, CAP>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, KvH, Sq, Sk, st, scale, causal, window, kv_len, cap, part, slices, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -973,43 +1074,37 @@ int launch_wgmma_dims(const void* q, const void* k, const void* v, const void* o
 // strides in elements over (batch, head, position) — twenty-four values in
 // `strides`, in the order q, k, v, o, dout, dq, dk, dv — with the head dim
 // contiguous; lse and delta (B,H,Sq) float32, contiguous (delta is scratch).
-// All three take the same arguments.  The CUDA-core launchers take D = Dv
-// (they refuse Dv != D) of 16, 32, 64, 128 or 256 (float32) or 256
-// (bfloat16); the wgmma one (D, Dv) of (16, 16), (32, 32), (64, 64),
-// (128, 128) or (192, 128), with q, k, v, o and dout 16-byte aligned and their strides whole 16 bytes (TMA's rule),
-// dq, dk and dv 4-byte aligned with even strides.  `window` <= 0 means none;
-// keys at positions >= `kv_len` are masked.  `cap` > 0 is the forward's logit
-// cap, 0 none; (192, 128) takes none.  They launch the three kernels on
-// `stream` and return cudaGetLastError() (cudaErrorInvalidValue for a shape
-// they do not take).
+// The float32 launcher takes D = Dv (it refuses Dv != D) of 16, 32, 64, 128
+// or 256; the wgmma one (D, Dv) of (16, 16), (32, 32), (64, 64), (128, 128),
+// (256, 256) or (192, 128), with q, k, v, o and dout 16-byte aligned and
+// their strides whole 16 bytes (TMA's rule), dq, dk and dv 4-byte aligned
+// with even strides.  `window` <= 0 means none; keys at positions >= `kv_len`
+// are masked.  `cap` > 0 is the forward's logit cap, 0 none; (192, 128)
+// takes none.  The wgmma launcher also takes the number of slices a group's
+// query heads are split into (`slices`, dividing H / KvH; above 1 only at
+// head dim 256) and, where there are several, their float32 scratch `part`
+// of 2 slices B KvH Sk D floats, 16-byte aligned.  The launchers launch their
+// kernels on `stream` and return cudaGetLastError() (cudaErrorInvalidValue
+// for a shape they do not take).
 extern "C" int launch_flash_attention_bwd_f32(
     const void* q, const void* k, const void* v, const void* o, const void* dout,
     const float* lse, float* delta, void* dq, void* dk, void* dv, int B, int H, int KvH, int Sq,
     int Sk, int D, int Dv, const long long* strides, float scale, int causal, int window,
     int kv_len, float cap, void* stream) {
-  if (Dv != D) return (int)cudaErrorInvalidValue;
-  return launch_any_cap<float>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, KvH, Sq, Sk, D,
-                               strides, scale, causal, window, kv_len, cap,
-                               (cudaStream_t)stream);
-}
-
-extern "C" int launch_flash_attention_bwd_bf16(
-    const void* q, const void* k, const void* v, const void* o, const void* dout,
-    const float* lse, float* delta, void* dq, void* dk, void* dv, int B, int H, int KvH, int Sq,
-    int Sk, int D, int Dv, const long long* strides, float scale, int causal, int window,
-    int kv_len, float cap, void* stream) {
-  if (Dv != D) return (int)cudaErrorInvalidValue;
-  return launch_any_cap<__nv_bfloat16>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, KvH, Sq,
-                                       Sk, D, strides, scale, causal, window, kv_len, cap,
-                                       (cudaStream_t)stream);
+  if (Dv != D || cap < 0.f) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (cap > 0.f)
+    return launch_f32<true>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, KvH, Sq, Sk, D, strides, scale, causal, window, kv_len, cap, s);
+  return launch_f32<false>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, KvH, Sq, Sk, D, strides, scale, causal, window, kv_len, cap, s);
 }
 
 extern "C" int launch_flash_attention_bwd_bf16_wgmma(
     const void* q, const void* k, const void* v, const void* o, const void* dout,
     const float* lse, float* delta, void* dq, void* dk, void* dv, int B, int H, int KvH, int Sq,
     int Sk, int D, int Dv, const long long* strides, float scale, int causal, int window,
-    int kv_len, float cap, void* stream) {
-  if (bad_shape(B, H, KvH, Sq, Sk, kv_len) || cap < 0.f ||
+    int kv_len, float cap, void* part, int slices, void* stream) {
+  if (bad_shape(B, H, KvH, Sq, Sk, kv_len) || cap < 0.f || slices < 1 || (H / KvH) % slices ||
+      (slices > 1 && (!part || (uintptr_t)part % 16)) ||
       ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o | (uintptr_t)dout) % 16 ||
       ((uintptr_t)dq | (uintptr_t)dk | (uintptr_t)dv) % 4)
     return (int)cudaErrorInvalidValue;
@@ -1017,11 +1112,12 @@ extern "C" int launch_flash_attention_bwd_bf16_wgmma(
   for (int i = 0; i < 24; ++i)
     if (strides[i] % (i < 15 ? 8 : 2)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  float* f = (float*)part;
   // the pairs with D != Dv are BF16_PAIRS of kernels/flash_attention.py
   if (D == 192 && Dv == 128 && cap == 0.f)
-    return launch_wgmma_d<192, 128, false>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, KvH, Sq, Sk, strides, scale, causal, window, kv_len, cap, s);
+    return launch_wgmma_d<192, 128, false>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, KvH, Sq, Sk, strides, scale, causal, window, kv_len, cap, f, slices, s);
   if (Dv != D) return (int)cudaErrorInvalidValue;
   if (cap > 0.f)
-    return launch_wgmma_dims<true>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, KvH, Sq, Sk, D, strides, scale, causal, window, kv_len, cap, s);
-  return launch_wgmma_dims<false>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, KvH, Sq, Sk, D, strides, scale, causal, window, kv_len, cap, s);
+    return launch_wgmma_dims<true>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, KvH, Sq, Sk, D, strides, scale, causal, window, kv_len, cap, f, slices, s);
+  return launch_wgmma_dims<false>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, KvH, Sq, Sk, D, strides, scale, causal, window, kv_len, cap, f, slices, s);
 }

@@ -468,6 +468,18 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
+// cuTensorMapEncodeTiled needs a context current to the calling thread.  A
+// thread whose first CUDA work is one of these launches may have none: so
+// was PyTorch's autograd worker on device 0 when a backward kernel was the
+// first node of the graph, and the encoding failed there.  cudaFree(0) binds
+// the thread's device's primary context (or keeps the one already current),
+// once a thread.
+bool context_bound() {
+  static thread_local bool bound = false;
+  if (!bound) bound = cudaFree(0) == cudaSuccess;
+  return bound;
+}
+
 CUtensorMapSwizzle swizzle_mode(int bytes) {
   return bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
        : bytes == 64  ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B;
@@ -483,7 +495,7 @@ int swizzle_for(int elems) {
 bool make_map(CUtensorMap* map, const void* ptr, int rows, int cols, int box_cols,
               int box_rows, int swz) {
   EncodeTiled enc = encode_tiled();
-  if (!enc) return false;
+  if (!enc || !context_bound()) return false;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
   const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
@@ -500,7 +512,7 @@ bool make_map(CUtensorMap* map, const void* ptr, int rows, int cols, int box_col
 bool make_map_4d(CUtensorMap* map, const void* ptr, const long long* dims,
                  const long long* strides, const int* box, int swz) {
   EncodeTiled enc = encode_tiled();
-  if (!enc) return false;
+  if (!enc || !context_bound()) return false;
   const cuuint64_t d[4] = {(cuuint64_t)dims[0], (cuuint64_t)dims[1], (cuuint64_t)dims[2],
                            (cuuint64_t)dims[3]};
   const cuuint64_t s[3] = {(cuuint64_t)strides[0], (cuuint64_t)strides[1],

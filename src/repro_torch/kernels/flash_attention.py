@@ -54,9 +54,10 @@ its forward is the same launch with each row's log-sum-exp written beside the
 output (``lse``), and its backward is the backward kernel S2
 (``flash_attention_bwd``) on the card, the plain backward
 (``ref.flash_attention_bwd_ref``) on the CPU.  ``bwd_route`` names the
-backward kernel a call takes: bfloat16 runs on the tensor cores for the
-forward's pairs below head dim 256 (MLA's (192, 128) among them), head dim
-256 and float32 (padded to one head dim where D != Dv) on the CUDA cores.
+backward kernels a call takes: bfloat16 runs on the tensor cores at every
+head dim of the forward (MLA's (192, 128) among them; at 256 a group's query
+heads are split across blocks, ``flash_attention_bwd.head_slices``), float32
+(padded to one head dim where D != Dv) on the CUDA cores.
 """
 
 from __future__ import annotations
@@ -140,11 +141,13 @@ def kernel_dims(D: int, Dv: int, dtype: torch.dtype,
                      f"(D {D}, Dv {Dv}); its pairs with D != Dv are {BF16_PAIRS}")
 
 
-#: the backward kernels of each route, in launch order (``bwd_route``)
-BWD_KERNELS = {"wgmma": ("flash_bwd_delta", "flash_bwd_dkdv_wgmma", "flash_bwd_dq_wgmma"),
+#: the backward kernels of each route, in launch order (``bwd_route``);
+#: ``flash_bwd_dkdv_sum`` runs only where a group's heads are split in slices
+BWD_KERNELS = {"wgmma": ("flash_bwd_delta", "flash_bwd_dkdv_wgmma", "flash_bwd_dkdv_sum",
+                         "flash_bwd_dq_wgmma"),
                "cuda_cores": ("flash_bwd_delta", "flash_bwd_dkdv", "flash_bwd_dq")}
 #: the head dims (D = Dv) the tensor-core backward is built for, beside BF16_PAIRS
-BWD_WGMMA_HEAD_DIMS = (16, 32, 64, 128)
+BWD_WGMMA_HEAD_DIMS = (16, 32, 64, 128, 256)
 
 
 def bwd_route(D: int, Dv: int, dtype: torch.dtype,
@@ -153,8 +156,8 @@ def bwd_route(D: int, Dv: int, dtype: torch.dtype,
     that a call of head dims (D, Dv) in ``dtype`` takes, and the head dims
     they run it at (``kernel_dims``, whose ``ValueError`` a bfloat16 pair that
     is not built, or a ``capped`` call at one, raises).  bfloat16 takes the
-    tensor cores at the dims of ``BWD_WGMMA_HEAD_DIMS`` and ``BF16_PAIRS``,
-    the CUDA cores at 256; float32 takes the CUDA cores."""
+    tensor cores, at the dims of ``BWD_WGMMA_HEAD_DIMS`` and ``BF16_PAIRS``;
+    float32 takes the CUDA cores."""
     if dtype not in _SYMBOL:
         raise TypeError(f"flash_attention_bwd takes float32 or bfloat16, got {dtype}")
     Dk, Dvk = kernel_dims(D, Dv, dtype, capped)

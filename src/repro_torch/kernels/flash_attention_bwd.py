@@ -7,9 +7,13 @@ those and dO and launches ``csrc/flash_attention_bwd.cu``: Delta =
 rowsum(dO o O), then dK and dV per key tile (a GQA group's query heads summed
 in the block, no atomics), then dQ per query tile.  ``flash_attention.bwd_route``
 picks the kernels: bfloat16 on the tensor cores (``flash_bwd_dkdv_wgmma``,
-``flash_bwd_dq_wgmma``) at the forward's head dims below 256 and MLA's
-(192, 128), the CUDA cores (``flash_bwd_dkdv``, ``flash_bwd_dq``) in float32
-and at head dim 256.  The masks are the forward's (``causal``, ``window``,
+``flash_bwd_dq_wgmma``) at every head dim of the forward and MLA's
+(192, 128), float32 on the CUDA cores (``flash_bwd_dkdv``, ``flash_bwd_dq``).
+At head dim 256 a dK/dV block accumulates one of dK and dV, for a slice of
+its group's query heads (``head_slices``: enough blocks to fill the card);
+the slices' float32 sums go to a scratch that the wrapper allocates and
+``flash_bwd_dkdv_sum`` adds them in a fixed order, so that two calls give the
+same bits.  The masks are the forward's (``causal``, ``window``,
 ``kv_len``) and so are the layouts: any strides whose head dim is contiguous,
 a head dim up to 256 that is a multiple of 8 zero-padded to the kernel's
 (``flash_attention.kernel_operands``); float32 pads a pair with D != Dv to
@@ -35,30 +39,48 @@ from . import _build
 from . import flash_attention as _fa
 from .ref import flash_attention_bwd_ref
 
-#: calls of ``flash_attention_bwd`` that launched the kernels (three launches
-#: a call; a run resets it to 0, drives its path, and reads it)
+#: calls of ``flash_attention_bwd`` that launched the kernels (three or four
+#: launches a call; a run resets it to 0, drives its path, and reads it)
 launches = 0
 #: the same calls by shape: (B, H, KvH, Sq, Sk, D, Dv, causal, softcap)
 by_shape: collections.Counter = collections.Counter()
 
-_SYMBOL = {(torch.float32, "cuda_cores"): "launch_flash_attention_bwd_f32",
-           (torch.bfloat16, "cuda_cores"): "launch_flash_attention_bwd_bf16",
-           (torch.bfloat16, "wgmma"): "launch_flash_attention_bwd_bf16_wgmma"}
+_SYMBOL = {"cuda_cores": "launch_flash_attention_bwd_f32",
+           "wgmma": "launch_flash_attention_bwd_bf16_wgmma"}
 _launchers: dict = {}
 
+#: the card's SMs (an H100 SXM's), which the dK/dV blocks at head dim 256 fill
+SMS = 132
+#: keys a dK/dV block holds at head dim 256 (``BwdTile::KK``)
+SPLIT_KEYS = 128
 
-def _launcher(dtype: torch.dtype, route: str):
-    """The launcher of a route; all take 10 pointers, (B, H, KvH, Sq, Sk, D,
-    Dv), the strides, the scale, the masks, the cap (0: none) and the
-    stream."""
-    key = (dtype, route)
-    if key not in _launchers:
+
+def head_slices(B: int, KvH: int, group: int, Sk: int, Dk: int) -> int:
+    """The slices a group's query heads are split into across S2's dK/dV
+    blocks: 1 below head dim 256, where a block sums its whole group; at 256
+    the least divisor of the group that gives at least ``SMS`` blocks (two an
+    output, dK and dV, per slice, key tile, KV head and batch row), else the
+    group, a head a slice."""
+    if Dk != 256:
+        return 1
+    blocks = 2 * B * KvH * -(-Sk // SPLIT_KEYS)
+    return next(s for s in range(1, group + 1) if group % s == 0 and
+                (blocks * s >= SMS or s == group))
+
+
+def _launcher(route: str):
+    """The launcher of a route; both take 10 pointers, (B, H, KvH, Sq, Sk,
+    D, Dv), the strides, the scale, the masks and the cap (0: none), the
+    tensor cores' then the scratch of the head slices and their number, and
+    the stream."""
+    if route not in _launchers:
         lib = _build.load_library(*_build.csrc_source("flash_attention_bwd.cu"))
-        _launchers[key] = _build.bind(
-            lib, _SYMBOL[key],
+        slices = [ctypes.c_void_p, ctypes.c_int] if route == "wgmma" else []
+        _launchers[route] = _build.bind(
+            lib, _SYMBOL[route],
             [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p, ctypes.c_float]
-            + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p])
-    return _launchers[key]
+            + [ctypes.c_int] * 3 + [ctypes.c_float] + slices + [ctypes.c_void_p])
+    return _launchers[route]
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
@@ -97,12 +119,18 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     dv = torch.empty((B, Sk, KvH, Dvk), dtype=q.dtype, device=q.device).transpose(1, 2)
     strides = (ctypes.c_longlong * 24)(*(s for t in (q, k, v, o, do, dq, dk, dv)
                                          for s in t.stride()[:3]))
+    tail = []
+    if route == "wgmma":
+        slices = head_slices(B, KvH, H // KvH, Sk, Dk)
+        part = (torch.empty((2, slices, B, KvH, Sk, Dk), dtype=torch.float32, device=q.device)
+                if slices > 1 else None)
+        tail = [part.data_ptr() if part is not None else None, slices]
     global launches
-    rc = _build.on_device(q.device, _launcher(q.dtype, route), q.data_ptr(), k.data_ptr(),
+    rc = _build.on_device(q.device, _launcher(route), q.data_ptr(), k.data_ptr(),
                           v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
                           delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H,
                           KvH, Sq, Sk, Dk, Dvk, strides, sc, int(causal), window or 0,
-                          kv_len or Sk, cap or 0.0)
+                          kv_len or Sk, cap or 0.0, *tail)
     _build.check_launch(rc, "/".join(_fa.BWD_KERNELS[route]))
     launches += 1
     by_shape[(B, H, KvH, Sq, Sk, D, Dv, bool(causal), cap)] += 1

@@ -40,6 +40,7 @@ CASES = [
     (1, 12, 20, 4, 2, 16, False, None),     # non-causal, Sq != Sk
     (2, 21, 21, 4, 2, 16, True, 5),         # a window
     (1, 40, 40, 2, 1, 8, True, 7),          # a window, several chunks
+    (1, 20, 20, 4, 1, 256, True, None),     # head dim 256, MQA (RecurrentGemma's)
 ]
 
 
@@ -169,8 +170,8 @@ def test_no_grad_call_keeps_the_plain_forward():
     (128, 128, torch.bfloat16, ("wgmma", 128, 128)),
     (80, 80, torch.bfloat16, ("wgmma", 128, 128)),         # padded to the next head dim
     (192, 128, torch.bfloat16, ("wgmma", 192, 128)),       # MLA: its own instantiation
-    (256, 256, torch.bfloat16, ("cuda_cores", 256, 256)),  # dK, dV would not fit a warpgroup
-    (200, 200, torch.bfloat16, ("cuda_cores", 256, 256)),
+    (256, 256, torch.bfloat16, ("wgmma", 256, 256)),       # dK and dV in blocks of their own
+    (200, 200, torch.bfloat16, ("wgmma", 256, 256)),
     (64, 64, torch.float32, ("cuda_cores", 64, 64)),       # float32 keeps its CUDA-core kernel
     (192, 128, torch.float32, ("cuda_cores", 256, 256)),   # padded to one head dim
     (48, 32, torch.float32, ("cuda_cores", 64, 64)),
@@ -178,6 +179,33 @@ def test_no_grad_call_keeps_the_plain_forward():
 def test_bwd_route_of_each_call(D, Dv, dtype, want):
     route = fa.bwd_route(D, Dv, dtype)
     assert route == want and route[0] in fa.BWD_KERNELS
+
+
+@pytest.mark.parametrize("D, Dv, dtype, want", [
+    (256, 256, torch.bfloat16, ("wgmma", 256, 256)),       # RecurrentGemma's, capped
+    (200, 200, torch.bfloat16, ("wgmma", 256, 256)),
+    (64, 64, torch.bfloat16, ("wgmma", 64, 64)),
+    (256, 256, torch.float32, ("cuda_cores", 256, 256)),
+])
+def test_bwd_route_of_a_capped_call(D, Dv, dtype, want):
+    assert fa.bwd_route(D, Dv, dtype, capped=True) == want
+
+
+@pytest.mark.parametrize("B, KvH, group, Sk, want", [
+    (2, 1, 16, 2048, 4),      # RecurrentGemma's training shape: 256 blocks
+    (2, 1, 16, 512, 16),      # the 2 x 512 check: a head a slice, 256 blocks
+    (2, 4, 2, 512, 2),        # no divisor reaches the card: the whole group
+    (4, 8, 2, 1024, 1),       # a block a key tile fills the card already
+])
+def test_head_slices_fill_the_card_at_head_dim_256(B, KvH, group, Sk, want):
+    """At head dim 256 S2's dK/dV blocks split a group's query heads into the
+    fewest slices that give the card ``SMS`` blocks (two outputs per slice,
+    key tile, KV head and batch row); each slice count divides the group."""
+    slices = fab.head_slices(B, KvH, group, Sk, 256)
+    assert slices == want and group % slices == 0
+    blocks = 2 * B * KvH * -(-Sk // fab.SPLIT_KEYS) * slices
+    assert blocks >= fab.SMS or slices == group
+    assert fab.head_slices(B, KvH, group, Sk, 128) == 1     # below 256 a block sums its group
 
 
 @pytest.mark.parametrize("D, Dv, dtype, error, match", [
@@ -194,14 +222,19 @@ def test_bwd_route_refuses_what_no_kernel_takes(D, Dv, dtype, error, match):
 
 def test_bwd_routes_are_what_the_source_builds():
     """The tensor-core launcher's dispatch instantiates exactly
-    ``BWD_WGMMA_HEAD_DIMS`` and ``BF16_PAIRS`` (a pair without the logit cap
-    only), and each route's kernels are defined in the source."""
+    ``BWD_WGMMA_HEAD_DIMS`` (head dim 256 among them, capped and not) and
+    ``BF16_PAIRS`` (a pair without the logit cap only), the CUDA cores'
+    float32 alone, and each route's kernels are defined in the source."""
     src = (Path(fa.__file__).parent.parent / "csrc" / "flash_attention_bwd.cu").read_text()
     inst = re.findall(r"launch_wgmma_d<(\d+), (\d+), (CAP|false)>\(q", src)
     built = {(int(d), int(dv)) for d, dv, _ in inst}
     assert {pair for pair in built if pair[0] != pair[1]} == set(fa.BF16_PAIRS)
     assert {d for d, dv in built if d == dv} == set(fa.BWD_WGMMA_HEAD_DIMS)
     assert all(cap == "false" for d, dv, cap in inst if d != dv)
+    assert ("256", "256", "CAP") in inst
+    assert {m for m in re.findall(r"launch_wgmma_dims<(\w+)>\(q", src)} == {"true", "false"}
+    assert set(re.findall(r"launch_d<(\w+), (\d+), CAP>\(", src)) == {
+        ("float", str(d)) for d in fa.HEAD_DIMS}
     for names in fa.BWD_KERNELS.values():
         for name in names:
             assert re.search(rf"^{name}\(", src, re.M), name

@@ -12,6 +12,11 @@ has neither ``jax`` nor the reference package's dependencies.  It also holds
 the small designs and operand makers that the CPU tests share with it.
 """
 
+import os
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -1712,7 +1717,12 @@ BWD_CASES_CARD = [
     (4, 128, 128, 10, 5, 64, 64, "float32", True, None, None),      # TINYLM's (the example)
     (2, 2048, 2048, 16, 16, 192, 128, "bfloat16", True, None, None),  # deepseek's MLA step
     (2, 512, 512, 16, 2, 128, 128, "bfloat16", True, None, None),   # D 128
-    (2, 512, 512, 16, 1, 256, 256, "bfloat16", True, None, None),   # D 256 (CUDA cores), group 16
+    (2, 512, 512, 16, 1, 256, 256, "bfloat16", True, None, None),   # D 256, group 16: 16 slices
+    (2, 2048, 2048, 16, 1, 256, 256, "bfloat16", True, 2048, None),  # RecurrentGemma's step
+    (2, 300, 300, 8, 1, 256, 256, "bfloat16", True, None, 260),     # D 256 ragged, kv_len
+    (2, 512, 512, 8, 4, 256, 256, "bfloat16", True, None, None),    # D 256, group 2
+    (2, 200, 330, 8, 2, 256, 256, "bfloat16", False, None, None),   # D 256 non-causal, Sq != Sk
+    (4, 1024, 1024, 16, 8, 256, 256, "bfloat16", True, None, None),  # D 256, one slice
     (2, 512, 512, 16, 16, 64, 64, "bfloat16", True, None, None),    # group 1
     (2, 300, 300, 8, 1, 64, 64, "bfloat16", True, None, None),      # group 8, ragged
     (2, 1024, 1024, 16, 2, 64, 64, "bfloat16", True, 256, None),    # a window
@@ -1745,7 +1755,7 @@ def bwd_operands(dev, B, Sq, Sk, H, KvH, D, dtype, seed=0, Dv=None):
 def test_flash_attention_bwd_kernel_matches_plain_on_card(B, Sq, Sk, H, KvH, D, Dv, dtype,
                                                          causal, window, kv_len):
     """S2 against the plain backward, one call on the route ``bwd_route``
-    names (bfloat16 on the tensor cores below head dim 256)."""
+    names (bfloat16 on the tensor cores at every head dim)."""
     from repro_torch.kernels import flash_attention_bwd as fab
     dev = _cuda_or_skip()
     q, k, v, do = bwd_operands(dev, B, Sq, Sk, H, KvH, D, dtype, Dv=Dv)
@@ -1756,12 +1766,59 @@ def test_flash_attention_bwd_kernel_matches_plain_on_card(B, Sq, Sk, H, KvH, D, 
     got = fab.flash_attention_bwd(q, k, v, o, lse, do, **kw)
     torch.cuda.synchronize()
     assert fab.launches == before + 1
-    assert route == ("wgmma" if dtype == "bfloat16" and D < 256 else "cuda_cores")
+    assert route == ("wgmma" if dtype == "bfloat16" else "cuda_cores")
     want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert g.shape == w.shape and g.dtype == w.dtype
         err = float((g.float() - w.float()).abs().max())
         assert err <= BWD_TOL[dtype] * float(w.float().abs().max()), (name, err)
+
+
+# a fresh process whose first CUDA work in the autograd engine's worker
+# thread is S2 (the graph's first node): its tensor maps need a context bound
+# to that thread (hopper.cuh, context_bound)
+_FRESH_AUTOGRAD = """
+import sys, torch
+from repro_torch.kernels import ops
+g = torch.Generator().manual_seed(0)
+mk = lambda *s: torch.randn(s, generator=g).to("cuda", torch.bfloat16).requires_grad_()
+q, k, v = mk(2, 256, 8, int(sys.argv[1])), mk(2, 256, 2, int(sys.argv[1])), mk(2, 256, 2, int(sys.argv[1]))
+out = ops.mha(q, k, v, softcap=float(sys.argv[2]) or None)
+grads = torch.autograd.grad(out, (q, k, v), torch.ones_like(out))
+torch.cuda.synchronize()
+assert all(bool(torch.isfinite(t).all()) for t in grads)
+"""
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D, softcap", [(64, 0.0), (64, 50.0), (256, 0.0)])
+def test_flash_attention_bwd_runs_first_in_the_autograd_thread_on_card(D, softcap):
+    """S2 launched before any other CUDA work of the autograd engine's
+    worker thread, in a process of its own."""
+    _cuda_or_skip()
+    src = str(Path(fa.__file__).resolve().parents[2])
+    env = dict(os.environ, PYTHONPATH=src + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    run = subprocess.run([sys.executable, "-c", _FRESH_AUTOGRAD, str(D), str(softcap)],
+                         env=env, capture_output=True, text=True, timeout=600)
+    assert run.returncode == 0, run.stderr[-2000:]
+
+
+@pytest.mark.gpu
+def test_flash_attention_bwd_gives_the_same_bits_twice_on_card():
+    """At RecurrentGemma's training shape S2 splits the group's heads in
+    slices and adds their sums in a fixed order: two calls give the same
+    bits."""
+    from repro_torch.kernels import flash_attention_bwd as fab
+    dev = _cuda_or_skip()
+    B, S, H, KvH, D = 2, 2048, 16, 1, 256
+    assert fab.head_slices(B, KvH, H // KvH, S, D) > 1
+    q, k, v, do = bwd_operands(dev, B, S, S, H, KvH, D, "bfloat16", seed=4)
+    o, lse = fa._forward(q, k, v, True, 2048, D ** -0.5, None, with_lse=True)
+    first = fab.flash_attention_bwd(q, k, v, o, lse, do, window=2048)
+    second = fab.flash_attention_bwd(q, k, v, o, lse, do, window=2048)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.gpu
@@ -1937,7 +1994,7 @@ CAPPED_FLASH_CASES = [
     (2, 130, 200, 4, 4, 64, False, None),
     (2, 100, 100, 4, 2, 16, True, None),
 ]
-# the same for S2: wgmma (bf16 below 256), the CUDA cores (bf16 at 256, float32)
+# the same for S2: wgmma (bf16; at 256 the heads in slices), the CUDA cores (float32)
 CAPPED_BWD_CASES = [
     (2, 512, 512, 16, 2, 64, True, None),
     (2, 300, 300, 8, 2, 128, True, 64),
@@ -2051,6 +2108,11 @@ def test_capped_flash_attention_bwd_matches_plain_on_card(B, Sq, Sk, H, KvH, D, 
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         err = float((g.float() - w.float()).abs().max())
         assert err <= BWD_TOL[dtype] * float(w.float().abs().max()), (name, err)
+    # the uncapped kernels from the uncapped forward fall outside the limit
+    o0, lse0 = fa._forward(q, k, v, causal, window, D ** -0.5, None, with_lse=True)
+    uncapped = fab.flash_attention_bwd(q, k, v, o0, lse0, do, causal=causal, window=window)
+    assert any(float((g.float() - w.float()).abs().max())
+               > BWD_TOL[dtype] * float(w.float().abs().max()) for g, w in zip(uncapped, want))
     ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
     before = (fa.launches, fab.launches)
     out = ops.mha(ql.transpose(1, 2), kl.transpose(1, 2), vl.transpose(1, 2), **kw)
